@@ -1,0 +1,56 @@
+"""Architecture registry: one module per ported architecture.
+
+    from repro_torch.configs import get_config, list_archs
+    cfg = get_config("qwen2-0.5b")           # full production config
+    cfg = get_config("qwen2-0.5b", smoke=True)
+
+Only the architectures whose exporter path is ported are registered; the
+JAX package's other architectures raise a ``KeyError`` that says so.
+"""
+from __future__ import annotations
+
+import importlib
+
+from .base import (
+    FrontendConfig,
+    MLAConfig,
+    ModelConfig,
+    MoEConfig,
+    ParallelConfig,
+    SHAPES,
+    ShapeCell,
+    SSMConfig,
+    cell_applicable,
+)
+
+_ARCH_MODULES = {
+    "qwen2-0.5b": "qwen2_0_5b",
+}
+
+# registered in the JAX package, not ported yet (ROADMAP queue A6)
+_NOT_PORTED = (
+    "kimi-k2-1t-a32b", "deepseek-v3-671b", "whisper-medium", "glm4-9b",
+    "llama3.2-1b", "minicpm-2b", "hymba-1.5b", "llava-next-mistral-7b",
+    "rwkv6-1.6b",
+)
+
+
+def list_archs() -> list[str]:
+    return list(_ARCH_MODULES)
+
+
+def get_config(arch: str, smoke: bool = False) -> ModelConfig:
+    if arch not in _ARCH_MODULES:
+        if arch in _NOT_PORTED:
+            raise KeyError(f"arch {arch!r} is not ported to repro_torch yet "
+                           f"(ROADMAP A6); ported: {list(_ARCH_MODULES)}")
+        raise KeyError(f"unknown arch {arch!r}; known: {list(_ARCH_MODULES)}")
+    mod = importlib.import_module(f".{_ARCH_MODULES[arch]}", __package__)
+    return mod.SMOKE if smoke else mod.CONFIG
+
+
+__all__ = [
+    "FrontendConfig", "MLAConfig", "ModelConfig", "MoEConfig", "ParallelConfig",
+    "SHAPES", "ShapeCell", "SSMConfig", "cell_applicable",
+    "get_config", "list_archs",
+]

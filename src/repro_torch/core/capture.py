@@ -1,0 +1,597 @@
+"""Graph Capturer (paper §3.4) — scheduled DAG → ONE CUDA graph.
+
+The paper records a scheduled DNN into a CUDA Graph so a replay pays no
+per-op launch overhead.  This module does exactly that on the card, in two
+phases:
+
+Phase 1, ``_lower`` (capture time, runs once per plan), step for step the
+JAX package's lowering:
+  * every wave is resolved into a flat list of :class:`Step`s — either one
+    payload call or one fused stacked call;
+  * per-branch constants (weights) of stacked groups are stacked **once**
+    with ``torch.stack`` on the graph's device, so a replay never re-stacks;
+  * GEMM-kind fusion groups whose payloads declare ``meta["payload"] ==
+    "matmul"`` are routed to the hand-written ``branch_gemm`` CUDA kernel
+    (its plain version on CPU tensors);
+  * matmul groups whose branches share ``(K, F)`` but differ in row count
+    (the MoE expert fan-out with unequal routed token counts) cannot be
+    stacked — they lower to ONE ``grouped_gemm`` step: branch inputs are
+    concatenated and the kernel walks a tile→group table that is built
+    here, once, as a device tensor held by the step;
+  * each op gets a slot in a flat list environment and each slot a
+    precomputed last-use step, so intermediates are dropped as soon as
+    they are dead (inside a CUDA graph their memory is reused by later
+    steps of the same recording).
+
+Phase 2, the executor, walks the step list:
+  * CPU tensors: the walk runs eagerly on every call;
+  * CUDA tensors: the first call copies the inputs into static buffers,
+    warms the walk up on a side stream and records it into one
+    ``torch.cuda.CUDAGraph``; every call then copies its inputs into the
+    static buffers, replays, and returns clones of the outputs (so a second
+    request cannot overwrite the first one's result).
+
+Unlike the JAX package there is no rescue rung: a fused route that cannot
+be built, an armed ``kernel_compile`` / ``grouped_gemm_route`` fault site,
+or a failing replay raises.  ``CapturedGraph.degradations`` stays as an
+(empty) log so ``Session.cache_stats()["degraded_routes"]`` keeps its
+meaning.  Payloads and steps must not synchronise with the host or build
+tensors from Python values on the card: either breaks the recording.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Mapping, Sequence
+
+import torch
+
+from ..kernels.branch_gemm import ops as branch_gemm_ops
+from ..kernels.grouped_gemm import ops as grouped_gemm_ops
+from ..runtime.faults import FaultInjected, FaultPlan, get_active as _active_faults
+from ..runtime.guard import DegradationLog
+from .fusion import WaveSchedule
+from .graph import OpGraph
+
+# Routing targets for a lowered step.
+_CALL = "call"                  # single payload call
+_VMAP = "vmap"                  # stacked group via torch.func.vmap'd payload
+_BRANCH_GEMM = "branch_gemm"    # stacked group via the fused GEMM kernel
+_GROUPED_GEMM = "grouped_gemm"  # ragged-M group via the grouped GEMM kernel
+
+GEMM_KERNELS = ("auto", "kernel", "vmap")
+
+
+class PlanValidationError(ValueError):
+    """The wave schedule handed to :func:`capture` is corrupt (or the
+    ``plan_validate`` fault site fired) — the one capture failure the
+    session recovers from, by re-scheduling sequentially."""
+
+
+@dataclasses.dataclass
+class Step:
+    """One pre-lowered execution step (all decisions made at capture time)."""
+
+    route: str                          # _CALL | _VMAP | _BRANCH_GEMM |
+                                        # _GROUPED_GEMM
+    fn: Callable[..., Any] | None       # payload (vmapped for _VMAP)
+    arg_slots: tuple                    # _CALL: (slot, ...) positional args
+                                        # stacked: per-arg tuple of branch slots
+    consts: tuple                       # hoisted constants (stacked: tensors
+                                        # stacked ONCE at capture time)
+    out_slots: tuple[int, ...]          # one slot per branch (singles: one)
+    free_slots: tuple[int, ...]         # slots dead after this step
+    op_ids: tuple[int, ...]             # provenance (tests / debugging)
+    group_sizes: tuple[int, ...] = ()   # _GROUPED_GEMM: per-branch row counts
+                                        # (the capture-time offset table)
+    table: torch.Tensor | None = None   # _GROUPED_GEMM: the kernel's
+                                        # tile→(group, row range) table
+
+
+def _launch_counts() -> dict[str, int]:
+    return {"branch_gemm": branch_gemm_ops.launches,
+            "grouped_gemm": grouped_gemm_ops.launches}
+
+
+class CudaGraphReplay:
+    """One recorded ``torch.cuda.CUDAGraph`` of a step walk, with the
+    static input buffers it reads and the outputs it writes.
+
+    ``recorded_launches`` counts the kernel launches recorded into the
+    graph (one per fused step; a replay re-runs them without calling the
+    wrappers)."""
+
+    def __init__(self, walk: Callable[..., list], args: Sequence[Any]):
+        if not all(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+            raise TypeError("a CUDA graph needs every input on the card")
+        devices = {a.device for a in args}
+        if len(devices) != 1:
+            raise ValueError(f"inputs on several devices {sorted(map(str, devices))}")
+        device = devices.pop()
+        self.static_inputs = [a.clone() for a in args]
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            walk(*self.static_inputs)          # warm-up
+        torch.cuda.current_stream(device).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        before = _launch_counts()
+        with torch.cuda.graph(self.graph):
+            self.static_outputs = walk(*self.static_inputs)
+        after = _launch_counts()
+        self.recorded_launches = {k: after[k] - before[k] for k in after}
+
+    def __call__(self, args: Sequence[Any]) -> list[torch.Tensor]:
+        for buf, a in zip(self.static_inputs, args):
+            if a.shape != buf.shape or a.dtype != buf.dtype:
+                raise ValueError(
+                    f"input {tuple(a.shape)} {a.dtype} does not match the "
+                    f"recorded {tuple(buf.shape)} {buf.dtype}")
+            buf.copy_(a)
+        self.graph.replay()
+        return [o.clone() for o in self.static_outputs]
+
+
+@dataclasses.dataclass
+class CapturedGraph:
+    """Executable artifact. Call with a dict {input_name: tensor}."""
+
+    graph: OpGraph
+    schedule: WaveSchedule
+    input_ids: list[int]
+    output_ids: list[int]
+    fn: Callable[..., Any]           # the step walk (eager)
+    steps: list[Step] = dataclasses.field(default_factory=list)
+    # input names in input_ids order, precomputed at capture time so the
+    # replay path does no per-call graph walks
+    input_names: tuple[str, ...] = ()
+    # fallback events; this package takes none (see the module docstring)
+    degradations: DegradationLog = dataclasses.field(
+        default_factory=DegradationLog)
+    # the recorded CUDA graph, made by the first call on CUDA inputs
+    replay: CudaGraphReplay | None = None
+
+    def __post_init__(self) -> None:
+        if not self.input_names:
+            self.input_names = tuple(
+                self.graph.nodes[i].name for i in self.input_ids)
+
+    def __call__(self, inputs: Mapping[str, Any]) -> list[Any]:
+        args = self._bind(inputs)
+        if not any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+            return self.fn(*args)
+        if self.replay is None:
+            self.replay = CudaGraphReplay(self.fn, args)
+        return self.replay(args)
+
+    def call_uncompiled(self, inputs: Mapping[str, Any]) -> list[Any]:
+        """The step walk, eagerly (no CUDA graph)."""
+        args = self._bind(inputs)
+        return self.fn(*args)
+
+    def _bind(self, inputs: Mapping[str, Any]) -> list[Any]:
+        args = []
+        for name in self.input_names:
+            if name not in inputs:
+                raise KeyError(f"missing input {name!r}")
+            args.append(inputs[name])
+        if len(inputs) != len(self.input_names):
+            # a typo'd name would otherwise pass silently whenever the real
+            # input happens to be bound too — fail loudly instead
+            unknown = sorted(set(inputs) - set(self.input_names))
+            if unknown:
+                raise KeyError(
+                    f"unrecognized input name(s) {unknown}; expected "
+                    f"{sorted(self.input_names)}")
+        return args
+
+    def program_stats(self) -> dict[str, float]:
+        routes = [s.route for s in self.steps]
+        return {
+            "n_steps": float(len(self.steps)),
+            "n_single": float(routes.count(_CALL)),
+            "n_vmap": float(routes.count(_VMAP)),
+            "n_branch_gemm": float(routes.count(_BRANCH_GEMM)),
+            "n_grouped_gemm": float(routes.count(_GROUPED_GEMM)),
+        }
+
+
+def _branch_input_shapes(
+    graph: OpGraph, group: Sequence[int], arg: int = 0,
+) -> list[tuple[int, ...] | None]:
+    """Declared ``out_shape`` of each branch's ``arg``-th input producer
+    (``None`` where the builder did not declare one)."""
+    return [graph.nodes[graph.nodes[g].inputs[arg]].out_shape for g in group]
+
+
+def _uniform_group(graph: OpGraph, group: Sequence[int]) -> bool:
+    """Shared eligibility core for BOTH fused routes (stacked and grouped):
+    every op has a payload, the same fuse_sig and arity, and per-branch
+    constants of identical shapes AND dtypes (stacking mixed dtypes would
+    promote, so the fused group would return a different dtype than
+    unfused execution)."""
+    if len(group) < 2:
+        return False
+    first = graph.nodes[group[0]]
+    if first.fn is None or first.fuse_sig is None:
+        return False
+    c0 = first.meta.get("consts", ())
+    arity0 = len(first.inputs)
+    for g in group:
+        n = graph.nodes[g]
+        if n.fuse_sig != first.fuse_sig or n.fn is None:
+            return False
+        if len(n.inputs) != arity0:
+            return False
+        cg = n.meta.get("consts", ())
+        if len(cg) != len(c0):
+            return False
+        if any(a.shape != b.shape for a, b in zip(cg, c0)):
+            return False
+        if any(a.dtype != b.dtype for a, b in zip(cg, c0)):
+            return False
+    return True
+
+
+def _stack_consts(graph: OpGraph, group: Sequence[int]) -> tuple:
+    """Const hoisting: per-branch constants stacked ONCE at capture time, on
+    the device they live on."""
+    nodes = [graph.nodes[o] for o in group]
+    n_consts = len(nodes[0].meta.get("consts", ()))
+    return tuple(
+        torch.stack([n.meta["consts"][c] for n in nodes])
+        for c in range(n_consts))
+
+
+def _can_stack(graph: OpGraph, group: Sequence[int]) -> bool:
+    """A group is stackable if it is uniform (:func:`_uniform_group`) and
+    no two branches *declare* different input shapes (``torch.stack`` at
+    run time needs equal shapes; ragged matmul groups take the grouped
+    route instead).
+
+    Contract: branch-varying parameters (weights) must be declared in
+    ``meta["consts"]`` — the capturer stacks them alongside the inputs and
+    executes ONE fused payload.  Ops whose closures hide differing state
+    must leave ``fuse_sig=None``.
+    """
+    if not _uniform_group(graph, group):
+        return False
+    for a in range(len(graph.nodes[group[0]].inputs)):
+        known = {s for s in _branch_input_shapes(graph, group, a)
+                 if s is not None}
+        if len(known) > 1:
+            return False
+    return True
+
+
+def _gemm_routable(graph: OpGraph, group: Sequence[int]) -> bool:
+    """True iff the stacked group can go to the fused branch-GEMM kernel.
+
+    Contract (explicit opt-in, no payload guessing): every node declares
+    ``meta["payload"] == "matmul"`` — payload semantics are exactly
+    ``x @ w (+ b)`` with ``consts == (w,)`` or ``(w, b)``, ``w.ndim == 2``.
+    """
+    for g in group:
+        n = graph.nodes[g]
+        if n.meta.get("payload") != "matmul" or len(n.inputs) != 1:
+            return False
+        consts = n.meta.get("consts", ())
+        if len(consts) not in (1, 2):
+            return False
+        if consts[0].dim() != 2:
+            return False
+        if len(consts) == 2 and consts[1].dim() != 1:
+            return False
+    return True
+
+
+def _ragged_group_sizes(
+    graph: OpGraph, group: Sequence[int],
+) -> tuple[int, ...] | None:
+    """Per-branch row counts for the grouped ragged-M GEMM route, or
+    ``None`` when the group does not qualify.
+
+    Qualifying groups are matmul-marked (``_gemm_routable``) with uniform
+    const shapes/dtypes, whose branch inputs all *declare* 2-D
+    ``[M_i, K]`` shapes sharing K but differing in at least one M — the
+    unequal-token MoE expert fan-out.  Equal-M groups stay on the stacked
+    path (``_can_stack``), which is strictly cheaper.
+    """
+    if not (_gemm_routable(graph, group) and _uniform_group(graph, group)):
+        return None
+    shapes = _branch_input_shapes(graph, group)
+    if any(s is None or len(s) != 2 for s in shapes):
+        return None
+    k = graph.nodes[group[0]].meta["consts"][0].shape[0]
+    if any(s[1] != k for s in shapes):
+        return None
+    sizes = tuple(int(s[0]) for s in shapes)
+    if len(set(sizes)) < 2:
+        return None   # uniform M: the stacked path handles it
+    # mixed input dtypes would promote under torch.cat
+    dtypes = {graph.nodes[graph.nodes[g].inputs[0]].out_dtype
+              for g in group}
+    dtypes.discard(None)
+    if len(dtypes) > 1:
+        return None
+    return sizes
+
+
+def _branch_gemm_step(x: torch.Tensor, w: torch.Tensor,
+                      *rest: torch.Tensor) -> torch.Tensor:
+    """Fused-GEMM callable for one stacked group, called as
+    ``fn(x_stacked, *step.consts)``: the pre-stacked weights ``w: [N, K,
+    F]`` (and optionally bias ``b: [N, F]``) flow in through
+    ``Step.consts``.  The input arrives stacked ``x: [N, *batch, K]``; batch
+    dims are flattened for the kernel's [N, M, K] @ [N, K, F] contract and
+    restored after."""
+    n, k, f = w.shape
+    batch_shape = tuple(x.shape[1:-1])
+    out = branch_gemm_ops.branch_gemm(x.reshape(n, -1, k), w)
+    out = out.reshape((n,) + batch_shape + (f,))
+    if rest:  # bias [N, F] broadcast over batch dims
+        b = rest[0]
+        out = out + b.reshape((n,) + (1,) * len(batch_shape) + (f,))
+    return out
+
+
+def _grouped_gemm_step(group_sizes: tuple[int, ...]) -> Callable[..., Any]:
+    """Ragged fused-GEMM callable for one grouped step, called as
+    ``fn([x_0, ..., x_{N-1}], step.table, *step.consts)`` with the
+    per-branch 2-D inputs UNstacked (their row counts differ); returns one
+    output per branch.  ``group_sizes`` is the capture-time offset table
+    the run-time shapes must honor."""
+    def fused(xs: Sequence[torch.Tensor], table: torch.Tensor,
+              w: torch.Tensor, *rest: torch.Tensor) -> list[torch.Tensor]:
+        for x, m in zip(xs, group_sizes):
+            if x.shape[0] != m:
+                raise ValueError(
+                    f"branch rows {x.shape[0]} != captured size {m}")
+        outs = grouped_gemm_ops.grouped_gemm_parts(list(xs), w, table)
+        if rest:  # per-branch bias [N, F]
+            b = rest[0]
+            outs = [o + b[i] for i, o in enumerate(outs)]
+        return outs
+
+    return fused
+
+
+def _validate_waves(graph: OpGraph, schedule: WaveSchedule) -> None:
+    """The capturer's input contract, packer-agnostic: waves must partition
+    the graph and every producer must sit in a strictly earlier wave.  Both
+    :func:`repro_torch.core.fusion.build_waves` and ``repack_waves``
+    guarantee this; the check catches hand-built or corrupted schedules
+    before they lower into a program that reads uninitialized slots."""
+    wave_of: dict[int, int] = {}
+    for w in schedule.waves:
+        for op in w.op_ids:
+            if op in wave_of:
+                raise ValueError(f"op {op} appears in waves {wave_of[op]} "
+                                 f"and {w.index}")
+            wave_of[op] = w.index
+    if set(wave_of) != set(graph.nodes):
+        missing = set(graph.nodes) - set(wave_of)
+        raise ValueError(f"wave schedule does not cover ops {sorted(missing)[:5]}")
+    for node in graph:
+        for p in node.inputs:
+            if wave_of[p] >= wave_of[node.op_id]:
+                raise ValueError(
+                    f"dependency {p}->{node.op_id} not satisfied: producer in "
+                    f"wave {wave_of[p]}, consumer in wave {wave_of[node.op_id]}")
+
+
+def _single_steps(graph: OpGraph, group: Sequence[int],
+                  slot_of: dict[int, int]) -> list[Step]:
+    """Per-op call steps for groups no fused route takes."""
+    out: list[Step] = []
+    for op in group:
+        node = graph.nodes[op]
+        if node.fn is None:
+            continue
+        out.append(Step(
+            route=_CALL, fn=node.fn,
+            arg_slots=tuple(slot_of[p] for p in node.inputs),
+            consts=tuple(node.meta.get("consts", ())),
+            out_slots=(slot_of[op],), free_slots=(),
+            op_ids=(op,)))
+    return out
+
+
+def _lower_group(
+    graph: OpGraph,
+    group: Sequence[int],
+    slot_of: dict[int, int],
+    gemm_kernel: str,
+    faults: FaultPlan | None,
+) -> list[Step]:
+    """Lower one fusion group to its route: branch_gemm or vmap for a
+    stackable group, grouped_gemm for a ragged matmul group, per-op calls
+    otherwise.  An armed ``kernel_compile`` / ``grouped_gemm_route`` site
+    raises out of capture."""
+    if _can_stack(graph, group):
+        nodes = [graph.nodes[o] for o in group]
+        arity = len(nodes[0].inputs)
+        arg_slots = tuple(
+            tuple(slot_of[n.inputs[a]] for n in nodes)
+            for a in range(arity)
+        )
+        consts = _stack_consts(graph, group)
+        if _gemm_routable(graph, group) and gemm_kernel != "vmap":
+            if faults is not None:
+                faults.fire("kernel_compile")
+            route, fn = _BRANCH_GEMM, _branch_gemm_step
+        else:
+            route, fn = _VMAP, torch.func.vmap(nodes[0].fn)
+        return [Step(
+            route=route, fn=fn, arg_slots=arg_slots, consts=consts,
+            out_slots=tuple(slot_of[o] for o in group),
+            free_slots=(), op_ids=tuple(group))]
+    if (gemm_kernel != "vmap"
+            and (ragged := _ragged_group_sizes(graph, group)) is not None):
+        # ragged-M matmul group: ONE grouped kernel instead of N
+        # serialized branches (stacking is impossible here)
+        if faults is not None:
+            faults.fire("grouped_gemm_route")
+        nodes = [graph.nodes[o] for o in group]
+        consts = _stack_consts(graph, group)
+        return [Step(
+            route=_GROUPED_GEMM, fn=_grouped_gemm_step(ragged),
+            arg_slots=(tuple(slot_of[n.inputs[0]] for n in nodes),),
+            consts=consts,
+            out_slots=tuple(slot_of[o] for o in group),
+            free_slots=(), op_ids=tuple(group),
+            group_sizes=ragged,
+            table=grouped_gemm_ops.tile_table(ragged, consts[0].device))]
+    return _single_steps(graph, group, slot_of)
+
+
+def _lower(
+    graph: OpGraph,
+    schedule: WaveSchedule,
+    output_ids: Sequence[int],
+    gemm_kernel: str = "auto",
+    faults: FaultPlan | None = None,
+) -> tuple[list[Step], dict[int, int], int]:
+    """Phase 1: wave schedule → pre-lowered step list + slot assignment."""
+    slot_of = {op: k for k, op in enumerate(graph.nodes)}
+    n_slots = len(slot_of)
+
+    steps: list[Step] = []
+    for wave in schedule.waves:
+        for group in wave.fusion_groups:
+            steps.extend(
+                _lower_group(graph, group, slot_of, gemm_kernel, faults))
+
+    # dead-slot analysis: a slot is freed right after its last consuming
+    # step — or, for outputs nothing ever consumes (and which aren't program
+    # outputs), right after its producing step — unless it backs an output.
+    keep = {slot_of[o] for o in output_ids}
+    last_use: dict[int, int] = {}
+    for k, step in enumerate(steps):
+        consumed = (step.arg_slots if step.route == _CALL
+                    else [s for slots in step.arg_slots for s in slots])
+        for s in consumed:
+            last_use[s] = k
+    free_at: dict[int, list[int]] = {}
+    for s, last in last_use.items():
+        if s not in keep:
+            free_at.setdefault(last, []).append(s)
+    for k, step in enumerate(steps):
+        dead = [s for s in free_at.get(k, ()) if s not in step.out_slots]
+        # unconsumed non-output results die the moment they are produced
+        dead += [s for s in step.out_slots
+                 if s not in keep and s not in last_use]
+        step.free_slots = tuple(dead)
+    return steps, slot_of, n_slots
+
+
+def _branch(outs: Any, k: int) -> Any:
+    """Branch ``k`` of a stacked result (a tensor or a tuple of them)."""
+    if isinstance(outs, (tuple, list)):
+        return type(outs)(_branch(o, k) for o in outs)
+    return outs[k]
+
+
+def capture(
+    graph: OpGraph,
+    schedule: WaveSchedule,
+    output_ids: Sequence[int] | None = None,
+    gemm_kernel: str = "auto",
+    faults: FaultPlan | None = None,
+) -> CapturedGraph:
+    """Build the executable from a wave schedule.
+
+    ``gemm_kernel`` routes eligible stacked GEMM groups: ``"auto"`` or
+    ``"kernel"`` (the fused ``branch_gemm`` kernel; ragged-M matmul groups
+    take ``grouped_gemm``) or ``"vmap"`` (the generic stacked payload;
+    ragged groups then run as per-branch calls, since they cannot be
+    vmapped).
+
+    ``faults`` (default: the process-wide plan, if any) arms the
+    ``plan_validate`` / ``kernel_compile`` / ``grouped_gemm_route``
+    injection sites; each raises out of capture (``plan_validate`` as a
+    :class:`PlanValidationError`, like a real corrupt schedule).
+    """
+    if gemm_kernel not in GEMM_KERNELS:
+        raise ValueError(f"unknown gemm_kernel {gemm_kernel!r}")
+    if faults is None:
+        faults = _active_faults()
+    try:
+        if faults is not None:
+            # models a corrupted/stale plan arriving at the capturer
+            faults.fire("plan_validate")
+        graph.validate()
+        _validate_waves(graph, schedule)
+    except (FaultInjected, ValueError) as exc:
+        raise PlanValidationError(str(exc)) from exc
+    input_ids = [n.op_id for n in graph if n.fn is None]
+    if output_ids is None:
+        output_ids = graph.leaves()
+    output_ids = list(output_ids)
+
+    steps, slot_of, n_slots = _lower(graph, schedule, output_ids,
+                                     gemm_kernel, faults=faults)
+    input_slots = [slot_of[i] for i in input_ids]
+    output_slots = [slot_of[o] for o in output_ids]
+
+    def run(*args: Any) -> list[Any]:
+        env: list[Any] = [None] * n_slots
+        for s, a in zip(input_slots, args):
+            env[s] = a
+        for step in steps:
+            if step.route == _CALL:
+                out = step.fn(*[env[s] for s in step.arg_slots], *step.consts)
+                env[step.out_slots[0]] = out
+            elif step.route == _GROUPED_GEMM:
+                outs = step.fn([env[s] for s in step.arg_slots[0]],
+                               step.table, *step.consts)
+                for k, slot in enumerate(step.out_slots):
+                    env[slot] = outs[k]
+            else:
+                stacked = [torch.stack([env[s] for s in slots])
+                           for slots in step.arg_slots]
+                outs = step.fn(*stacked, *step.consts)
+                for k, slot in enumerate(step.out_slots):
+                    env[slot] = _branch(outs, k)
+            for s in step.free_slots:
+                env[s] = None
+        return [env[s] for s in output_slots]
+
+    return CapturedGraph(
+        graph=graph,
+        schedule=schedule,
+        input_ids=input_ids,
+        output_ids=output_ids,
+        fn=run,
+        steps=steps,
+    )
+
+
+def run_sequential_uncompiled(
+    graph: OpGraph,
+    inputs: Mapping[str, Any],
+    output_ids: Sequence[int] | None = None,
+) -> list[Any]:
+    """Eager per-op execution in topo order — the "stock PyTorch" baseline:
+    every op is dispatched separately from Python and, on the card, waited
+    for (``torch.cuda.synchronize()`` after each op).
+
+    ``output_ids`` selects which ops' results are returned (default: the
+    graph's leaves) — pass a :class:`CapturedGraph`'s ``output_ids`` so a
+    differential comparison reads the SAME outputs the compiled program
+    returns instead of silently re-deriving them.
+    """
+    env: dict[int, Any] = {}
+    sync = any(isinstance(a, torch.Tensor) and a.is_cuda
+               for a in inputs.values())
+    for i in graph.topological_order():
+        node = graph.nodes[i]
+        if node.fn is None:
+            env[i] = inputs[node.name]
+        else:
+            consts = node.meta.get("consts", ())
+            env[i] = node.fn(*[env[p] for p in node.inputs], *consts)
+            if sync:
+                torch.cuda.synchronize()
+    if output_ids is None:
+        output_ids = graph.leaves()
+    return [env[o] for o in output_ids]

@@ -1,0 +1,42 @@
+"""Hand-written Hopper kernels for the fused GEMM routes of the capturer.
+
+Each kernel lives in its own subpackage, mirroring the JAX package:
+
+    <name>/kernel.py   ctypes binding of the CUDA entry point in ``csrc/``
+    <name>/ops.py      public wrapper: checks, allocation, launch count
+    <name>/ref.py      plain PyTorch version (the CPU's path, and the
+                       yardstick the kernel is held against on the card)
+
+Kernels:
+    branch_gemm    N equal-shape GEMMs in one launch — the Opara wave
+    grouped_gemm   ragged-M grouped GEMM (unequal branch row counts, MoE
+                   expert fan-out) over a device tile→group table
+
+Backend rule (:func:`use_kernel`): tensors on the CPU take the plain
+version; tensors on one CUDA device of compute capability 9.0 (Hopper)
+launch the kernel; anything else raises.  There is no fallback from a CUDA
+tensor to the plain version.
+"""
+from __future__ import annotations
+
+import torch
+
+TILE_M = 64   # output rows per block; must equal BM in csrc/gemm.cu (checked
+              # when the library loads)
+
+
+def use_kernel(*tensors: torch.Tensor) -> bool:
+    """``False`` when every tensor lies on the CPU, ``True`` when all lie on
+    one Hopper CUDA device; raises for mixed devices or another card."""
+    devices = {t.device for t in tensors}
+    if all(d.type == "cpu" for d in devices):
+        return False
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(f"tensors on mixed devices {sorted(map(str, devices))}")
+    device = next(iter(devices))
+    major, minor = torch.cuda.get_device_capability(device)
+    if (major, minor) != (9, 0):
+        raise RuntimeError(
+            f"{torch.cuda.get_device_name(device)} is sm_{major}{minor}; the "
+            "kernels are built for sm_90a (Hopper) only")
+    return True
