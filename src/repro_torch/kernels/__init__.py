@@ -1,4 +1,5 @@
-"""Hand-written Hopper kernels for the fused GEMM routes of the capturer.
+"""Hand-written Hopper kernels: the capturer's fused GEMM routes and the
+model facade's normalisation and attention.
 
 Each kernel lives in its own subpackage, mirroring the JAX package:
 
@@ -11,6 +12,12 @@ Kernels:
     branch_gemm    N equal-shape GEMMs in one launch — the Opara wave
     grouped_gemm   ragged-M grouped GEMM (unequal branch row counts, MoE
                    expert fan-out) over a device tile→group table
+    rmsnorm        fused RMSNorm, fp32 statistics (``csrc/norm.cu``)
+    flash_attention  causal/windowed GQA prefill with an online softmax
+    decode_attention single-token decode against the dense KV slab
+    paged_decode   single-token decode through a block table into KV pages
+                   (the last three in ``csrc/attention.cu``; the two decode
+                   kernels share one device routine)
 
 Backend rule (:func:`use_kernel`): tensors on the CPU take the plain
 version; tensors on one CUDA device of compute capability 9.0 (Hopper)
@@ -23,6 +30,8 @@ import torch
 
 TILE_M = 64   # output rows per block; must equal BM in csrc/gemm.cu (checked
               # when the library loads)
+DECODE_CHUNK = 128   # KV positions per decode block; must equal DEC_CHUNK in
+                     # csrc/attention.cu (checked when the library loads)
 
 
 def use_kernel(*tensors: torch.Tensor) -> bool:

@@ -1,9 +1,11 @@
 """Build the CUDA sources in ``csrc/`` with ``nvcc`` and load them by ctypes.
 
-The shared library is named by the sha256 of the sources, so an edited
-source builds anew and an unchanged one is reused.  It goes to ``build/``
-at the root of the checkout (listed in ``.gitignore``).  Nothing here runs
-at import: the first CUDA launch calls :func:`library`.
+Each ``*.cu`` source becomes its own shared library, named by the sha256 of
+that source and of the shared headers (``*.cuh``), so an edited source builds
+anew and an unchanged one is reused.  The ``nvcc`` processes of all sources
+are started together and awaited together.  Libraries go to ``build/`` at
+the root of the checkout (listed in ``.gitignore``).  Nothing here runs at
+import: the first CUDA launch calls :func:`library`.
 """
 from __future__ import annotations
 
@@ -24,22 +26,61 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # entry point -> argtypes; every pointer and the stream are c_void_p, so
 # ctypes does not cut them to 32 bits
+_FLASH = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _F, _P)
+_DECODE = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _F, _P)
+_PAGED = (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+          _F, _P)
 _SIGNATURES = {
     "branch_gemm_bf16": (_P, _P, _P, _I, _I, _I, _I, _P),
     "branch_gemm_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
     "grouped_gemm_bf16": (_P, _P, _P, _P, _I, _I, _I, _P),
     "grouped_gemm_f32": (_P, _P, _P, _P, _I, _I, _I, _P),
     "gemm_tile_m": (),
+    "rmsnorm_bf16": (_P, _P, _P, _I, _I, _F, _P),
+    "rmsnorm_f32": (_P, _P, _P, _I, _I, _F, _P),
+    "flash_attention_bf16": _FLASH,
+    "flash_attention_f32": _FLASH,
+    "decode_attention_bf16": _DECODE,
+    "decode_attention_f32": _DECODE,
+    "paged_decode_bf16": _PAGED,
+    "paged_decode_f32": _PAGED,
+    "decode_chunk_size": (),
 }
 
 _lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
-# what the last build printed (``-Xptxas -v``: registers, shared memory,
-# spills per kernel) and how long it took; empty when the library was reused
-build_log = ""
+_lib: "KernelLibrary | None" = None
+# what the last build printed per source (``-Xptxas -v``: registers, shared
+# memory, spills per kernel) and how long the parallel build took; empty
+# when every library was reused
+build_log: dict[str, str] = {}
 build_seconds = 0.0
+
+
+class KernelLibrary:
+    """The loaded libraries; an entry point is an attribute, whichever
+    source defines it."""
+
+    def __init__(self, libs: list[ctypes.CDLL]):
+        self._fns = {}
+        for name, argtypes in _SIGNATURES.items():
+            for lib in libs:
+                fn = getattr(lib, name, None)
+                if fn is not None:
+                    fn.argtypes = list(argtypes)
+                    fn.restype = ctypes.c_int
+                    self._fns[name] = fn
+                    break
+            else:
+                raise RuntimeError(f"no built source defines {name}")
+
+    def __getattr__(self, name: str):
+        try:
+            return self._fns[name]
+        except KeyError:
+            raise AttributeError(name) from None
 
 
 def _nvcc() -> str:
@@ -53,57 +94,86 @@ def _nvcc() -> str:
     return found
 
 
-def _sources() -> list[pathlib.Path]:
-    return sorted(_CSRC.glob("*.cu")) + sorted(_CSRC.glob("*.cuh"))
+def sources() -> list[pathlib.Path]:
+    return sorted(_CSRC.glob("*.cu"))
 
 
-def library_path() -> pathlib.Path:
+def library_path(src: pathlib.Path) -> pathlib.Path:
     digest = hashlib.sha256()
-    for src in _sources():
-        digest.update(src.name.encode())
-        digest.update(src.read_bytes())
-    return BUILD_DIR / f"repro_torch_kernels_{digest.hexdigest()[:16]}.so"
+    for path in [src, *sorted(_CSRC.glob("*.cuh"))]:
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    return BUILD_DIR / f"{src.stem}_{digest.hexdigest()[:16]}.so"
 
 
-def build() -> pathlib.Path:
-    """Compile the sources unless the library for their hash exists."""
+def build() -> list[pathlib.Path]:
+    """Compile every source whose library is missing, one ``nvcc`` each,
+    all at once."""
     global build_log, build_seconds
-    out = library_path()
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=out.parent, suffix=".so.tmp")
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
+    outs = [library_path(src) for src in sources()]
+    todo = [(src, out) for src, out in zip(sources(), outs)
+            if not out.exists()]
+    if not todo:
+        return outs
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
+    running = []
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
+        for src, out in todo:
+            fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
+            os.close(fd)
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
+            running.append((src, out, tmp, cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed, log = [], {}
+        for src, out, tmp, cmd, proc in running:
+            text, _ = proc.communicate()
+            log[src.name] = text
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n"
+                              f"{' '.join(cmd)}\n{text}")
+            else:
+                os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("\n".join(failed))
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        for _src, _out, tmp, _cmd, proc in running:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    return out
+    build_log = log
+    return outs
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
+def library() -> KernelLibrary:
+    """The loaded kernel libraries, built on first use."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = list(argtypes)
-                fn.restype = ctypes.c_int
-            from . import TILE_M
+            lib = KernelLibrary([ctypes.CDLL(str(p)) for p in build()])
+            from . import DECODE_CHUNK, TILE_M
             if lib.gemm_tile_m() != TILE_M:
                 raise RuntimeError(f"csrc BM={lib.gemm_tile_m()} != "
                                    f"kernels.TILE_M={TILE_M}")
+            if lib.decode_chunk_size() != DECODE_CHUNK:
+                raise RuntimeError(f"csrc DEC_CHUNK={lib.decode_chunk_size()}"
+                                   f" != kernels.DECODE_CHUNK={DECODE_CHUNK}")
             _lib = lib
     return _lib
+
+
+def stream_of(t) -> int:
+    """The handle of the current CUDA stream of ``t``'s device: kernels
+    launch there, so a launch inside ``torch.cuda.graph`` is recorded."""
+    import torch
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def strides(*values: int) -> ctypes.Array:
+    """Element strides as the ``long long[]`` the attention entry points
+    read on the host (the array lives for the duration of the call)."""
+    return (ctypes.c_longlong * len(values))(*values)

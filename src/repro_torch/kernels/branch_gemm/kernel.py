@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from .._build import library
+from .._build import library, stream_of
 
 _ENTRY = {torch.bfloat16: "branch_gemm_bf16", torch.float32: "branch_gemm_f32"}
 
@@ -22,6 +22,6 @@ def branch_gemm_cuda(x: torch.Tensor, w: torch.Tensor,
     f = w.shape[-1]
     fn = getattr(library(), _ENTRY[x.dtype])
     err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), n, m, k, f,
-             torch.cuda.current_stream(x.device).cuda_stream)
+             stream_of(x))
     if err != 0:
         raise RuntimeError(f"branch_gemm launch failed: CUDA error {err}")

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from .._build import library
+from .._build import library, stream_of
 
 _ENTRY = {torch.bfloat16: "grouped_gemm_bf16", torch.float32: "grouped_gemm_f32"}
 
@@ -23,6 +23,6 @@ def grouped_gemm_cuda(x: torch.Tensor, w: torch.Tensor, table: torch.Tensor,
     fn = getattr(library(), _ENTRY[x.dtype])
     err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), table.data_ptr(),
              table.shape[0], k, f,
-             torch.cuda.current_stream(x.device).cuda_stream)
+             stream_of(x))
     if err != 0:
         raise RuntimeError(f"grouped_gemm launch failed: CUDA error {err}")

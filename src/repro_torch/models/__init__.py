@@ -1,3 +1,5 @@
-"""Model code of the port: the dense LM's init and its operator-graph
-exporter (the parts of the JAX package's ``models/`` that the main path
-runs)."""
+"""Model code of the port: the dense LM's init, prefill and decode behind
+the :class:`Model` facade, and its operator-graph exporter."""
+from .model import Model, make_model
+
+__all__ = ["Model", "make_model"]

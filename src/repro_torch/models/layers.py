@@ -1,13 +1,14 @@
-"""Primitive layers: norms, linear, embedding.
+"""Primitive layers: norms, linear, embedding, RoPE.
 
 Pure-functional like the JAX package's ``models/layers.py``: ``init_*``
 returns a param tree (dict of tensors), ``apply`` style functions take
 (params, x).  ``init_*`` draw from a ``torch.Generator`` on an explicit
 ``device`` (the CUDA card unless the caller passes ``"cpu"``); ``lead``
 prepends dimensions, which is how a stack of layers is drawn at once.
-Norms compute their statistics in fp32 and keep activations in the input
-dtype.  The JAX package's RoPE helpers are not ported: the exported graph
-applies no rotary embedding (ROADMAP queue C).
+Matmuls accumulate in fp32 and round once to the activation dtype; norms
+compute their statistics in fp32.  The model facade applies RoPE; the
+exported operator graph does not, as the JAX package's does not (ROADMAP
+C5).
 """
 from __future__ import annotations
 
@@ -69,8 +70,24 @@ def layernorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return y.to(x.dtype)
 
 
-def apply_norm(p: dict, x: torch.Tensor, kind: str = "rmsnorm") -> torch.Tensor:
-    return layernorm(p, x) if kind == "layernorm" else rmsnorm(p, x)
+def apply_norm(p: dict, x: torch.Tensor, kind: str = "rmsnorm",
+               use_kernels: bool = False) -> torch.Tensor:
+    """``use_kernels`` routes RMSNorm through the port's kernel (the same
+    function as :func:`rmsnorm`); LayerNorm has no kernel and stays plain."""
+    if kind == "layernorm":
+        return layernorm(p, x)
+    if use_kernels:
+        from ..kernels.rmsnorm import rmsnorm as rmsnorm_kernel
+        return rmsnorm_kernel(x, p["scale"])
+    return rmsnorm(p, x)
+
+
+def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """x @ w (fp32 accumulation, one rounding to x's dtype), then + b."""
+    y = torch.matmul(x, p["w"])
+    if "b" in p:
+        y = y + p["b"]
+    return y
 
 
 def init_embedding(generator: torch.Generator, vocab: int, d: int,
@@ -78,3 +95,43 @@ def init_embedding(generator: torch.Generator, vocab: int, d: int,
                    device: torch.device | str) -> dict:
     return {"table": _normal(generator, (vocab, d), 0.02, dtype,
                              check_device(device))}
+
+
+def embed(p: dict, ids: torch.Tensor) -> torch.Tensor:
+    return p["table"][ids]
+
+
+def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """Logits head (optionally tied): [..., d] → [..., vocab] in fp32, the
+    products accumulated in fp32 and never rounded to the table's dtype."""
+    table = p["table"]
+    if x.is_cuda and x.dtype != torch.float32:
+        x2 = x.reshape(-1, x.shape[-1])
+        y = torch.mm(x2, table.t(), out_dtype=torch.float32)
+        return y.reshape(*x.shape[:-1], table.shape[0])
+    return torch.matmul(x.float(), table.float().t())
+
+
+# -- RoPE ---------------------------------------------------------------------
+
+def rope_freqs(d_head: int, theta: float,
+               device: torch.device | str = "cpu") -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, d_head, 2, dtype=torch.float32,
+                                         device=device) / d_head))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 1e4) -> torch.Tensor:
+    """x: [..., seq, heads, d_head]; positions: [..., seq] (int)."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                  # [d/2]
+    angles = positions[..., None].float() * freqs           # [..., seq, d/2]
+    cos = torch.cos(angles)[..., None, :]                   # [..., seq, 1, d/2]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    return torch.nn.functional.gelu(x, approximate="tanh")

@@ -1,0 +1,85 @@
+"""Model facade: one object per architecture exposing
+
+    init(generator, device)              → params
+    prefill(params, inputs, cache_len)   → (last_logits, caches)
+    decode(params, token, caches, pos)   → (logits, caches)
+    init_paged_caches / paged_decode     → the paged-KV decode step
+
+as the JAX package's ``models/model.py`` does for the dense decoder LM.  The
+tensors' device is the device: params, inputs and caches stay where the
+caller put them, and nothing moves to the CPU on its own.  Decode writes
+the caches in place (what a CUDA graph of the step needs) and returns them.
+
+Not ported: ``loss`` (training, ROADMAP A9) and the dry-run helpers
+``input_specs``, ``decode_state_specs`` and ``init_shapes`` (ROADMAP A10);
+they raise.  Encoder-decoder and other non-dense families raise in the
+transformer (ROADMAP A6).
+"""
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import torch
+
+from ..configs.base import ModelConfig
+from . import transformer as tf
+
+
+class Model:
+    def __init__(self, cfg: ModelConfig, use_kernels: bool = False):
+        self.cfg = cfg
+        self.use_kernels = use_kernels
+
+    # -- params ---------------------------------------------------------------
+    def init(self, generator: torch.Generator,
+             device: torch.device | str = "cuda") -> Any:
+        return tf.init_lm(self.cfg, generator, device)
+
+    # -- steps ------------------------------------------------------------------
+    def prefill(self, params, inputs: Mapping[str, Any],
+                cache_len: int | None = None):
+        if "extra_embeds" in inputs:
+            raise NotImplementedError("multimodal prefill is not ported yet "
+                                      "(ROADMAP A6)")
+        return tf.lm_prefill(params, inputs["tokens"], self.cfg, cache_len,
+                             self.use_kernels)
+
+    def decode(self, params, token: torch.Tensor, caches,
+               pos: torch.Tensor):
+        return tf.lm_decode(params, token, caches, pos, self.cfg,
+                            self.use_kernels)
+
+    # -- paged decode ------------------------------------------------------------
+    def supports_paged(self) -> bool:
+        """Paged KV applies to pure-attention decoder stacks only."""
+        return self.cfg.family in ("dense", "moe", "vlm")
+
+    def init_paged_caches(self, num_pages: int, page_size: int,
+                          device: torch.device | str = "cuda"):
+        return tf.init_paged_decode_caches(self.cfg, num_pages, page_size,
+                                           device=device)
+
+    def paged_decode(self, params, token: torch.Tensor, caches,
+                     block_tables: torch.Tensor, pos: torch.Tensor):
+        return tf.lm_paged_decode(params, token, caches, block_tables, pos,
+                                  self.cfg, self.use_kernels)
+
+    # -- training and dry-run: not ported ------------------------------------------
+    def loss(self, *args, **kwargs):
+        return tf.lm_loss(*args, **kwargs)
+
+    def init_shapes(self, *args, **kwargs):
+        raise NotImplementedError("dry-run param shapes are not ported yet "
+                                  "(ROADMAP A10)")
+
+    def input_specs(self, *args, **kwargs):
+        raise NotImplementedError("dry-run input specs are not ported yet "
+                                  "(ROADMAP A10)")
+
+    def decode_state_specs(self, *args, **kwargs):
+        raise NotImplementedError("dry-run decode state specs are not ported "
+                                  "yet (ROADMAP A10)")
+
+
+def make_model(cfg: ModelConfig, use_kernels: bool = False) -> Model:
+    return Model(cfg, use_kernels)

@@ -40,7 +40,7 @@ from ..core.profiler import (
 from .attention import NEG_INF, causal_window_mask
 from .export_costs import act_gemm_cost, stream_cost
 from .layers import apply_norm
-from .transformer import stack_meta
+from .transformer import layer_params, stack_meta
 
 
 def _w(params, *path):
@@ -50,13 +50,6 @@ def _w(params, *path):
     for p in path:
         out = out[p]
     return out
-
-
-def _layer(tree: Any, li: int) -> Any:
-    """Layer ``li`` of a stacked param tree (views, no copies)."""
-    if isinstance(tree, dict):
-        return {k: _layer(v, li) for k, v in tree.items()}
-    return tree[li]
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -96,7 +89,7 @@ def build_lm_opgraph(cfg: ModelConfig, batch: int, seq: int,
     for si, (kind, n, windows) in enumerate(meta):
         for li in range(min(n, max(L - layer_idx, 0))):
             tag = f"L{layer_idx}"
-            pl = (_layer(_w(params, "stacks")[si], li)
+            pl = (layer_params(_w(params, "stacks")[si], li)
                   if params is not None else None)
             if kind != "dense":
                 raise _not_ported(f"{kind!r} layer")

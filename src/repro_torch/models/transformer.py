@@ -1,19 +1,29 @@
-"""Layer-stack metadata and the dense LM's parameter init.
+"""Transformer assembly of the dense LM: parameter init, the prefill
+forward and the single-token decode steps (dense slab and paged KV).
 
 The tree layout is the JAX package's ``init_lm``: ``{"embed": {"table"},
 "stacks": [per-stack params with leading dim L], "final_norm": {"scale"}}``
 (plus ``"head"`` when embeddings are untied), so a reference param tree
 converted by :mod:`repro_torch.bridge` and this init are interchangeable.
-Only dense stacks are ported; the other families raise.
+Where the JAX package scans a stack with ``jax.lax.scan``, the port loops
+over the layer index in Python, with each layer's attention window an int
+(0 = none).  Caches are stacked ``[L, ...]`` per stack as there; decode
+writes them in place.  Only dense stacks are ported; the other families
+(MoE, MLA, hybrid, ssm, vlm, encdec) raise, naming ROADMAP A6.  Training
+(``lm_loss``, the MTP loss) is ROADMAP A9.
 """
 from __future__ import annotations
+
+from typing import Any
 
 import torch
 
 from ..configs.base import ModelConfig
-from .attention import init_gqa
-from .ffn import init_ffn
-from .layers import check_device, init_embedding, init_norm
+from .attention import (attn_decode, attn_paged_decode, attn_prefill,
+                        init_cache, init_gqa, init_paged_cache)
+from .ffn import ffn, init_ffn
+from .layers import (apply_norm, check_device, embed, init_embedding,
+                     init_norm, unembed)
 
 
 def layer_kinds(cfg: ModelConfig) -> list[tuple[str, int]]:
@@ -97,3 +107,176 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator,
         p["head"] = init_embedding(generator, cfg.vocab_size, cfg.d_model,
                                    cfg.dtype, device=device)
     return p
+
+
+def _check_dense(cfg: ModelConfig) -> None:
+    if (cfg.family != "dense" or cfg.moe is not None or cfg.mla is not None
+            or cfg.meta_tokens or cfg.frontend is not None):
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}) is not a plain dense LM; not ported "
+            "yet (ROADMAP A6)")
+
+
+def layer_params(tree: Any, li: int) -> Any:
+    """Layer ``li`` of a stacked ``[L, ...]`` param tree (views)."""
+    if isinstance(tree, dict):
+        return {k: layer_params(v, li) for k, v in tree.items()}
+    return tree[li]
+
+
+def _window(w: int) -> int | None:
+    return w if w > 0 else None
+
+
+# ============================ block =========================================
+
+def block_seq(p: dict, x: torch.Tensor, cfg: ModelConfig,
+              positions: torch.Tensor, window: int | None,
+              use_kernels: bool = False):
+    """Full-sequence dense block (prefill). Returns (x', (k, v))."""
+    h = apply_norm(p["norm1"], x, cfg.norm, use_kernels)
+    attn_out, kv = attn_prefill(p["attn"], h, cfg, positions, window,
+                                use_kernels)
+    x = x + attn_out * cfg.residual_scale
+    h2 = apply_norm(p["norm2"], x, cfg.norm, use_kernels)
+    f_out, _ = ffn(p["ffn"], h2, cfg)
+    return x + f_out * cfg.residual_scale, kv
+
+
+def block_step(p: dict, x: torch.Tensor, cache, pos: torch.Tensor,
+               cfg: ModelConfig, window: int | None,
+               use_kernels: bool = False):
+    """Single-token dense decode. x: [B,1,d]; the cache is written in place."""
+    h = apply_norm(p["norm1"], x, cfg.norm, use_kernels)
+    attn_out, cache = attn_decode(p["attn"], h, cache, pos, cfg, window,
+                                  use_kernels)
+    x = x + attn_out * cfg.residual_scale
+    h2 = apply_norm(p["norm2"], x, cfg.norm, use_kernels)
+    f_out, _ = ffn(p["ffn"], h2, cfg)
+    return x + f_out * cfg.residual_scale, cache
+
+
+def block_step_paged(p: dict, x: torch.Tensor, pages,
+                     block_tables: torch.Tensor, pos: torch.Tensor,
+                     cfg: ModelConfig, window: int | None,
+                     use_kernels: bool = False):
+    """Single-token decode against paged KV. x: [B,1,d]; pages per layer."""
+    h = apply_norm(p["norm1"], x, cfg.norm, use_kernels)
+    attn_out, pages = attn_paged_decode(p["attn"], h, pages, block_tables,
+                                        pos, cfg, window, use_kernels)
+    x = x + attn_out * cfg.residual_scale
+    h2 = apply_norm(p["norm2"], x, cfg.norm, use_kernels)
+    f_out, _ = ffn(p["ffn"], h2, cfg)
+    return x + f_out * cfg.residual_scale, pages
+
+
+# ============================ LM facade =====================================
+
+def _head(params: dict, x: torch.Tensor, cfg: ModelConfig,
+          use_kernels: bool) -> torch.Tensor:
+    x = apply_norm(params["final_norm"], x, cfg.norm, use_kernels)
+    return unembed(params["embed"] if cfg.tie_embeddings else params["head"],
+                   x)
+
+
+def lm_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+               use_kernels: bool = False, with_cache: bool = True):
+    """Prefill forward → (logits [B,S,V] fp32, caches): one ``(k, v)`` per
+    stack, each ``[L,B,S,KVH,D]`` (None without ``with_cache``)."""
+    _check_dense(cfg)
+    x = embed(params["embed"], tokens)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    caches = []
+    for stack, (kind, n, windows) in zip(params["stacks"], stack_meta(cfg)):
+        ks, vs = [], []
+        for li in range(n):
+            x, (k, v) = block_seq(layer_params(stack, li), x, cfg, positions,
+                                  _window(windows[li]), use_kernels)
+            ks.append(k)
+            vs.append(v)
+        caches.append((torch.stack(ks), torch.stack(vs)) if with_cache
+                      else None)
+    return _head(params, x, cfg, use_kernels), caches
+
+
+def lm_loss(*args, **kwargs):
+    raise NotImplementedError("the training loss (with its MTP head) is not "
+                              "ported yet (ROADMAP A9)")
+
+
+def lm_prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+               cache_len: int | None = None, use_kernels: bool = False):
+    """Prefill → (last-token logits [B,V], caches zero-padded to
+    ``cache_len``)."""
+    logits, caches = lm_forward(params, tokens, cfg, use_kernels)
+    if cache_len is not None:
+        caches = [_pad_cache(c, cache_len) for c in caches]
+    return logits[:, -1], caches
+
+
+def _pad_cache(cache, length: int):
+    """Zero-pad the sequence axis (2, of ``[L,B,S,...]``) to ``length``."""
+    k, v = cache
+    pad = [0, 0] * (k.dim() - 3) + [0, length - k.shape[2]]
+    return (torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad))
+
+
+def init_decode_caches(cfg: ModelConfig, batch: int, length: int, *,
+                       device: torch.device | str):
+    """Empty dense caches ``(k, v)`` ``[L,B,length,KVH,D]`` per stack."""
+    _check_dense(cfg)
+    caches = []
+    for _, n, _ in stack_meta(cfg):
+        k, v = init_cache(cfg, batch, length, device=device)
+        caches.append((k.new_zeros((n,) + k.shape),
+                       v.new_zeros((n,) + v.shape)))
+    return caches
+
+
+def lm_decode(params: dict, token: torch.Tensor, caches: list,
+              pos: torch.Tensor, cfg: ModelConfig,
+              use_kernels: bool = False):
+    """One decode step. token, pos: [B] int. → (logits [B,V], caches), the
+    caches written in place."""
+    _check_dense(cfg)
+    x = embed(params["embed"], token[:, None])
+    for stack, (k, v), (_, n, windows) in zip(params["stacks"], caches,
+                                              stack_meta(cfg)):
+        for li in range(n):
+            x, _ = block_step(layer_params(stack, li), x, (k[li], v[li]), pos,
+                              cfg, _window(windows[li]), use_kernels)
+    return _head(params, x, cfg, use_kernels)[:, 0], caches
+
+
+def init_paged_decode_caches(cfg: ModelConfig, num_pages: int,
+                             page_size: int, *, device: torch.device | str):
+    """Paged KV leaves ``[L,P,ps,KVH,D]`` per stack, zero-filled."""
+    if cfg.family in ("ssm", "hybrid"):
+        raise ValueError(
+            f"family {cfg.family!r} carries recurrent state; paged KV "
+            "applies only to pure-attention stacks")
+    _check_dense(cfg)
+    caches = []
+    for _, n, _ in stack_meta(cfg):
+        k, v = init_paged_cache(cfg, num_pages, page_size, device=device)
+        caches.append((k.new_zeros((n,) + k.shape),
+                       v.new_zeros((n,) + v.shape)))
+    return caches
+
+
+def lm_paged_decode(params: dict, token: torch.Tensor, caches: list,
+                    block_tables: torch.Tensor, pos: torch.Tensor,
+                    cfg: ModelConfig, use_kernels: bool = False):
+    """One decode step over paged caches. token, pos: [B]; block_tables:
+    [B,MAXP] int32 (shared by every layer). → (logits, caches), the pages
+    written in place."""
+    _check_dense(cfg)
+    x = embed(params["embed"], token[:, None])
+    for stack, (k, v), (_, n, windows) in zip(params["stacks"], caches,
+                                              stack_meta(cfg)):
+        for li in range(n):
+            x, _ = block_step_paged(layer_params(stack, li), x,
+                                    (k[li], v[li]), block_tables, pos, cfg,
+                                    _window(windows[li]), use_kernels)
+    return _head(params, x, cfg, use_kernels)[:, 0], caches

@@ -1,0 +1,211 @@
+"""The port's rmsnorm and attention kernels' plain versions against the JAX
+package's references and Pallas kernels.
+
+On the CPU the port's wrappers run their plain versions (and count no
+launch); those are held against the JAX ``ref.py`` and against the Pallas
+kernels in interpret mode at lattice shapes small enough for the
+interpret-mode grid limit, and against the JAX references off the lattice.
+The JAX attention kernels take ``[B,H,S,D]`` / ``[P,KVH,ps,D]``; the port's
+take the model / engine layout, so the tests transpose.
+
+Tolerances: fp32 1e-5 (the same arithmetic in another summation order);
+bf16 1e-2 for rmsnorm (one fp32-accumulated rounding on both sides: about
+one bf16 ulp) and 2e-2 for attention (the decode plain versions round
+probabilities to bf16 before the weighted sum, as the model's plain
+attention does, and the JAX decode reference does not; the Pallas kernels
+round them after an online softmax).  The kernels themselves are held
+against these plain versions on the card in ``test_torch_cuda.py``.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+import ml_dtypes  # noqa: E402
+
+from repro.kernels import INTERPRET_GRID_LIMIT  # noqa: E402
+from repro.kernels.decode_attention.kernel import decode_attention_pallas  # noqa: E402
+from repro.kernels.decode_attention.ref import decode_attention_ref as jax_decode_ref  # noqa: E402
+from repro.kernels.flash_attention.kernel import flash_attention_pallas  # noqa: E402
+from repro.kernels.flash_attention.ref import flash_attention_ref as jax_flash_ref  # noqa: E402
+from repro.kernels.paged_decode.kernel import paged_decode_attention_pallas  # noqa: E402
+from repro.kernels.paged_decode.ref import paged_decode_attention_ref as jax_paged_ref  # noqa: E402
+from repro.kernels.rmsnorm.kernel import rmsnorm_pallas  # noqa: E402
+from repro.kernels.rmsnorm.ref import rmsnorm_ref as jax_rmsnorm_ref  # noqa: E402
+from repro_torch import bridge  # noqa: E402
+from repro_torch.kernels.decode_attention import ops as dops  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
+from repro_torch.kernels.paged_decode import ops as pops  # noqa: E402
+from repro_torch.kernels.rmsnorm import ops as rops  # noqa: E402
+
+NP = {"float32": np.float32, "bfloat16": ml_dtypes.bfloat16}
+JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+ATTN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+def _arr(rng, shape, dtype, scale=1.0):
+    return (rng.standard_normal(shape) * scale).astype(NP[dtype])
+
+
+def _t(a):
+    return bridge.array_to_tensor(a, "cpu")
+
+
+def _close(port, ref, tol):
+    np.testing.assert_allclose(port.float().numpy(),
+                               np.asarray(jnp.asarray(ref, jnp.float32)),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", sorted(NP))
+@pytest.mark.parametrize("n,d,lattice", [(16, 128, True), (8, 256, True),
+                                         (3, 14, False), (5, 100, False)])
+def test_rmsnorm_plain_matches_jax_ref_and_pallas(dtype, n, d, lattice):
+    rng = np.random.default_rng(n * d)
+    x, scale = _arr(rng, (n, d), dtype), _arr(rng, (d,), dtype)
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    before = rops.launches
+    got = rops.rmsnorm(_t(x), _t(scale))
+    assert rops.launches == before            # CPU tensors: no launch
+    _close(got, jax_rmsnorm_ref(jnp.asarray(x), jnp.asarray(scale)), tol)
+    if lattice:
+        _close(got, rmsnorm_pallas(jnp.asarray(x), jnp.asarray(scale),
+                                   bn=8, interpret=True), tol)
+
+
+@pytest.mark.parametrize("dtype", sorted(NP))
+@pytest.mark.parametrize("b,s,h,kvh,d,window,lattice", [
+    (1, 128, 2, 1, 16, 0, True), (1, 128, 2, 2, 16, 32, True),
+    (2, 77, 4, 2, 14, 0, False), (1, 50, 2, 1, 8, 7, False)])
+def test_flash_plain_matches_jax_ref_and_pallas(dtype, b, s, h, kvh, d,
+                                                window, lattice):
+    rng = np.random.default_rng(s + d)
+    q = _arr(rng, (b, s, h, d), dtype)
+    k, v = _arr(rng, (b, s, kvh, d), dtype), _arr(rng, (b, s, kvh, d), dtype)
+    tol = ATTN_TOL[dtype]
+    got = fops.flash_attention(_t(q), _t(k), _t(v), True, window)
+
+    def heads_first(a):
+        return jnp.swapaxes(jnp.asarray(a), 1, 2)
+
+    qt, kt, vt = heads_first(q), heads_first(k), heads_first(v)
+    want = jnp.swapaxes(jax_flash_ref(qt, kt, vt, True, window), 1, 2)
+    _close(got, want, tol)
+    if lattice:
+        assert b * h * (s // 128) ** 2 <= INTERPRET_GRID_LIMIT
+        pallas = flash_attention_pallas(qt, kt, vt, causal=True,
+                                        window=window, bq=128, bk=128,
+                                        interpret=True)
+        _close(got, jnp.swapaxes(pallas, 1, 2), tol)
+
+
+def _decode_case(dtype, b, h, kvh, t, d, seed):
+    rng = np.random.default_rng(seed)
+    q = _arr(rng, (b, h, d), dtype)
+    k, v = _arr(rng, (b, t, kvh, d), dtype), _arr(rng, (b, t, kvh, d), dtype)
+    pos = rng.integers(0, t, b)
+    k_pos = np.arange(t)[None]
+    valid = k_pos <= pos[:, None]
+    valid[0] &= k_pos[0] > pos[0] - 20            # one windowed, ragged row
+    return q, k, v, valid
+
+
+@pytest.mark.parametrize("dtype", sorted(NP))
+@pytest.mark.parametrize("b,h,kvh,t,d,lattice", [
+    (2, 4, 2, 256, 16, True), (3, 7, 1, 200, 14, False)])
+def test_decode_plain_matches_jax_ref_and_pallas(dtype, b, h, kvh, t, d,
+                                                 lattice):
+    q, k, v, valid = _decode_case(dtype, b, h, kvh, t, d, seed=t + d)
+    tol = ATTN_TOL[dtype]
+    before = dops.launches
+    got = dops.decode_attention(_t(q), _t(k), _t(v), torch.from_numpy(valid))
+    assert dops.launches == before
+    kt = jnp.swapaxes(jnp.asarray(k), 1, 2)
+    vt = jnp.swapaxes(jnp.asarray(v), 1, 2)
+    _close(got, jax_decode_ref(jnp.asarray(q), kt, vt, jnp.asarray(valid)),
+           tol)
+    if lattice:
+        assert b * h * (t // 128) <= INTERPRET_GRID_LIMIT
+        _close(got, decode_attention_pallas(jnp.asarray(q), kt, vt,
+                                            jnp.asarray(valid), bk=128,
+                                            interpret=True), tol)
+
+
+def _paged_case(dtype, ps, d, seed):
+    """Two sequences over shuffled pages: row 0 windowed so that its first
+    page is fully masked, row 1 short with its trailing table entries on
+    the null page 0."""
+    rng = np.random.default_rng(seed)
+    b, h, kvh, maxp = 2, 2, 1, 3
+    n_pages = 1 + b * maxp
+    q = _arr(rng, (b, h, d), dtype)
+    kp = _arr(rng, (n_pages, ps, kvh, d), dtype)
+    vp = _arr(rng, (n_pages, ps, kvh, d), dtype)
+    bt = (rng.permutation(n_pages - 1) + 1).reshape(b, maxp).astype(np.int32)
+    bt[1, 1:] = 0
+    lengths = np.array([3 * ps - 5, ps // 2 + 1], np.int32)
+    starts = np.array([ps + 3, 0], np.int32)
+    return q, kp, vp, bt, lengths, starts
+
+
+@pytest.mark.parametrize("dtype", sorted(NP))
+@pytest.mark.parametrize("ps,d,lattice", [(128, 16, True), (16, 14, False),
+                                          (5, 8, False)])
+def test_paged_plain_matches_jax_ref_and_pallas(dtype, ps, d, lattice):
+    q, kp, vp, bt, lengths, starts = _paged_case(dtype, ps, d, seed=ps + d)
+    tol = ATTN_TOL[dtype]
+    before = pops.launches
+    got = pops.paged_decode_attention(_t(q), _t(kp), _t(vp),
+                                      torch.from_numpy(bt),
+                                      torch.from_numpy(lengths),
+                                      torch.from_numpy(starts))
+    assert pops.launches == before
+    args = [jnp.asarray(a) for a in (q, kp, vp, bt, lengths, starts)]
+    _close(got, jax_paged_ref(*args), tol)
+    if lattice:
+        b, h = q.shape[:2]
+        assert b * h * bt.shape[1] <= INTERPRET_GRID_LIMIT
+        pallas = paged_decode_attention_pallas(
+            args[0], jnp.swapaxes(args[1], 1, 2), jnp.swapaxes(args[2], 1, 2),
+            args[3].reshape(-1), args[5], args[4], scale=d ** -0.5,
+            interpret=True)
+        _close(got, pallas, tol)
+
+
+@pytest.mark.parametrize("dtype", sorted(NP))
+def test_paged_plain_equals_dense_plain(dtype):
+    """The two decode plain versions share one routine: a paged decode over
+    gathered pages equals the dense decode of the same slab exactly."""
+    q, kp, vp, bt, lengths, starts = _paged_case(dtype, 16, 16, seed=3)
+    tq, tk, tv = _t(q), _t(kp), _t(vp)
+    tbt = torch.from_numpy(bt)
+    got = pops.paged_decode_attention(tq, tk, tv, tbt,
+                                      torch.from_numpy(lengths),
+                                      torch.from_numpy(starts))
+    b, maxp = bt.shape
+    slab_k = tk[tbt.long()].reshape(b, maxp * 16, *tk.shape[2:])
+    slab_v = tv[tbt.long()].reshape(b, maxp * 16, *tv.shape[2:])
+    posn = np.arange(maxp * 16)[None]
+    valid = (posn < lengths[:, None]) & (posn >= starts[:, None])
+    assert torch.equal(got, dops.decode_attention(
+        tq, slab_k, slab_v, torch.from_numpy(valid)))
+
+
+def test_wrappers_check_shapes_before_routing():
+    x = torch.zeros(4, 8)
+    with pytest.raises(ValueError, match="scale"):
+        rops.rmsnorm(x, torch.ones(7))
+    with pytest.raises(ValueError, match="flash_attention"):
+        fops.flash_attention(torch.zeros(1, 4, 3, 8), torch.zeros(1, 4, 2, 8),
+                             torch.zeros(1, 4, 2, 8))
+    with pytest.raises(ValueError, match="valid"):
+        dops.decode_attention(torch.zeros(2, 4, 8), torch.zeros(2, 6, 2, 8),
+                              torch.zeros(2, 6, 2, 8),
+                              torch.ones(2, 5, dtype=torch.bool))
+    with pytest.raises(ValueError, match="paged_decode"):
+        pops.paged_decode_attention(torch.zeros(2, 4, 8),
+                                    torch.zeros(3, 4, 2, 8),
+                                    torch.zeros(3, 4, 2, 8),
+                                    torch.zeros(3, 2, dtype=torch.int32),
+                                    torch.ones(2, dtype=torch.int32))

@@ -163,9 +163,12 @@ def test_cuda_graph_replay_matches_per_op_execution(cuda, name):
                  for n in g if n.fn is None} for _ in range(2)]
     outs = [exe(r) for r in requests]          # record, then replay
     stats = exe.program_stats()
-    assert exe.replay.recorded_launches == {
+    recorded = exe.replay.recorded_launches
+    assert {k: recorded[k] for k in ("branch_gemm", "grouped_gemm")} == {
         "branch_gemm": int(stats["n_branch_gemm"]),
         "grouped_gemm": int(stats["n_grouped_gemm"])}
+    assert not any(n for k, n in recorded.items()
+                   if k not in ("branch_gemm", "grouped_gemm"))
     assert stats["n_branch_gemm"] + stats["n_grouped_gemm"] >= 1
     # clones: the second request did not overwrite the first one's result
     for got, inputs in zip(outs, requests):
@@ -174,3 +177,234 @@ def test_cuda_graph_replay_matches_per_op_execution(cuda, name):
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError, match="recorded"):
         exe({k: torch.cat([v, v]) for k, v in requests[0].items()})
+
+
+# ---- normalisation and attention kernels ------------------------------------
+# Tolerances as above: bf16 1e-2, fp32 1e-5 of max|plain|.  The attention
+# kernels' plain versions round differently inside (the flash plain version
+# keeps probabilities in fp32; the kernels round them to the value dtype
+# after an online softmax), which stays within one bf16 ulp of the output.
+
+from repro_torch.kernels.decode_attention import ops as dops  # noqa: E402
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
+from repro_torch.kernels.paged_decode import ops as pops  # noqa: E402
+from repro_torch.kernels.paged_decode.ref import paged_decode_attention_ref  # noqa: E402
+from repro_torch.kernels.rmsnorm import ops as rops  # noqa: E402
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
+
+
+def _randn(cuda, seed, *shape, dtype=torch.float32, scale=1.0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return (torch.randn(*shape, generator=g, device=cuda) * scale).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,d", [(512, 896), (8, 896), (3, 14), (5, 100)])
+def test_rmsnorm_kernel_matches_plain(cuda, dtype, n, d):
+    x = _randn(cuda, n, n, d, dtype=dtype)
+    scale = _randn(cuda, d, d, dtype=dtype)
+    before = rops.launches
+    got = rops.rmsnorm(x, scale)
+    assert rops.launches == before + 1
+    _assert_kernel_close(got, rmsnorm_ref(x, scale))
+
+
+FLASH_CASES = [(1, 512, 14, 2, 64, 0), (2, 77, 4, 2, 14, 0),
+               (1, 200, 4, 1, 64, 32), (1, 130, 2, 2, 128, 0),
+               (1, 90, 4, 2, 64, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,s,h,kvh,d,window", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain(cuda, dtype, b, s, h, kvh, d,
+                                              window):
+    q = _randn(cuda, 1, b, s, h, d, dtype=dtype)
+    k = _randn(cuda, 2, b, s, kvh, d, dtype=dtype)
+    v = _randn(cuda, 3, b, s, kvh, d, dtype=dtype)
+    before = fops.launches
+    got = fops.flash_attention(q, k, v, causal=True, window=window)
+    assert fops.launches == before + 1
+    _assert_kernel_close(got, flash_attention_ref(q, k, v, True, window))
+
+
+def test_flash_attention_reads_strided_operands(cuda):
+    """q, k, v as views into one fused projection (non-contiguous heads)."""
+    qkv = _randn(cuda, 4, 2, 70, 8, 64, dtype=torch.bfloat16)
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+    got = fops.flash_attention(q, k, v)
+    _assert_kernel_close(got, flash_attention_ref(q, k, v))
+
+
+DECODE_CASES = [(8, 14, 2, 1024, 64), (3, 4, 2, 200, 14), (2, 7, 1, 64, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,kvh,t,d", DECODE_CASES)
+def test_decode_attention_kernel_matches_plain(cuda, dtype, b, h, kvh, t, d):
+    q = _randn(cuda, 5, b, h, d, dtype=dtype)
+    k = _randn(cuda, 6, b, t, kvh, d, dtype=dtype)
+    v = _randn(cuda, 7, b, t, kvh, d, dtype=dtype)
+    pos = torch.arange(b, device=cuda) * (t // max(b, 1)) + t // (2 * b)
+    k_pos = torch.arange(t, device=cuda)[None]
+    valid = k_pos <= pos[:, None]
+    valid[0] &= k_pos[0] > pos[0] - 40            # a windowed row
+    before = dops.launches
+    got = dops.decode_attention(q, k, v, valid)
+    assert dops.launches == before + 1
+    _assert_kernel_close(got, decode_attention_ref(q, k, v, valid))
+
+
+def _paged_case(cuda, dtype, d=64, ps=16):
+    """Pages with a shuffled table: row 0 windowed (with 16-position pages
+    its leading pages are fully masked; with 5-position ones the window
+    start clamps to 0), row 1's last table entries on the null page, row 2
+    a single partial page."""
+    b, h, kvh, maxp = 3, 14, 2, 12
+    n_pages = 1 + b * maxp
+    q = _randn(cuda, 8, b, h, d, dtype=dtype)
+    kp = _randn(cuda, 9, n_pages, ps, kvh, d, dtype=dtype)
+    vp = _randn(cuda, 10, n_pages, ps, kvh, d, dtype=dtype)
+    g = torch.Generator().manual_seed(11)
+    bt = (torch.randperm(n_pages - 1, generator=g)[:b * maxp] + 1).reshape(
+        b, maxp).to(torch.int32)
+    bt[1, 7:] = 0
+    bt = bt.to(cuda)
+    first = min(170, maxp * ps - 10)
+    lengths = torch.tensor([first, 7 * ps - 3, 5], dtype=torch.int32,
+                           device=cuda)
+    starts = torch.tensor([max(0, first - 64), 0, 0], dtype=torch.int32,
+                          device=cuda)
+    return q, kp, vp, bt, lengths, starts
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d,ps", [(64, 16), (14, 16), (64, 5)])
+def test_paged_decode_kernel_matches_plain_and_dense(cuda, dtype, d, ps):
+    q, kp, vp, bt, lengths, starts = _paged_case(cuda, dtype, d, ps)
+    before = pops.launches
+    got = pops.paged_decode_attention(q, kp, vp, bt, lengths, starts)
+    assert pops.launches == before + 1
+    _assert_kernel_close(got, paged_decode_attention_ref(q, kp, vp, bt,
+                                                         lengths, starts))
+    # the dense kernel on the gathered slab sums the same positions in the
+    # same order: bit-equal
+    b, maxp = bt.shape
+    kd = kp[bt.long()].reshape(b, maxp * ps, *kp.shape[2:])
+    vd = vp[bt.long()].reshape(b, maxp * ps, *vp.shape[2:])
+    posn = torch.arange(maxp * ps, device=cuda)[None]
+    valid = (posn < lengths[:, None]) & (posn >= starts[:, None])
+    assert torch.equal(got, dops.decode_attention(q, kd, vd, valid))
+
+
+def test_attention_wrappers_raise_on_device_dtype_and_layout(cuda):
+    x = torch.zeros(4, 64, device=cuda)
+    with pytest.raises(ValueError, match="devices"):
+        rops.rmsnorm(x, torch.ones(64))
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        rops.rmsnorm(x.half(), torch.ones(64, device=cuda).half())
+    with pytest.raises(ValueError, match="contiguous"):
+        rops.rmsnorm(torch.zeros(4, 128, device=cuda)[:, ::2],
+                     torch.ones(64, device=cuda))
+    q = torch.zeros(1, 8, 4, 64, device=cuda)
+    kv = torch.zeros(1, 8, 2, 64, device=cuda)
+    with pytest.raises(ValueError, match="devices"):
+        fops.flash_attention(q, kv.cpu(), kv.cpu())
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        fops.flash_attention(q.half(), kv.half(), kv.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        wide = torch.zeros(1, 8, 4, 128, device=cuda)
+        fops.flash_attention(wide[..., ::2], kv, kv)
+    with pytest.raises(ValueError, match="head dims"):
+        big = torch.zeros(1, 8, 2, 192, device=cuda)
+        fops.flash_attention(big, big, big)
+    qd = torch.zeros(2, 4, 64, device=cuda)
+    cache = torch.zeros(2, 32, 2, 64, device=cuda)
+    valid = torch.ones(2, 32, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="devices"):
+        dops.decode_attention(qd, cache, cache, valid.cpu())
+    with pytest.raises(TypeError, match="bool"):
+        dops.decode_attention(qd, cache, cache, valid.int())
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        dops.decode_attention(qd.half(), cache.half(), cache.half(), valid)
+    pages = torch.zeros(5, 16, 2, 64, device=cuda)
+    bt = torch.ones(2, 2, dtype=torch.int32, device=cuda)
+    lengths = torch.full((2,), 20, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        pops.paged_decode_attention(qd, pages, pages, bt.long(), lengths)
+    with pytest.raises(ValueError, match="devices"):
+        pops.paged_decode_attention(qd, pages, pages, bt.cpu(), lengths)
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        pops.paged_decode_attention(qd.half(), pages.half(), pages.half(), bt,
+                                    lengths)
+
+
+def _small_engine(cuda, paged):
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import AdmissionConfig, InferenceEngine
+    cfg = dataclasses.replace(get_config("qwen2-0.5b", smoke=True),
+                              d_model=128, n_heads=4, n_kv_heads=2, d_head=32)
+    model = Model(cfg, use_kernels=True)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0), cuda)
+    return InferenceEngine(model, params, max_slots=4, max_len=96, seed=1,
+                           admission=AdmissionConfig(policy="edf",
+                                                     preemption=True),
+                           paged_kv=paged, page_size=16)
+
+
+def _small_trace():
+    rng = np.random.default_rng(5)
+    return [dict(rid=i, prompt=rng.integers(1, 256, int(n)).tolist(),
+                 priority=2 if i % 3 == 2 else 0,
+                 ttl=14 if i % 3 == 2 else None)
+            for i, n in enumerate(rng.integers(3, 40, 9))]
+
+
+def _serve(engine, trace):
+    from repro_torch.serving import Request
+    for i, spec in enumerate(trace):
+        engine.submit(Request(max_tokens=10, **spec))
+        if i % 2:
+            engine.step()
+    return {r.rid: (r.state.value, tuple(r.output)) for r in engine.run(400)}
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_engine_graph_tick_is_bit_equal_to_the_eager_tick(cuda, paged):
+    from repro_torch.serving import Request
+    engine = _small_engine(cuda, paged)
+    for i in range(3):
+        engine.submit(Request(rid=i, prompt=[5 + i, 9, 2, 7], max_tokens=30))
+    for _ in range(5):
+        engine.step()
+    values = [engine.last_token, engine.pos]
+    if paged:
+        values.append(engine._block_table_array())
+    graph_logits = engine._step(values).clone()
+    assert engine.decode_graph.graph is not None
+    recorded = engine.decode_graph.recorded_launches
+    assert recorded["rmsnorm"] > 0
+    assert recorded["paged_decode" if paged else "decode_attention"] > 0
+    if paged:
+        eager = engine.model.paged_decode(
+            engine.params, engine._on_device(engine.last_token, torch.long),
+            engine.caches,
+            engine._on_device(engine._block_table_array(), torch.int32),
+            engine._on_device(engine.pos, torch.int32))[0]
+    else:
+        eager = engine._eager_decode()
+    assert torch.equal(graph_logits, eager)
+
+
+def test_paged_engine_equals_dense_engine_bf16(cuda):
+    trace = _small_trace()
+    dense = _serve(_small_engine(cuda, False), trace)
+    paged_engine = _small_engine(cuda, True)
+    paged = _serve(paged_engine, trace)
+    assert paged == dense
+    assert all(state != "pending" for state, _ in paged.values())
+    assert paged_engine.fault_stats["watchdog_fallbacks"] == 0
+    assert paged_engine.fault_stats["paged_decode_fallbacks"] == 0

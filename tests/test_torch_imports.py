@@ -28,7 +28,13 @@ def _port_modules():
 
 def test_importing_every_port_module_loads_no_jax_or_repro():
     mods = _port_modules()
-    assert "repro_torch.core.capture" in mods
+    for mod in ("repro_torch.core.capture", "repro_torch.models.model",
+                "repro_torch.serving.engine", "repro_torch.launch.serve",
+                "repro_torch.kernels.rmsnorm.ops",
+                "repro_torch.kernels.flash_attention.ops",
+                "repro_torch.kernels.decode_attention.ops",
+                "repro_torch.kernels.paged_decode.ops"):
+        assert mod in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -68,15 +74,20 @@ def _entry_points():
     from repro_torch.core import Session
     from repro_torch.models.transformer import init_lm
     import numpy as np
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
     cfg = get_config("qwen2-0.5b", smoke=True)
     return {
         "init_lm": lambda: init_lm(cfg, torch.Generator().manual_seed(0)),
         "Session": lambda: Session(),
         "bridge": lambda: bridge.from_numpy({"w": np.zeros(2, np.float32)}),
+        "Model.init": lambda: Model(cfg).init(torch.Generator().manual_seed(0)),
+        "serve": lambda: serve.main(["--requests", "1"]),
     }
 
 
-@pytest.mark.parametrize("entry", ["init_lm", "Session", "bridge"])
+@pytest.mark.parametrize("entry", ["init_lm", "Session", "bridge",
+                                   "Model.init", "serve"])
 def test_entry_points_raise_without_a_card_unless_asked_for_cpu(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the entry point runs on it")
