@@ -26,7 +26,25 @@ Phases (any failure raises and the script exits non-zero):
      to a preempted request's resume, in fp32 entirely); the kernel route
      is held against the plain route (prefill logits and 32 teacher-forced
      decode steps, bf16 and fp32); a decode tick by CUDA-graph replay is
-     bit-equal to the eager tick; times and a profile of one decode tick.
+     bit-equal to the eager tick; times and a profile of one decode tick;
+  7. moe_gemm (Kimi-K2's 384 experts, d 7168, f 2048, at a decode tick's
+     capacity 1 and a 512-token prefill's 13; fp32; off the tile lattice)
+     and rwkv6 (RWKV6-1.6B's 32 heads of 64 at a 512-token prefill and an
+     8-slot decode tick; odd T; nonzero state) vs their plain versions;
+     decode rows with no attended position, dense and paged;
+  8. Kimi-K2 at full width, 2 of 61 layers (dense prefix + one MoE layer):
+     the routed op graph (16 expert branches, batch 1, seq 512) through
+     Session.compile into one CUDA graph with grouped_gemm on the fan-out,
+     held against eager per-op execution; then the serve trace of phase 6
+     on dense and paged engines with moe_gemm (bf16; fp32 at 64 of the 384
+     experts), the kernel route held against the plain route (the MoE layer
+     on identical inputs; whole-model logits over the positions whose
+     expert choice agrees in bf16, over all of them in fp32), paged against
+     dense streams, decode ticks graph vs eager;
+  9. RWKV6-1.6B at full width and depth (24 layers): the op graph (seq 512,
+     the wkv_scan nodes launch rwkv6) through Session.compile, held against
+     eager per-op execution; the serve trace on the dense-slab engine in
+     bf16 and fp32 with phase 6's gates; a decode tick graph vs eager.
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
 package; needs the repository's ``src/`` next to this file and a CUDA card.
@@ -35,6 +53,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -79,6 +98,17 @@ CALIB_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
 # fp32 CUDA-core peak (FLOP/s) per H100 part, NVIDIA H100 data sheet; bf16
 # peaks and memory bandwidth come from repro_torch.core.profiler's specs
 FP32_PEAK = {"h100-sxm": 67e12, "h100-pcie": 51e12, "h100-nvl": 60e12}
+
+
+# every kernel of the port, in the order of the kernels line
+KERNELS = ("branch_gemm", "grouped_gemm", "rmsnorm", "flash_attention",
+           "decode_attention", "paged_decode", "moe_gemm", "rwkv6")
+
+
+def _json_row(result: dict) -> dict:
+    """A measurement as the kernels line carries it."""
+    return {k: result[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")}
 
 
 def log(*args) -> None:
@@ -198,10 +228,14 @@ def phase_kernels(env: dict, gen: torch.Generator) -> dict:
     def peak(dtype):
         return hw.peak_flops if dtype == torch.bfloat16 else FP32_PEAK[hw.name]
 
-    # branch_gemm: gate||up and wk||wv of the main path, off-lattice, fp32
+    # branch_gemm: gate||up and wk||wv of the main path, the equal-shape
+    # branches Kimi-K2's and RWKV6's op graphs stack, off-lattice, fp32
     for tag, (n, m, k, f), dtype in [
             ("gate||up", (2, 512, 896, 4864), torch.bfloat16),
             ("wk||wv", (2, 512, 896, 128), torch.bfloat16),
+            ("kimi dense-prefix gate||up", (2, 512, 7168, 18432),
+             torch.bfloat16),
+            ("rwkv wr||wk||wv||wg", (4, 512, 2048, 2048), torch.bfloat16),
             ("off-lattice", (3, 77, 200, 136), torch.bfloat16),
             ("off-lattice fp32", (3, 77, 200, 136), torch.float32),
             ("gate||up fp32", (2, 512, 896, 4864), torch.float32)]:
@@ -227,10 +261,19 @@ def phase_kernels(env: dict, gen: torch.Generator) -> dict:
             max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
             bound_ms=bound, bound_by=by, library_ms=library_ms)
 
-    # grouped_gemm: ragged sizes with a zero-row group, K=896, F=4864
-    for tag, sizes, dtype in [("ragged", (0, 37, 512, 5), torch.bfloat16),
-                              ("ragged fp32", (0, 37, 512, 5), torch.float32)]:
-        k, f = 896, 4864
+    # grouped_gemm: ragged sizes with a zero-row group, K=896, F=4864; the
+    # routed fan-out of Kimi-K2's op graph at a 512-token prefill (16
+    # expert branches, capacities 0.5x-1.5x of the mean load): gate||up
+    # K=7168 F=4096, down K=2048 F=7168
+    from repro_torch.configs import get_config
+    from repro_torch.models.opgraph_export import _moe_capacities
+    moe = get_config("kimi-k2-1t-a32b").moe
+    kimi_caps = _moe_capacities(BATCH * SEQ, moe, 16, moe.top_k)
+    for tag, sizes, (k, f), dtype in [
+            ("ragged", (0, 37, 512, 5), (896, 4864), torch.bfloat16),
+            ("ragged fp32", (0, 37, 512, 5), (896, 4864), torch.float32),
+            ("kimi gate||up", kimi_caps, (7168, 4096), torch.bfloat16),
+            ("kimi down", kimi_caps, (2048, 7168), torch.bfloat16)]:
         x = rnd((sum(sizes), k), dtype)
         w = rnd((len(sizes), k, f), dtype, k ** -0.5)
         table = gops.tile_table(sizes, "cuda")
@@ -733,12 +776,16 @@ def serve_specs(vocab: int, seed: int) -> list[dict]:
 
 def drive(engine, specs: list[dict]) -> list:
     """Submit each request at its arrival tick and step until all work is
-    terminal; also returns, per preempted request, the tokens it had when
-    it was first preempted."""
+    terminal.  Also returns, per preempted request, the tokens it had when
+    it was first preempted, and the tokens every request had just before
+    the step in which a preempted request first resumed (None without a
+    resume): from that step on, a dense and a paged engine no longer run
+    the same arithmetic."""
     from repro_torch.serving import Request
     pending = sorted(specs, key=lambda s: (s["arrival"], s["rid"]))
     reqs, idx = [], 0
     preempted_at = {}           # rid -> tokens it had at its first preemption
+    first_resume = None         # rid -> tokens before the first resume step
     while idx < len(pending) or engine._work_pending():
         while idx < len(pending) and pending[idx]["arrival"] <= engine.tick:
             s = pending[idx]
@@ -748,12 +795,16 @@ def drive(engine, specs: list[dict]) -> list:
             engine.submit(req)
             reqs.append(req)
             idx += 1
+        before = {r.rid: len(r.output) for r in reqs}
         engine.step()
         for r in reqs:
             if r.preemptions and r.rid not in preempted_at:
                 preempted_at[r.rid] = len(r.output)
+        if first_resume is None and any(
+                r.preemptions and r.state.value != "pending" for r in reqs):
+            first_resume = before
     engine.drain()
-    return reqs, preempted_at
+    return reqs, preempted_at, first_resume
 
 
 def _cast(tree, dtype):
@@ -764,15 +815,16 @@ def _cast(tree, dtype):
     return tree.to(dtype)
 
 
-def serve_both(make_engine, specs: list[dict], dtype) -> dict:
-    """Drive the trace through a dense and a paged engine; check that every
-    request completed with no fallback, that preemption (and, paged, page
-    resume) happened."""
+def serve_both(make_engine, specs: list[dict], dtype,
+               modes: tuple[bool, ...] = (False, True)) -> dict:
+    """Drive the trace through a dense and (unless ``modes`` leaves it out)
+    a paged engine; check that every request completed with no fallback,
+    that preemption (and, paged, page resume) happened."""
     runs = {}
-    for paged in (False, True):
+    for paged in modes:
         eng = make_engine(paged)
         t0 = time.perf_counter()
-        reqs, preempted_at = drive(eng, specs)
+        reqs, preempted_at, first_resume = drive(eng, specs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         tokens = sum(len(r.output) for r in reqs)
@@ -796,19 +848,24 @@ def serve_both(make_engine, specs: list[dict], dtype) -> dict:
         if paged and eng.fault_stats["page_resumes"] < 1:
             raise AssertionError("paged: no page resume")
         runs[label] = ({r.rid: (r.state.value, tuple(r.output))
-                        for r in reqs}, preempted_at)
+                        for r in reqs}, preempted_at, first_resume)
+        del eng
     return runs
 
 
-def compare_streams(runs: dict, exact: bool) -> None:
+def compare_streams(runs: dict, exact: bool, coupled: bool = False) -> None:
     """Paged vs dense: equal terminal states; equal streams for every request
     that was never preempted, and up to its first preemption for one that
     was.  A resumed request continues from retained pages (paged) or from a
     re-prefill of prompt + output (dense), which round differently; with
-    ``exact`` its whole stream must agree all the same."""
-    dense, dense_pre = runs["dense"]
-    paged, paged_pre = runs["paged"]
-    if dense_pre != paged_pre:
+    ``exact`` its whole stream must agree all the same.  With ``coupled``
+    (MoE: a decode token's expert capacity depends on its batchmates, so a
+    resumed request that differs can move any batchmate) every stream must
+    agree up to the step in which a preempted request first resumed, and
+    the streams that differ after it are counted."""
+    dense, dense_pre, dense_cut = runs["dense"]
+    paged, paged_pre, paged_cut = runs["paged"]
+    if dense_pre != paged_pre or dense_cut != paged_cut:
         raise AssertionError(f"preemptions differ: {dense_pre} {paged_pre}")
     if {r: s for r, (s, _) in dense.items()} != \
             {r: s for r, (s, _) in paged.items()}:
@@ -818,18 +875,24 @@ def compare_streams(runs: dict, exact: bool) -> None:
         got = paged[rid][1]
         if got == want:
             continue
-        first = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+        first = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                     min(len(got), len(want)))
         diverged.append((rid, first, len(want), dense_pre.get(rid)))
-        if rid not in dense_pre or first < dense_pre[rid]:
+        if coupled:
+            held = None if dense_cut is None else dense_cut[rid]
+        else:
+            held = dense_pre.get(rid)
+        if held is None or first < held:
             raise AssertionError(
                 f"rid {rid}: paged and dense streams differ at token {first} "
-                f"(preempted at {dense_pre.get(rid)})")
+                f"(held equal up to {held})")
     n_tok = sum(len(o) for _, o in dense.values())
-    log(f"[serve] paged vs dense ({'exact' if exact else 'bf16'}): terminal "
-        f"states equal; {len(dense) - len(diverged)}/{len(dense)} streams "
-        f"equal ({n_tok} tokens); preempted requests (rid: tokens before the "
-        f"first preemption) {dense_pre}; streams that diverge after a resume "
-        f"(rid, first differing token, length, preempted at) {diverged}")
+    log(f"[serve] paged vs dense ({'exact' if exact else 'up to a resume'}"
+        f"{', coupled batch' if coupled else ''}): terminal states equal; "
+        f"{len(dense) - len(diverged)}/{len(dense)} streams equal ({n_tok} "
+        f"tokens); preempted requests (rid: tokens before the first "
+        f"preemption) {dense_pre}; streams that diverge after a resume (rid, "
+        f"first differing token, length, preempted at) {diverged}")
     if exact and diverged:
         raise AssertionError("paged and dense token streams differ")
 
@@ -858,13 +921,29 @@ def _check_agreement(what: str, got, want, failures: list,
                         f"route (rel_l2 {rel:.3e}, top1 {agree:.4f})")
 
 
-def _kernel_ops():
+def _kernel_ops(*names: str) -> dict:
+    """The wrapper modules (each with its ``launches`` count) by kernel."""
+    from repro_torch.kernels.branch_gemm import ops as bops
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.grouped_gemm import ops as gops
+    from repro_torch.kernels.moe_gemm import ops as mops
     from repro_torch.kernels.paged_decode import ops as pops
     from repro_torch.kernels.rmsnorm import ops as rops
-    return {"rmsnorm": rops, "flash_attention": fops,
-            "decode_attention": dops, "paged_decode": pops}
+    from repro_torch.kernels.rwkv6 import ops as wops
+    ops = {"branch_gemm": bops, "grouped_gemm": gops, "rmsnorm": rops,
+           "flash_attention": fops, "decode_attention": dops,
+           "paged_decode": pops, "moe_gemm": mops, "rwkv6": wops}
+    return {name: ops[name] for name in names}
+
+
+def reset_launches() -> None:
+    for m in _kernel_ops(*KERNELS).values():
+        m.launches = 0
+
+
+def read_launches(*names: str) -> dict:
+    return {name: m.launches for name, m in _kernel_ops(*names).items()}
 
 
 def phase_serve(seed: int) -> dict:
@@ -897,11 +976,10 @@ def phase_serve(seed: int) -> dict:
             num_pages=1 + 2 * SLOTS * (MAX_LEN // PAGE) if paged else None)
 
     # -- the main path's run: launch counts from 0 ----------------------------
-    ops = _kernel_ops()
-    for m in ops.values():
-        m.launches = 0
+    reset_launches()
     runs = serve_both(engine, specs, cfg.dtype)
-    launches = {name: m.launches for name, m in ops.items()}
+    launches = read_launches("rmsnorm", "flash_attention",
+                             "decode_attention", "paged_decode")
     # -- end of the main path's run ------------------------------------------
     log(f"[serve] wrapper launches over both runs (eager prefills + graph "
         f"warm-up and recording) {launches}")
@@ -1045,15 +1123,18 @@ def rounding_point(cfg, params, prompt: list[int]) -> None:
 
 
 def teacher_forced(cfg, model, plain, params, specs, seed: int,
-                   failures: list, gate_top1: bool) -> None:
-    """32 decode steps at 8 slots on the same forced tokens: the kernel
-    route (dense slab and paged) against the plain route (dense slab);
-    paged must equal dense on the kernel route, step for step."""
+                   failures: list, gate_top1: bool, paged: bool = True,
+                   steps: int = SERVE_TOKENS) -> None:
+    """``steps`` decode steps at 8 slots on the same forced tokens: the
+    kernel route (dense slab and, with ``paged``, paged) against the plain
+    route (dense slab); paged must equal dense on the kernel route, step
+    for step."""
     from repro_torch.models.transformer import (init_decode_caches,
                                                 init_paged_decode_caches)
+    from repro_torch.serving.engine import _leaves
     maxp = MAX_LEN // PAGE
     lens = torch.tensor([len(s["prompt"]) for s in specs], device="cuda")
-    forced = torch.randint(1, cfg.vocab_size, (SERVE_TOKENS, SLOTS),
+    forced = torch.randint(1, cfg.vocab_size, (steps, SLOTS),
                            generator=torch.Generator(device="cuda")
                            .manual_seed(seed + 1), device="cuda")
     bt = (torch.randperm(SLOTS * maxp, generator=torch.Generator()
@@ -1065,38 +1146,806 @@ def teacher_forced(cfg, model, plain, params, specs, seed: int,
         for i, s in enumerate(specs):
             tokens = torch.tensor([s["prompt"]], device="cuda")
             _, cache = m.prefill(params, {"tokens": tokens}, cache_len=MAX_LEN)
-            for (k, v), (ck, cv) in zip(caches, cache):
-                k[:, i].copy_(ck[:, 0])
-                v[:, i].copy_(cv[:, 0])
+            for big, small in zip(_leaves(caches), _leaves(cache)):
+                big[:, i].copy_(small[:, 0])
         return caches
 
     kernel_dense = prefilled(model)
     plain_dense = prefilled(plain)
-    pages = init_paged_decode_caches(cfg, 1 + SLOTS * maxp, PAGE,
-                                     device="cuda")
-    for (pk, pv), (k, v) in zip(pages, kernel_dense):
-        L = k.shape[0]
-        pk[:, bt.long().flatten()] = k.reshape(L, SLOTS * maxp, PAGE,
-                                               *k.shape[3:])
-        pv[:, bt.long().flatten()] = v.reshape(L, SLOTS * maxp, PAGE,
-                                               *v.shape[3:])
+    if paged:
+        pages = init_paged_decode_caches(cfg, 1 + SLOTS * maxp, PAGE,
+                                         device="cuda")
+        for (pk, pv), (k, v) in zip(pages, kernel_dense):
+            L = k.shape[0]
+            pk[:, bt.long().flatten()] = k.reshape(L, SLOTS * maxp, PAGE,
+                                                   *k.shape[3:])
+            pv[:, bt.long().flatten()] = v.reshape(L, SLOTS * maxp, PAGE,
+                                                   *v.shape[3:])
     got_d, got_p, want = [], [], []
-    for t in range(SERVE_TOKENS):
+    for t in range(steps):
         pos = (lens + t).to(torch.int32)
         got_d.append(model.decode(params, forced[t], kernel_dense, pos)[0])
-        got_p.append(model.paged_decode(params, forced[t], pages, bt, pos)[0])
         want.append(plain.decode(params, forced[t], plain_dense, pos)[0])
-        if not torch.equal(got_p[-1], got_d[-1]):
-            raise AssertionError(f"step {t}: paged decode logits differ "
-                                 "from dense on the kernel route")
-    what = (f"{_dt(cfg.dtype)} {SERVE_TOKENS} teacher-forced decode steps x "
-            f"{SLOTS} slots")
+        if paged:
+            got_p.append(model.paged_decode(params, forced[t], pages, bt,
+                                            pos)[0])
+            if not torch.equal(got_p[-1], got_d[-1]):
+                raise AssertionError(f"step {t}: paged decode logits differ "
+                                     "from dense on the kernel route")
+    what = (f"{cfg.name} {_dt(cfg.dtype)} {steps} teacher-forced decode "
+            f"steps x {SLOTS} slots")
     _check_agreement(f"{what}, dense slab", torch.stack(got_d),
                      torch.stack(want), failures, gate_top1)
-    _check_agreement(f"{what}, paged", torch.stack(got_p), torch.stack(want),
-                     failures, gate_top1)
-    log("[serve] teacher-forced paged logits bit-equal to dense at every "
-        "step")
+    if paged:
+        _check_agreement(f"{what}, paged", torch.stack(got_p),
+                         torch.stack(want), failures, gate_top1)
+        log("[serve] teacher-forced paged logits bit-equal to dense at every "
+            "step")
+
+
+# =============================================================================
+# 7. moe_gemm and rwkv6 kernels, and the all-masked decode row
+# =============================================================================
+
+# Kimi-K2's expert geometry and RWKV6-1.6B's heads
+KIMI_E, KIMI_D, KIMI_F = 384, 7168, 2048
+RWKV_H, RWKV_K = 32, 64
+
+
+def _expert_stack(gen, shape, scale, dtype):
+    """Random expert weights drawn one matrix at a time (a bf16 stack of
+    Kimi-K2 is 11.3 GB; its fp32 draw would be twice that)."""
+    out = torch.empty(shape, dtype=dtype, device="cuda")
+    for i in range(shape[0]):
+        out[i] = (torch.randn(shape[1:], generator=gen, device="cuda")
+                  * scale).to(dtype)
+    return out
+
+
+def _moe_chain(buf, gate, up, down):
+    """The bmm/silu chain of PyTorch calls for the same function (cuBLAS
+    bmm, which rounds h's two factors to the dtype): the nearest thing to
+    a library call, since no single one computes the expert MLP."""
+    F = torch.nn.functional
+    return torch.bmm(F.silu(torch.bmm(buf, gate)) * torch.bmm(buf, up), down)
+
+
+def phase_moe_rwkv_kernels(env: dict, gen: torch.Generator) -> dict:
+    from repro_torch.kernels.moe_gemm import ops as mops
+    from repro_torch.kernels.moe_gemm.ref import moe_mlp_ref
+    from repro_torch.kernels.rwkv6 import ops as wops
+    from repro_torch.kernels.rwkv6.ref import rwkv6_ref
+
+    hw = env["hw"]
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device="cuda")
+    results = {}
+
+    def peak(dtype):
+        return hw.peak_flops if dtype == torch.bfloat16 else FP32_PEAK[hw.name]
+
+    # -- moe_gemm: full width (C = 1 a decode tick's, C = 13 a 512-token
+    # prefill's capacity), fp32 at 16 experts, off the tile lattice
+    full = None
+    for tag, (e, c, d, f), dtype, timed in [
+            ("decode C=1", (KIMI_E, 1, KIMI_D, KIMI_F), torch.bfloat16, True),
+            ("prefill C=13", (KIMI_E, 13, KIMI_D, KIMI_F), torch.bfloat16,
+             True),
+            ("fp32 E=16 C=13", (16, 13, KIMI_D, KIMI_F), torch.float32,
+             False),
+            ("odd C=5 d=200 f=136", (3, 5, 200, 136), torch.bfloat16, False),
+            ("odd C=5 d=200 f=136", (3, 5, 200, 136), torch.float32, False)]:
+        if e == KIMI_E:
+            if full is None:
+                full = [_expert_stack(gen, (e, d, f), d ** -0.5, dtype),
+                        _expert_stack(gen, (e, d, f), d ** -0.5, dtype),
+                        _expert_stack(gen, (e, f, d), f ** -0.5, dtype)]
+            gate, up, down = full
+        else:
+            gate, up, down = (_expert_stack(gen, (e, d, f), d ** -0.5, dtype),
+                              _expert_stack(gen, (e, d, f), d ** -0.5, dtype),
+                              _expert_stack(gen, (e, f, d), f ** -0.5, dtype))
+        buf = (torch.randn((e, c, d), generator=gen, device="cuda")
+               ).to(dtype)
+        launches0 = mops.launches
+        got = mops.moe_mlp(buf, gate, up, down)
+        want = moe_mlp_ref(buf, gate, up, down)
+        torch.cuda.synchronize()
+        err = check_close(got, want, f"moe_gemm {tag}")
+        if mops.launches != launches0 + 1:
+            raise AssertionError("moe_gemm did not count its launch")
+        if not timed:
+            log(f"[kernel] moe_gemm {tag} [{e},{c},{d}] f={f} {_dt(dtype)}: "
+                f"max_abs_err {err:.3g}")
+            continue
+        size = buf.element_size()
+        n_flops = 2.0 * 3 * e * c * d * f
+        n_bytes = size * (3 * e * d * f + 2 * e * c * d)
+        bound, by = gemm_bound_ms(n_flops, n_bytes, peak(dtype), hw.hbm_bw)
+        kernel_ms = cuda_ms(lambda: mops.moe_mlp(buf, gate, up, down),
+                            flush=flush)
+        plain_ms = cuda_ms(lambda: moe_mlp_ref(buf, gate, up, down),
+                           flush=flush)
+        chain_ms = cuda_ms(lambda: _moe_chain(buf, gate, up, down),
+                           flush=flush)
+        log(f"[kernel] moe_gemm {tag} [{e},{c},{d}] f={f} {_dt(dtype)}: "
+            f"max_abs_err {err:.3g} kernel_ms {kernel_ms:.4f} plain_ms "
+            f"{plain_ms:.4f} library none (bmm/silu/bmm/bmm chain of four "
+            f"calls: {chain_ms:.4f} ms) bound_us {bound * 1e3:.2f} ({by}; "
+            f"{n_flops / 1e9:.2f} GFLOP, {n_bytes / 1e9:.3f} GB)")
+        results[("moe_gemm", tag)] = dict(
+            max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
+            bound_ms=bound, bound_by=by, library_ms=None, chain_ms=chain_ms)
+        del buf, got, want
+    del full, gate, up, down
+    free_card()
+
+    # -- rwkv6: a 512-token prefill, a decode tick of 8 slots, odd T ---------
+    for tag, (b, t), timed in [("prefill T=512", (1, 512), True),
+                               ("decode B=8 T=1", (8, 1), True),
+                               ("odd T=17", (1, 17), False),
+                               ("T=700", (1, 700), False)]:
+        h, k = RWKV_H, RWKV_K
+        r, kk, v = (torch.randn((b, h, t, k), generator=gen, device="cuda")
+                    for _ in range(3))
+        w = torch.exp(-torch.exp(torch.randn((b, h, t, k), generator=gen,
+                                             device="cuda") * 0.5 - 6.0))
+        u = torch.randn((h, k), generator=gen, device="cuda") * 0.1
+        s0 = torch.randn((b, h, k, k), generator=gen, device="cuda")
+        launches0 = wops.launches
+        out, s_final = wops.rwkv6(r, kk, v, w, u, s0)
+        want_out, want_s = rwkv6_ref(r, kk, v, w, u, s0)
+        torch.cuda.synchronize()
+        err = max(check_close(out, want_out, f"rwkv6 {tag} out"),
+                  check_close(s_final, want_s, f"rwkv6 {tag} state"))
+        if wops.launches != launches0 + 1:
+            raise AssertionError("rwkv6 did not count its launch")
+        if not timed:
+            log(f"[kernel] rwkv6 {tag} B={b} H={h} K={k} (nonzero s0): "
+                f"max_abs_err {err:.3g}")
+            continue
+        n_flops = 6.0 * b * h * t * k * k
+        n_bytes = 4 * (5 * b * h * t * k + 2 * b * h * k * k + h * k)
+        bound, by = gemm_bound_ms(n_flops, n_bytes, FP32_PEAK[hw.name],
+                                  hw.hbm_bw)
+        kernel_ms = cuda_ms(lambda: wops.rwkv6(r, kk, v, w, u, s0),
+                            flush=flush)
+        plain_ms = cuda_ms(lambda: rwkv6_ref(r, kk, v, w, u, s0),
+                           flush=flush, iters=5)
+        log(f"[kernel] rwkv6 {tag} B={b} H={h} K={k} fp32: max_abs_err "
+            f"{err:.3g} kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} "
+            f"library none bound_us {bound * 1e3:.3f} ({by}; "
+            f"{n_flops / 1e6:.2f} MFLOP, {n_bytes / 1e6:.3f} MB)")
+        results[("rwkv6", tag)] = dict(
+            max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
+            bound_ms=bound, bound_by=by, library_ms=None)
+    del flush
+    return results
+
+
+def phase_masked_row(gen: torch.Generator) -> None:
+    """A decode row with no attended position: both kernels give their
+    plain versions' (and the JAX package's) answer, V averaged over every
+    position of the row — null pages included when paged."""
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.paged_decode import ops as pops
+    from repro_torch.kernels.paged_decode.ref import paged_decode_attention_ref
+    for dtype in (torch.bfloat16, torch.float32):
+        b, t, h, kvh, d = SLOTS, MAX_LEN, HEADS, KV_HEADS, HEAD_DIM
+        q = torch.randn((b, h, d), generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn((b, t, kvh, d), generator=gen, device="cuda")
+                .to(dtype) for _ in range(2))
+        valid = torch.arange(t, device="cuda")[None] < torch.tensor(
+            [0, 300] * (b // 2), device="cuda")[:, None]
+        got = dops.decode_attention(q, k, v, valid)
+        want = decode_attention_ref(q, k, v, valid)
+        torch.cuda.synchronize()
+        err = check_close(got, want, "decode_attention all-masked rows")
+        mean = v[0].float().mean(0).repeat_interleave(h // kvh, dim=0)
+        err_mean = float((got[0].float() - mean).abs().max())
+        maxp = 12
+        n_pages = 1 + b * maxp
+        bt = (torch.randperm(n_pages - 1, generator=torch.Generator()
+                             .manual_seed(3)) + 1).reshape(b, maxp)
+        bt[0, 5:] = 0                                  # null pages
+        bt = bt.to(torch.int32).cuda()
+        kp, vp = (torch.randn((n_pages, PAGE, kvh, d), generator=gen,
+                              device="cuda").to(dtype) for _ in range(2))
+        lengths = torch.tensor([0, 150] * (b // 2), dtype=torch.int32,
+                               device="cuda")
+        got_p = pops.paged_decode_attention(q, kp, vp, bt, lengths)
+        want_p = paged_decode_attention_ref(q, kp, vp, bt, lengths)
+        torch.cuda.synchronize()
+        err_p = check_close(got_p, want_p, "paged_decode all-masked rows")
+        log(f"[kernel] all-masked decode rows {_dt(dtype)}: decode_attention "
+            f"max_abs_err vs plain {err:.3g} (vs the mean of V over T={t}: "
+            f"{err_mean:.3g}), paged_decode (null pages in the table) "
+            f"{err_p:.3g}")
+
+
+# =============================================================================
+# 8. Kimi-K2: op graph and serving at full width, 2 layers
+# =============================================================================
+
+def _kept_choice(top_idx: torch.Tensor, moe) -> list[tuple]:
+    """Per token, (routed experts, experts that kept it) of one MoE call:
+    the sort dispatch's within-expert rank by token order, against the
+    call's capacity."""
+    from repro_torch.models.ffn import _capacity
+    idx = top_idx.cpu().numpy()
+    n, k = idx.shape
+    cap = _capacity(n, moe)
+    seen: dict[int, int] = {}
+    out = []
+    for row in idx:
+        kept = []
+        for ex in row.tolist():
+            rank = seen.get(ex, 0)
+            seen[ex] = rank + 1
+            if rank < cap:
+                kept.append(ex)
+        out.append((tuple(sorted(row.tolist())), tuple(sorted(kept))))
+    return out
+
+
+class RouteRecorder:
+    """Records every routing decision of the port's MoE layer (the expert
+    ids of each call) while active."""
+
+    def __enter__(self):
+        from repro_torch.models import ffn
+        self.calls = []
+        self._ffn, self._route = ffn, ffn.route
+
+        def recording(p, x, e, generator=None):
+            out = self._route(p, x, e, generator)
+            self.calls.append((out[1].clone(), e))
+            return out
+        ffn.route = recording
+        return self
+
+    def __exit__(self, *exc):
+        self._ffn.route = self._route
+
+
+def _agreeing_positions(a: RouteRecorder, b: RouteRecorder):
+    """Per token of two runs of the same input: whether its routed experts
+    agree in every MoE call, and whether the experts that kept it (after
+    capacity) agree too — a flip ahead of a token in an expert's order can
+    move the capacity cut past it."""
+    if len(a.calls) != len(b.calls):
+        raise AssertionError("the two routes made different MoE calls")
+    routed = kept = None
+    for (ia, e), (ib, _) in zip(a.calls, b.calls):
+        ca, cb = _kept_choice(ia, e), _kept_choice(ib, e)
+        r = torch.tensor([x[0] == y[0] for x, y in zip(ca, cb)])
+        k = torch.tensor([x == y for x, y in zip(ca, cb)])
+        routed = r if routed is None else routed & r
+        kept = k if kept is None else kept & k
+    return routed, kept
+
+
+def kimi_forward_gate(what: str, cfg, params, prompts, failures: list,
+                      gate_top1: bool) -> None:
+    """Kernel route vs plain route, whole model, on each prompt.  In bf16
+    the logits gate covers the positions whose expert choice (and capacity
+    outcome) agrees in both routes — a bf16 ulp upstream of the router can
+    swap a token's 8th and 9th experts — and the share of positions whose
+    expert choice flips is held to 10%; with ``gate_top1`` (fp32) every
+    position is gated."""
+    from repro_torch.models.transformer import lm_forward
+    for s in prompts:
+        tokens = torch.tensor([s["prompt"]], device="cuda")
+        with RouteRecorder() as kr:
+            got, _ = lm_forward(params, tokens, cfg, True, with_cache=False)
+        with RouteRecorder() as pr:
+            want, _ = lm_forward(params, tokens, cfg, False, with_cache=False)
+        if not bool(torch.isfinite(got).all()) or \
+                got.shape != (1, tokens.shape[1], cfg.vocab_size):
+            raise AssertionError(f"bad logits {tuple(got.shape)}")
+        routed, kept = _agreeing_positions(kr, pr)
+        flips = 1.0 - float(routed.float().mean())
+        moved = float((routed & ~kept).float().mean())
+        log(f"[kimi] {what}, {tokens.shape[1]} positions: expert choice "
+            f"flips at {flips:.4f} of them (<= 0.10); capacity outcome moved "
+            f"by another token's flip at {moved:.4f}")
+        if flips > 0.10:
+            failures.append(f"{what}: expert flips at {flips:.4f}")
+        if gate_top1:
+            _check_agreement(f"{what} lm_forward logits, all positions",
+                             got, want, failures, gate_top1=True)
+        else:
+            agree = kept.to("cuda")
+            _check_agreement(f"{what} lm_forward logits, the "
+                             f"{int(agree.sum())} positions whose experts "
+                             f"agree", got[:, agree], want[:, agree],
+                             failures, gate_top1=False)
+        del got, want
+
+
+def kimi_rounding_point(cfg, params, prompt: list[int]) -> None:
+    """Diagnostic (reported, not gated): the expert flips between the plain
+    route and the plain route with only its softmax probabilities kept in
+    fp32 — what one moved rounding point does to the routing."""
+    from repro_torch.models import attention
+    from repro_torch.models.transformer import lm_forward
+    tokens = torch.tensor([prompt], device="cuda")
+    with RouteRecorder() as a:
+        lm_forward(params, tokens, cfg, False, with_cache=False)
+    plain_sdpa = attention._sdpa
+    attention._sdpa = _sdpa_fp32_probs
+    try:
+        with RouteRecorder() as b:
+            lm_forward(params, tokens, cfg, False, with_cache=False)
+    finally:
+        attention._sdpa = plain_sdpa
+    routed, kept = _agreeing_positions(a, b)
+    log(f"[kimi] diagnostic: plain route with fp32 softmax probabilities vs "
+        f"the plain route, {tokens.shape[1]} positions: expert choice flips "
+        f"at {1.0 - float(routed.float().mean()):.4f}, capacity outcome "
+        f"moved at {float((routed & ~kept).float().mean()):.4f}")
+
+
+def kimi_graph(cfg, params, seed: int) -> dict:
+    """The routed-MoE op graph (16 expert branches) through Session.compile
+    into one CUDA graph, held against eager per-op execution."""
+    from repro_torch.core import Session, SessionConfig, SimConfig
+    from repro_torch.core.capture import run_sequential_uncompiled
+    from repro_torch.models.opgraph_export import build_lm_opgraph
+
+    t0 = time.perf_counter()
+    graph = build_lm_opgraph(cfg, batch=BATCH, seq=SEQ, params=params)
+    caps = [n.out_shape[0] for n in graph if ".dispatch" in n.name]
+    log(f"[kimi] op graph: {len(graph)} ops, {len(caps)} routed expert "
+        f"branches with capacities {caps}, export "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    def tokens(i):
+        g = torch.Generator(device="cuda").manual_seed(seed * 1000 + 500 + i)
+        return torch.randint(0, cfg.vocab_size, (BATCH, SEQ), generator=g,
+                             device="cuda")
+
+    root = next(n.op_id for n in graph if n.fn is None)
+    # -- the path's run: launch counts from 0 ----------------------------------
+    reset_launches()
+    sess = Session(SessionConfig(autotune=True,
+                                 sim_cfg=SimConfig(head_of_line=True),
+                                 calib_dir=CALIB_DIR))
+    t0 = time.perf_counter()
+    model = sess.compile(graph, inputs={root: tokens(0)})
+    compile_s = time.perf_counter() - t0
+    exe = model.executable
+    stats = exe.program_stats()
+    outputs = []
+    for i in range(3):
+        inputs = {"tokens": tokens(100 + i)}
+        outputs.append((inputs, model(inputs)))
+    torch.cuda.synchronize()
+    launches = read_launches("branch_gemm", "grouped_gemm")
+    # -- end of the path's run ---------------------------------------------------
+    recorded = exe.replay.recorded_launches
+    log(f"[kimi] compile {compile_s:.2f} s; program_stats {json.dumps(stats)}"
+        f"; launches in the graph (one forward) {recorded}; wrapper launches "
+        f"over the run {launches}")
+    if recorded["grouped_gemm"] != int(stats["n_grouped_gemm"]) or \
+            recorded["grouped_gemm"] < 2:
+        raise AssertionError(f"grouped_gemm launches per forward "
+                             f"{recorded['grouped_gemm']}, program has "
+                             f"{stats['n_grouped_gemm']} steps")
+    for i, (inputs, outs) in enumerate(outputs):
+        ref = run_sequential_uncompiled(graph, inputs, exe.output_ids)
+        got, want = outs[-1].float(), ref[-1].float()
+        if got.shape != (BATCH, SEQ, cfg.vocab_size) or \
+                not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"bad logits {tuple(got.shape)}")
+        rel, agree = _agreement(got, want)
+        log(f"[kimi] request {i}: logits rel_l2 {rel:.3e} (<= "
+            f"{LOGITS_REL_L2}) top1 agreement {agree:.4f} (>= {TOP1_AGREE})")
+        if rel > LOGITS_REL_L2 or agree < TOP1_AGREE:
+            raise AssertionError(f"kimi request {i} disagrees with eager "
+                                 "per-op execution")
+        del ref, got, want
+    inputs = outputs[0][0]
+    replay_ms = cuda_ms(lambda: model(inputs), iters=10)
+    seq_ms = cuda_ms(lambda: run_sequential_uncompiled(graph, inputs,
+                                                       exe.output_ids),
+                     iters=3, warmup=1)
+    log(f"[kimi] per-forward ms: sequential eager {seq_ms:.3f}, CUDA-graph "
+        f"replay {replay_ms:.3f} (median of 10)")
+    profile_replay(exe.replay.graph.replay, tag="kimi-profile")
+    del outputs, model, exe, sess, graph
+    free_card()
+    return {"launches": launches, "recorded": recorded}
+
+
+def _moe_layer_gate(cfg, params, gen, failures: list) -> None:
+    """The MoE layer, kernel route vs plain route on identical inputs (so
+    routing cannot differ): a 512-token prefill and a decode tick."""
+    from repro_torch.models.ffn import moe_ffn
+    from repro_torch.models.transformer import layer_params
+    p = layer_params(params["stacks"][1]["ffn"], 0)
+    for shape in ((1, SEQ, cfg.d_model), (SLOTS, 1, cfg.d_model)):
+        x = torch.randn(shape, generator=gen, device="cuda").to(cfg.dtype)
+        got, _ = moe_ffn(p, x, cfg, None, True)
+        want, _ = moe_ffn(p, x, cfg, None, False)
+        rel, _ = _agreement(got, want)
+        log(f"[kimi] {_dt(cfg.dtype)} MoE layer {list(shape)}, kernel route "
+            f"vs plain route on the same input: rel_l2 {rel:.3e} (<= "
+            f"{LOGITS_REL_L2})")
+        if rel > LOGITS_REL_L2:
+            failures.append(f"MoE layer {list(shape)}: rel_l2 {rel:.3e}")
+
+
+def _slice_experts(tree, n: int, dtype):
+    """The first ``n`` experts of an MoE param tree, cast to ``dtype``."""
+    if isinstance(tree, list):
+        return [_slice_experts(v, n, dtype) for v in tree]
+    out = {}
+    for k, v in tree.items():
+        if k == "experts":
+            out[k] = {kk: vv[:, :n].to(dtype).contiguous()
+                      for kk, vv in v.items()}
+        elif k == "router":
+            out[k] = {"w": v["w"][..., :n].to(torch.float32).contiguous(),
+                      "bias": v["bias"][..., :n].to(torch.float32)
+                      .contiguous()}
+        elif isinstance(v, (dict, list)):
+            out[k] = _slice_experts(v, n, dtype)
+        else:
+            out[k] = v.to(dtype)
+    return out
+
+
+def _decode_tick(label: str, eng, specs: list[dict], tag: str) -> dict:
+    """One decode tick at 8 active slots: graph vs eager (bit-equal, with
+    recurrent state put back between the two), times, a profile."""
+    from repro_torch.serving import Request
+    from repro_torch.serving.engine import _leaves
+    for s in specs[:SLOTS]:
+        eng.submit(Request(rid=s["rid"], prompt=list(s["prompt"]),
+                           max_tokens=SERVE_TOKENS))
+    for _ in range(SLOTS + 1):          # 8 prefills, then a decode tick
+        eng.step()
+    if sum(r is not None for r in eng.slots) != SLOTS:
+        raise AssertionError("not all slots active")
+    values = [eng.last_token, eng.pos]
+    if eng.paged:
+        values.append(eng._block_table_array())
+        bt = eng._on_device(values[2], torch.int32)
+
+        def eager():
+            return eng.model.paged_decode(
+                eng.params, eng._on_device(eng.last_token, torch.long),
+                eng.caches, bt, eng._on_device(eng.pos, torch.int32))[0]
+    else:
+        eager = eng._eager_decode
+    kept = [t.clone() for t in _leaves(eng.caches)]
+    graph_logits = eng._step(values).clone()
+    for leaf, k in zip(_leaves(eng.caches), kept):
+        leaf.copy_(k)
+    eager_logits = eager()
+    if not torch.equal(graph_logits, eager_logits):
+        raise AssertionError(f"{label}: CUDA-graph decode tick differs from "
+                             "the eager tick")
+    del kept
+    graph_ms = cuda_ms(lambda: eng._step(values))
+    eager_ms = cuda_ms(eager, iters=10)
+    log(f"[{tag}] {label} decode tick at {SLOTS} active slots (median): "
+        f"CUDA-graph replay {graph_ms:.3f} ms (host copies included), eager "
+        f"{eager_ms:.3f} ms; graph logits bit-equal to eager; launches "
+        f"recorded in the graph {eng.decode_graph.recorded_launches}")
+    profile_replay(lambda: eng._step(values), n=5,
+                   what=f"{label} decode tick (graph)", tag=f"{tag}-profile")
+    return {"graph_ms": graph_ms, "eager_ms": eager_ms}
+
+
+def phase_kimi(seed: int) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import AdmissionConfig, InferenceEngine
+
+    # 2 of 61 layers (the dense prefix and one MoE layer); the name must stay
+    # the config's own, since the dense prefix is keyed on it
+    cfg = dataclasses.replace(get_config("kimi-k2-1t-a32b"), n_layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t0 = time.perf_counter()
+    params = Model(cfg).init(gen, "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _param_leaves(params))
+    log(f"[kimi] {cfg.name}: {cfg.n_layers} layers (dense prefix + MoE) "
+        f"d={cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads} "
+        f"head_dim={cfg.head_dim} experts={cfg.moe.n_experts} "
+        f"top{cfg.moe.top_k} d_expert={cfg.moe.d_expert} shared="
+        f"{cfg.moe.n_shared} vocab={cfg.vocab_size} {_dt(cfg.dtype)}: "
+        f"{n_params / 1e9:.2f} B params, init {time.perf_counter() - t0:.2f}"
+        f" s, {torch.cuda.memory_allocated() / 1e9:.1f} GB on the card")
+    graph = kimi_graph(cfg, params, seed)
+
+    failures: list[str] = []
+    specs = serve_specs(cfg.vocab_size, seed)
+    admission = AdmissionConfig(policy="edf", preemption=True,
+                                expire_running=False)
+
+    def engine(c, p):
+        def make(paged: bool):
+            return InferenceEngine(
+                Model(c, use_kernels=True), p, max_slots=SLOTS,
+                max_len=MAX_LEN, seed=seed, admission=admission,
+                paged_kv=paged, page_size=PAGE,
+                num_pages=1 + 2 * SLOTS * (MAX_LEN // PAGE) if paged else None)
+        return make
+
+    # -- the serving path's run: launch counts from 0 ---------------------------
+    reset_launches()
+    runs = serve_both(engine(cfg, params), specs, cfg.dtype)
+    launches = read_launches("rmsnorm", "flash_attention", "decode_attention",
+                             "paged_decode", "moe_gemm")
+    # -- end of the serving path's run ------------------------------------------
+    log(f"[kimi] wrapper launches over both serving runs {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"the Kimi-K2 serve path launched no {name}")
+    compare_streams(runs, exact=False, coupled=True)
+    del runs
+
+    by_len = sorted(specs, key=lambda s: len(s["prompt"]))
+    prompts = [by_len[0], by_len[len(by_len) // 2], by_len[-1]]
+    _moe_layer_gate(cfg, params, gen, failures)
+    kimi_forward_gate(f"{cfg.name} bf16", cfg, params, prompts, failures,
+                      gate_top1=False)
+    kimi_rounding_point(cfg, params, prompts[1]["prompt"])
+    ticks = {}
+    for paged in (False, True):
+        label = "paged" if paged else "dense"
+        ticks[label] = _decode_tick(label, engine(cfg, params)(paged), specs,
+                                    "kimi")
+        free_card()
+    for s in (by_len[0], by_len[-1]):
+        tokens = torch.tensor([s["prompt"]], device="cuda")
+        model = Model(cfg, use_kernels=True)
+        ms = cuda_ms(lambda: model.prefill(params, {"tokens": tokens},
+                                           cache_len=MAX_LEN), iters=5)
+        log(f"[kimi] prefill {tokens.shape[1]} tokens (batch 1, eager, "
+            f"kernel route, median of 5): {ms:.3f} ms")
+
+    # fp32 at 64 of the 384 experts (an fp32 model of all of them is ~80 GB):
+    # every width unchanged, still the sort dispatch (> 32 experts)
+    cfg32 = dataclasses.replace(
+        cfg, dtype=torch.float32,
+        moe=dataclasses.replace(cfg.moe, n_experts=64))
+    params32 = _slice_experts(params, 64, torch.float32)
+    del params
+    free_card()
+    log(f"[kimi] fp32 at {cfg32.moe.n_experts} experts: "
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB on the card")
+    runs = serve_both(engine(cfg32, params32), specs, torch.float32)
+    compare_streams(runs, exact=False, coupled=True)
+    del runs
+    _moe_layer_gate(cfg32, params32, gen, failures)
+    kimi_forward_gate(f"{cfg.name} fp32 E=64", cfg32, params32, prompts,
+                      failures, gate_top1=True)
+    teacher_forced(cfg32, Model(cfg32, use_kernels=True),
+                   Model(cfg32, use_kernels=False), params32, specs[:SLOTS],
+                   seed, failures, gate_top1=True, steps=8)
+    del params32
+    free_card()
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return {"launches": launches, "graph": graph, "ticks": ticks}
+
+
+def free_card() -> None:
+    """Return what dropped objects held to the card: engines keep their
+    params and CUDA graph pools alive through reference cycles until the
+    collector runs."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _param_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _param_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _param_leaves(v)]
+    return [tree]
+
+
+# =============================================================================
+# 9. RWKV6-1.6B: op graph and serving at full width and depth
+# =============================================================================
+
+def rwkv_graph(cfg, params, seed: int) -> dict:
+    from repro_torch.core import Session, SessionConfig, SimConfig
+    from repro_torch.core.capture import run_sequential_uncompiled
+    from repro_torch.models.opgraph_export import build_lm_opgraph
+
+    graph = build_lm_opgraph(cfg, batch=BATCH, seq=SEQ, params=params)
+    n_scan = sum(n.name.endswith(".wkv_scan") for n in graph)
+
+    def tokens(i):
+        g = torch.Generator(device="cuda").manual_seed(seed * 1000 + 700 + i)
+        return torch.randint(0, cfg.vocab_size, (BATCH, SEQ), generator=g,
+                             device="cuda")
+
+    root = next(n.op_id for n in graph if n.fn is None)
+    # -- the path's run: launch counts from 0 ----------------------------------
+    reset_launches()
+    sess = Session(SessionConfig(autotune=True,
+                                 sim_cfg=SimConfig(head_of_line=True),
+                                 calib_dir=CALIB_DIR))
+    t0 = time.perf_counter()
+    model = sess.compile(graph, inputs={root: tokens(0)})
+    compile_s = time.perf_counter() - t0
+    exe = model.executable
+    outputs = []
+    for i in range(3):
+        inputs = {"tokens": tokens(100 + i)}
+        outputs.append((inputs, model(inputs)))
+    torch.cuda.synchronize()
+    launches = read_launches("branch_gemm", "rwkv6")
+    # -- end of the path's run ---------------------------------------------------
+    recorded = exe.replay.recorded_launches
+    log(f"[rwkv] op graph: {len(graph)} ops, {n_scan} wkv_scan nodes; "
+        f"compile {compile_s:.2f} s; program_stats "
+        f"{json.dumps(exe.program_stats())}; launches in the graph (one "
+        f"forward) {recorded}; wrapper launches over the run {launches}")
+    if recorded["rwkv6"] != n_scan:
+        raise AssertionError(f"{recorded['rwkv6']} rwkv6 launches recorded "
+                             f"for {n_scan} wkv_scan nodes")
+    for i, (inputs, outs) in enumerate(outputs):
+        ref = run_sequential_uncompiled(graph, inputs, exe.output_ids)
+        got, want = outs[-1].float(), ref[-1].float()
+        if got.shape != (BATCH, SEQ, cfg.vocab_size) or \
+                not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"bad logits {tuple(got.shape)}")
+        rel, agree = _agreement(got, want)
+        log(f"[rwkv] request {i}: logits rel_l2 {rel:.3e} (<= "
+            f"{LOGITS_REL_L2}) top1 agreement {agree:.4f} (>= {TOP1_AGREE})")
+        if rel > LOGITS_REL_L2 or agree < TOP1_AGREE:
+            raise AssertionError(f"rwkv request {i} disagrees with eager "
+                                 "per-op execution")
+    inputs = outputs[0][0]
+    replay_ms = cuda_ms(lambda: model(inputs))
+    walk_ms = cuda_ms(lambda: exe.call_uncompiled(inputs), iters=5)
+    log(f"[rwkv] per-forward ms: eager step walk {walk_ms:.3f}, CUDA-graph "
+        f"replay {replay_ms:.3f}")
+    profile_replay(exe.replay.graph.replay, tag="rwkv-profile")
+    return {"launches": launches, "recorded": recorded}
+
+
+def rwkv_block_gate(cfg, params, prompt: list[int], failures: list) -> None:
+    """Every RWKV block, kernel route vs plain route on identical inputs
+    (the plain route's hidden states and states): its update of the
+    residual stream over the prompt, and over one decode step from the
+    prompt's state.  Relative L2 <= 2e-2 in the worst block."""
+    from repro_torch.models.layers import embed
+    from repro_torch.models.transformer import (block_seq, block_step,
+                                                layer_params)
+    tokens = torch.tensor([prompt], device="cuda")
+    x = embed(params["embed"], tokens)
+    positions = torch.arange(x.shape[1], device="cuda")[None]
+    pos = torch.tensor([x.shape[1]], dtype=torch.int32, device="cuda")
+    worst_seq = worst_step = 0.0
+    stack = params["stacks"][0]
+    for li in range(cfg.n_layers):
+        p = layer_params(stack, li)
+        xk, _ = block_seq(p, x, cfg, positions, None, True, "rwkv")
+        xp, state = block_seq(p, x, cfg, positions, None, False, "rwkv")
+        worst_seq = max(worst_seq, _agreement(xk - x, xp - x)[0])
+        step_in = xp[:, -1:]
+        outs = []
+        for route in (True, False):
+            cache = {k: v.clone() for k, v in state.items()}
+            outs.append(block_step(p, step_in, cache, pos, cfg, None, route,
+                                   "rwkv")[0] - step_in)
+        worst_step = max(worst_step, _agreement(*outs)[0])
+        x = xp
+    log(f"[rwkv] {_dt(cfg.dtype)} blocks on identical inputs, kernel route "
+        f"vs plain route, {len(prompt)}-token prompt: worst block update "
+        f"rel_l2 {worst_seq:.3e} over the prompt, {worst_step:.3e} over a "
+        f"decode step (<= {LOGITS_REL_L2})")
+    if max(worst_seq, worst_step) > LOGITS_REL_L2:
+        failures.append(f"rwkv blocks on identical inputs: rel_l2 "
+                        f"{worst_seq:.3e} / {worst_step:.3e}")
+
+
+def rwkv_forward_gate(cfg, params, cfg32, params32, prompt: list[int],
+                      failures: list) -> None:
+    """Whole model in bf16: the kernel route's distance from the fp32 plain
+    route must not exceed the bf16 plain route's own distance from it by
+    more than a quarter (nor 2e-2, if that is larger); the two bf16 routes'
+    distance from each other is reported."""
+    from repro_torch.models.transformer import lm_forward
+    tokens = torch.tensor([prompt], device="cuda")
+    truth, _ = lm_forward(params32, tokens, cfg32, False, with_cache=False)
+    got, _ = lm_forward(params, tokens, cfg, True, with_cache=False)
+    want, _ = lm_forward(params, tokens, cfg, False, with_cache=False)
+    rel_k, agree_k = _agreement(got, truth)
+    rel_p, agree_p = _agreement(want, truth)
+    rel, agree = _agreement(got, want)
+    limit = max(LOGITS_REL_L2, 1.25 * rel_p)
+    log(f"[rwkv] bf16 lm_forward, {tokens.shape[1]} positions, against the "
+        f"fp32 plain route: kernel route rel_l2 {rel_k:.3e} top1 "
+        f"{agree_k:.4f} (<= {limit:.3e}), plain route rel_l2 {rel_p:.3e} "
+        f"top1 {agree_p:.4f}; kernel vs plain route rel_l2 {rel:.3e} top1 "
+        f"{agree:.4f} (reported)")
+    if not bool(torch.isfinite(got).all()) or rel_k > limit:
+        failures.append(f"rwkv bf16 kernel route: rel_l2 {rel_k:.3e} from "
+                        f"fp32 > {limit:.3e}")
+
+
+def phase_rwkv(seed: int) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models.transformer import lm_forward
+    from repro_torch.serving import AdmissionConfig, InferenceEngine
+
+    cfg = get_config("rwkv6-1.6b")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = Model(cfg).init(gen, "cuda")
+    n_params = sum(t.numel() for t in _param_leaves(params))
+    log(f"[rwkv] {cfg.name}: {cfg.n_layers} layers d={cfg.d_model} heads "
+        f"{cfg.d_model // cfg.ssm.head_dim}x{cfg.ssm.head_dim} d_ff="
+        f"{cfg.d_ff} vocab={cfg.vocab_size} {_dt(cfg.dtype)}: "
+        f"{n_params / 1e9:.3f} B params")
+    graph = rwkv_graph(cfg, params, seed)
+    specs = serve_specs(cfg.vocab_size, seed)
+    admission = AdmissionConfig(policy="edf", preemption=True,
+                                expire_running=False)
+
+    def engine(c, p):
+        return lambda paged: InferenceEngine(
+            Model(c, use_kernels=True), p, max_slots=SLOTS, max_len=MAX_LEN,
+            seed=seed, admission=admission)
+
+    # -- the serving path's run: launch counts from 0 ---------------------------
+    reset_launches()
+    serve_both(engine(cfg, params), specs, cfg.dtype, modes=(False,))
+    launches = read_launches("rmsnorm", "rwkv6")
+    # -- end of the serving path's run ------------------------------------------
+    log(f"[rwkv] wrapper launches over the serving run {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"the RWKV6 serve path launched no {name}")
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params32 = _cast(params, torch.float32)
+    serve_both(engine(cfg32, params32), specs, torch.float32, modes=(False,))
+
+    failures: list[str] = []
+    by_len = sorted(specs, key=lambda s: len(s["prompt"]))
+    prompts = (by_len[0], by_len[len(by_len) // 2], by_len[-1])
+    # fp32: the full gate, whole model (prefill and 32 decode steps)
+    for s in prompts:
+        tokens = torch.tensor([s["prompt"]], device="cuda")
+        got, _ = lm_forward(params32, tokens, cfg32, True, with_cache=False)
+        want, _ = lm_forward(params32, tokens, cfg32, False, with_cache=False)
+        if not bool(torch.isfinite(got).all()) or \
+                got.shape != (1, tokens.shape[1], cfg.vocab_size):
+            raise AssertionError(f"bad logits {tuple(got.shape)}")
+        _check_agreement(f"{cfg.name} float32 lm_forward logits, all "
+                         f"{tokens.shape[1]} positions", got, want, failures)
+    teacher_forced(cfg32, Model(cfg32, use_kernels=True),
+                   Model(cfg32, use_kernels=False), params32, specs[:SLOTS],
+                   seed, failures, gate_top1=True, paged=False)
+    # bf16: each block on identical inputs, then the whole model against
+    # the fp32 plain route beside the bf16 plain route
+    for s in prompts:
+        rwkv_block_gate(cfg, params, s["prompt"], failures)
+    for s in prompts:
+        rwkv_forward_gate(cfg, params, cfg32, params32, s["prompt"], failures)
+    del params32
+    tick = _decode_tick("dense", engine(cfg, params)(False), specs, "rwkv")
+    for s in (by_len[0], by_len[-1]):
+        tokens = torch.tensor([s["prompt"]], device="cuda")
+        model = Model(cfg, use_kernels=True)
+        ms = cuda_ms(lambda: model.prefill(params, {"tokens": tokens}),
+                     iters=5)
+        log(f"[rwkv] prefill {tokens.shape[1]} tokens (batch 1, eager, "
+            f"kernel route, median of 5): {ms:.3f} ms")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return {"launches": launches, "graph": graph, "tick": tick}
 
 
 def main() -> int:
@@ -1119,9 +1968,18 @@ def main() -> int:
     ragged = phase_ragged(gen)
     attention = phase_attention_kernels(env, gen)
     serve = phase_serve(args.seed)
+    free_card()
+    families = phase_moe_rwkv_kernels(env, gen)
+    phase_masked_row(gen)
+    kimi = phase_kimi(args.seed)
+    free_card()
+    rwkv = phase_rwkv(args.seed)
 
     for path, launches in (("main", main_path["launches"]["branch_gemm"]),
-                           ("ragged", ragged["launches"]["grouped_gemm"])):
+                           ("ragged", ragged["launches"]["grouped_gemm"]),
+                           ("kimi graph",
+                            kimi["graph"]["launches"]["grouped_gemm"]),
+                           ("rwkv graph", rwkv["graph"]["launches"]["rwkv6"])):
         if launches <= 0:
             raise AssertionError(f"the {path} path launched no kernel")
     bf16 = torch.bfloat16
@@ -1134,8 +1992,8 @@ def main() -> int:
         dict(name="grouped_gemm", route="cuda",
              source="src/repro_torch/csrc/gemm.cu",
              replaces="src/repro/kernels/grouped_gemm/kernel.py:52",
-             launches=ragged["launches"]["grouped_gemm"],
-             **kernels[("grouped_gemm", "ragged")]),
+             launches=kimi["graph"]["launches"]["grouped_gemm"],
+             **kernels[("grouped_gemm", "kimi gate||up")]),
         dict(name="rmsnorm", route="cuda",
              source="src/repro_torch/csrc/norm.cu",
              replaces="src/repro/kernels/rmsnorm/kernel.py:29",
@@ -1156,7 +2014,19 @@ def main() -> int:
              replaces="src/repro/kernels/paged_decode/kernel.py:70",
              launches=serve["launches"]["paged_decode"],
              **attention[("paged_decode", "decode", bf16)]),
+        dict(name="moe_gemm", route="cuda",
+             source="src/repro_torch/csrc/moe.cu",
+             replaces="src/repro/kernels/moe_gemm/kernel.py:51",
+             launches=kimi["launches"]["moe_gemm"],
+             **_json_row(families[("moe_gemm", "decode C=1")])),
+        dict(name="rwkv6", route="cuda",
+             source="src/repro_torch/csrc/rwkv6.cu",
+             replaces="src/repro/kernels/rwkv6/kernel.py:60",
+             launches=rwkv["launches"]["rwkv6"],
+             **families[("rwkv6", "prefill T=512")]),
     ]}
+    if [k["name"] for k in summary["kernels"]] != list(KERNELS):
+        raise AssertionError("the kernels line must list every kernel")
     log(f"[done] chip_smoke took {time.perf_counter() - t_start:.1f} s")
     log(env["smi"].splitlines()[0])
     log(json.dumps(summary))

@@ -49,8 +49,10 @@ from ..kernels.branch_gemm import ops as branch_gemm_ops
 from ..kernels.grouped_gemm import ops as grouped_gemm_ops
 from ..kernels.decode_attention import ops as decode_attention_ops
 from ..kernels.flash_attention import ops as flash_attention_ops
+from ..kernels.moe_gemm import ops as moe_gemm_ops
 from ..kernels.paged_decode import ops as paged_decode_ops
 from ..kernels.rmsnorm import ops as rmsnorm_ops
+from ..kernels.rwkv6 import ops as rwkv6_ops
 from ..runtime.faults import FaultInjected, FaultPlan, get_active as _active_faults
 from ..runtime.guard import DegradationLog
 from .fusion import WaveSchedule
@@ -97,7 +99,8 @@ def _launch_counts() -> dict[str, int]:
         ("branch_gemm", branch_gemm_ops), ("grouped_gemm", grouped_gemm_ops),
         ("rmsnorm", rmsnorm_ops), ("flash_attention", flash_attention_ops),
         ("decode_attention", decode_attention_ops),
-        ("paged_decode", paged_decode_ops))}
+        ("paged_decode", paged_decode_ops), ("moe_gemm", moe_gemm_ops),
+        ("rwkv6", rwkv6_ops))}
 
 
 class CudaGraphReplay:

@@ -37,7 +37,8 @@
 // per head takes the chunk's max and sum, and each thread then accumulates one
 // output dimension over the chunk.  Partial (acc, max, sum) go to a scratch
 // buffer and a second kernel combines the chunks in ascending order, skipping
-// those with no valid position.  The two entry points differ only in where a
+// those with no valid position (a row with none at all averages V over every
+// position, as the plain versions' softmax of an all-masked row does).  The two entry points differ only in where a
 // position's K/V row is (slab stride, or block-table page + offset) and in the
 // mask (valid[b, t], or starts[b] <= t < lengths[b]); masked positions are
 // never loaded, so trailing table entries may point anywhere.  Because the
@@ -514,8 +515,12 @@ decode_partial_kernel(DecodeArgs a, int vec) {
 }
 
 // out[b, h] = sum_c exp(m_c - M) acc_c / sum_c exp(m_c - M) l_c over the
-// chunks with a valid position, in ascending chunk order
-template <typename T>
+// chunks with a valid position, in ascending chunk order.  A row with no
+// attended position takes a second pass: the softmax of a row of -1e30 logits
+// is uniform, so the plain versions (and the JAX package) return
+// sum_t bf16(1/T) v_t over every one of the T positions (every table entry,
+// null pages included, when paged); the pass sums the same terms.
+template <typename T, typename KV>
 __global__ void __launch_bounds__(MAX_D)
 decode_combine_kernel(DecodeArgs a) {
   const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
@@ -523,9 +528,24 @@ decode_combine_kernel(DecodeArgs a) {
   const float* ml = a.part + static_cast<long long>(gridDim.y) * a.H *
                                  a.n_chunks * a.Dv;
   float m = NEG_INF;
+  bool attended = false;
   for (int c = 0; c < a.n_chunks; ++c)
-    if (ml[(base + c) * 2 + 1] > 0.0f) m = fmaxf(m, ml[(base + c) * 2]);
+    if (ml[(base + c) * 2 + 1] > 0.0f) {
+      m = fmaxf(m, ml[(base + c) * 2]);
+      attended = true;
+    }
   if (d >= a.Dv) return;
+  T* out = static_cast<T*>(a.out) + b * a.o_sb + h * a.o_sh + d;
+  if (!attended) {
+    const float p = to_f(from_f<T>(1.0f / static_cast<float>(a.T)));
+    const T* vb = static_cast<const T*>(a.v) + (h / (a.H / a.KVH)) * a.v_sh
+                  + d;
+    float acc = 0.0f;
+    for (int t = 0; t < a.T; ++t)
+      acc += p * to_f(vb[KV::row(a, a.v_s0, a.v_s1, b, t)]);
+    *out = from_f<T>(acc);
+    return;
+  }
   float num = 0.0f, den = 0.0f;
   for (int c = 0; c < a.n_chunks; ++c) {
     const float l = ml[(base + c) * 2 + 1];
@@ -534,8 +554,7 @@ decode_combine_kernel(DecodeArgs a) {
     num += w * a.part[(base + c) * a.Dv + d];
     den += w * l;
   }
-  static_cast<T*>(a.out)[b * a.o_sb + h * a.o_sh + d] =
-      from_f<T>(num / fmaxf(den, 1e-30f));
+  *out = from_f<T>(num / fmaxf(den, 1e-30f));
 }
 
 template <typename T, typename KV>
@@ -556,7 +575,7 @@ int launch_decode(DecodeArgs& a, int B, void* stream) {
   decode_partial_kernel<T, KV><<<grid, DEC_THREADS, 0, s>>>(a, vec);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  decode_combine_kernel<T><<<dim3(a.H, B), MAX_D, 0, s>>>(a);
+  decode_combine_kernel<T, KV><<<dim3(a.H, B), MAX_D, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

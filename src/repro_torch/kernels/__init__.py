@@ -1,5 +1,5 @@
 """Hand-written Hopper kernels: the capturer's fused GEMM routes and the
-model facade's normalisation and attention.
+model facade's normalisation, attention, expert MLP and WKV recurrence.
 
 Each kernel lives in its own subpackage, mirroring the JAX package:
 
@@ -18,6 +18,10 @@ Kernels:
     paged_decode   single-token decode through a block table into KV pages
                    (the last three in ``csrc/attention.cu``; the two decode
                    kernels share one device routine)
+    moe_gemm       grouped expert SwiGLU MLP over the MoE capacity buffers
+                   (``csrc/moe.cu``)
+    rwkv6          the WKV6 recurrence of RWKV-6's time mix, state on chip
+                   (``csrc/rwkv6.cu``)
 
 Backend rule (:func:`use_kernel`): tensors on the CPU take the plain
 version; tensors on one CUDA device of compute capability 9.0 (Hopper)
@@ -32,6 +36,8 @@ TILE_M = 64   # output rows per block; must equal BM in csrc/gemm.cu (checked
               # when the library loads)
 DECODE_CHUNK = 128   # KV positions per decode block; must equal DEC_CHUNK in
                      # csrc/attention.cu (checked when the library loads)
+RWKV6_MAX_K = 64     # largest head size of the rwkv6 kernel; must equal KMAX
+                     # in csrc/rwkv6.cu (checked when the library loads)
 
 
 def use_kernel(*tensors: torch.Tensor) -> bool:

@@ -5,9 +5,10 @@ Takes the cache layout ``k, v [B,T,KVH,D]`` (read in place) and a boolean
 tensors launch the kernel or raise: any T and any D up to 128 are taken,
 with at most 16 query heads per KV head.  ``launches`` counts kernel
 launches (the split pass and its combine count as one).  A row with no
-attended position gives zeros (the plain version, like the JAX package,
-averages V over every position there); the model never asks for one, since
-a sequence always attends its own position.
+attended position gives what the plain version and the JAX package give:
+the softmax of its all-masked logits is uniform, so the output is V averaged
+over all T slab positions (each weight ``1/T`` rounded to V's dtype).  The
+model never asks for one, since a sequence always attends its own position.
 """
 from __future__ import annotations
 

@@ -5,9 +5,10 @@ kernel or raise: any page size and table width, any Dk and Dv up to 128
 (Dv may differ from Dk), at most 16 query heads per KV head.  The block
 table, ``lengths`` and ``starts`` are int32 on the card.  ``launches``
 counts kernel launches (the split pass and its combine count as one).  A
-row with no attended position gives zeros, as in ``decode_attention``.  The
-MLA form of the JAX package (``paged_mla_decode_attention``) is not ported
-yet.
+row with no attended position gives what the plain version and the JAX
+package give: V averaged over every table entry of the row, null pages
+included.  The MLA form of the JAX package (``paged_mla_decode_attention``)
+is not ported yet.
 """
 from __future__ import annotations
 

@@ -1,25 +1,33 @@
-"""Export a dense LM's block structure as an Opara :class:`OpGraph`.
+"""Export an LM's block structure as an Opara :class:`OpGraph`.
 
-The dense path of the JAX package's ``models/opgraph_export.py``, node for
-node: embed → per layer (norm1 → wq/wk/wv branches → decomposed attention
-stages → wo → residual → norm2 → gate∥up → GLU → down → residual) → final
-norm → logits.  Attention is decomposed into head-split transpose copies →
-score GEMM → scale+mask → softmax → context GEMM → head-merge, and on the
-cost-only path (``params=None``) large FF weights become explicit
-weight-stream DMA ops, exactly as in the reference, so cost-only graphs of
-the two packages are identical and schedule identically.
+The dense, MoE and RWKV-6 paths of the JAX package's
+``models/opgraph_export.py``, node for node: embed → per layer → final norm
+→ logits.  A dense layer is norm1 → wq/wk/wv branches → decomposed
+attention stages → wo → residual → norm2 → gate∥up → GLU → down → residual.
+Attention is decomposed into head-split transpose copies → score GEMM →
+scale+mask → softmax → context GEMM → head-merge, and on the cost-only path
+(``params=None``) large FF weights become explicit weight-stream DMA ops,
+exactly as in the reference, so cost-only graphs of the two packages are
+identical and schedule identically.  An MoE layer replaces the FFN with the
+expert fan-out: the routed ragged form (router → per-expert gathers with
+unequal capacities → gate∥up and down GEMM waves that stack into
+``grouped_gemm`` → weighted combine, plus the shared expert) when params are
+threaded, else the uniform cost-only form.  An RWKV layer is the five
+token-shift mixes, the r/k/v/g and decay projections, the WKV scan (the
+``rwkv6`` kernel on the card), group-norm, gate and the channel mix.
 
 Payload functions close over concrete tensors when ``params`` is given (on
 whatever device those tensors live: the CUDA card unless the caller built
 them on the CPU); otherwise nodes are cost-only.  Payload-backed exports
-keep a SINGLE graph input (weights ride in ``meta["consts"]``).
+keep a SINGLE graph input (weights ride in ``meta["consts"]``).  Payloads
+make no host→device copy, since the capturer records them into a CUDA graph.
 
 Reproduced on purpose: like the reference's dense export, this graph applies
 NO rotary embedding — raw Q and K feed the scores stage — so its logits are
 not the model facade's (ROADMAP queue C).
 
-MoE, MLA, hybrid, RWKV and encoder-decoder exports are not ported yet
-(ROADMAP A6) and raise ``NotImplementedError``.
+MLA, hybrid and encoder-decoder exports are not ported yet (ROADMAP A6)
+and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -36,10 +44,12 @@ from ..core.profiler import (
     gather_cost,
     gemm_cost,
     norm_cost,
+    scan_cost,
 )
 from .attention import NEG_INF, causal_window_mask
 from .export_costs import act_gemm_cost, stream_cost
 from .layers import apply_norm
+from .ssm import RWKV_LORA
 from .transformer import layer_params, stack_meta
 
 
@@ -63,8 +73,18 @@ def build_lm_opgraph(cfg: ModelConfig, batch: int, seq: int,
                      moe_cap_scale: float = 1.0) -> OpGraph:
     """Operator DAG of an LM forward pass (prefill semantics).
 
-    ``n_layers`` trims depth (graph-size control for schedulers/benchmarks).
-    The MoE arguments keep the reference's signature; MoE configs raise.
+    ``n_layers`` trims depth (graph-size control for schedulers/benchmarks);
+    MoE fan-out is capped at ``moe_branch_cap`` expert branches per layer.
+
+    ``moe_dispatch`` picks the MoE block structure: ``"uniform"`` emits the
+    cost-only fan-out (equal-FLOP expert branches, scatter dispatch/combine
+    without payloads); ``"ragged"`` the routed fan-out (real router →
+    per-expert token gathers with unequal static capacities → grouped
+    ragged-M expert GEMMs → weighted scatter-add combine), executable end
+    to end when ``params`` is threaded; ``"auto"`` ragged with params,
+    uniform without.  ``moe_cap_scale`` scales the ragged fan-out's
+    capacities; below 1 it forces capacity overflow (pairs ranked past
+    their expert's capacity contribute zero).
     """
     if moe_dispatch not in ("auto", "ragged", "uniform"):
         raise ValueError(f"unknown moe_dispatch {moe_dispatch!r}")
@@ -91,9 +111,17 @@ def build_lm_opgraph(cfg: ModelConfig, batch: int, seq: int,
             tag = f"L{layer_idx}"
             pl = (layer_params(_w(params, "stacks")[si], li)
                   if params is not None else None)
-            if kind != "dense":
+            if kind == "rwkv":
+                x = _rwkv_layer(g, cfg, x, b, s, tag, pl, root)
+            elif kind == "moe":
+                x = _dense_layer(g, cfg, x, b, s, tag, pl, root, moe=True,
+                                 moe_branch_cap=moe_branch_cap,
+                                 moe_dispatch=moe_dispatch,
+                                 moe_cap_scale=moe_cap_scale)
+            elif kind in ("dense", "dense_prefix"):
+                x = _dense_layer(g, cfg, x, b, s, tag, pl, root, moe=False)
+            else:
                 raise _not_ported(f"{kind!r} layer")
-            x = _dense_layer(g, cfg, x, b, s, tag, pl, root)
             layer_idx += 1
     x = _norm_node(g, "final_norm", x, _w(params, "final_norm"), cfg.norm,
                    b * s * d)
@@ -272,11 +300,11 @@ def _add(a, c):
     return a + c
 
 
-def _dense_layer(g, cfg, x, b, s, tag, pl, root):
+def _dense_layer(g, cfg, x, b, s, tag, pl, root, moe: bool,
+                 moe_branch_cap: int = 16, moe_dispatch: str = "auto",
+                 moe_cap_scale: float = 1.0):
     if cfg.mla is not None:
         raise _not_ported("MLA attention")
-    if cfg.moe is not None:
-        raise _not_ported("MoE FFN")
     d, hd, nh, kvh = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     bias = cfg.qkv_bias
     n1 = _norm_node(g, f"{tag}.norm1", x, pl and pl["norm1"], cfg.norm,
@@ -295,19 +323,355 @@ def _dense_layer(g, cfg, x, b, s, tag, pl, root):
                cost=elementwise_cost(b * s * d, n_in=2))
     n2 = _norm_node(g, f"{tag}.norm2", r1, pl and pl["norm2"], cfg.norm,
                     b * s * d)
-    dff = cfg.d_ff
-    ffn_p = pl["ffn"] if pl else None
-    gate = _ffn_gemm(g, f"{tag}.gate", n2, root, ffn_p and ffn_p["gate"],
-                     b * s, d, dff)
-    up = _ffn_gemm(g, f"{tag}.up", n2, root, ffn_p and ffn_p["up"],
-                   b * s, d, dff)
-    prod = g.add(f"{tag}.glu", OpKind.ELEMENTWISE, [gate, up],
-                 fn=_glu if pl else None,
-                 cost=elementwise_cost(b * s * dff, n_in=2, flops_per_elem=5))
-    down = _ffn_gemm(g, f"{tag}.down", prod, root, ffn_p and ffn_p["down"],
-                     b * s, dff, d)
+    if not moe:
+        dff = cfg.d_ff
+        ffn_p = pl["ffn"] if pl else None
+        gate = _ffn_gemm(g, f"{tag}.gate", n2, root, ffn_p and ffn_p["gate"],
+                         b * s, d, dff)
+        up = _ffn_gemm(g, f"{tag}.up", n2, root, ffn_p and ffn_p["up"],
+                       b * s, d, dff)
+        prod = g.add(f"{tag}.glu", OpKind.ELEMENTWISE, [gate, up],
+                     fn=_glu if pl else None,
+                     cost=elementwise_cost(b * s * dff, n_in=2,
+                                           flops_per_elem=5))
+        down = _ffn_gemm(g, f"{tag}.down", prod, root,
+                         ffn_p and ffn_p["down"], b * s, dff, d)
+    elif moe_dispatch == "ragged" or (moe_dispatch == "auto"
+                                      and pl is not None):
+        down = _moe_ragged_block(g, cfg, n2, b, s, tag,
+                                 pl["ffn"] if pl else None, moe_branch_cap,
+                                 moe_cap_scale)
+    else:
+        down = _moe_uniform_block(g, cfg, n2, b, s, tag,
+                                  pl["ffn"] if pl else None, moe_branch_cap)
     return g.add(f"{tag}.res2", OpKind.ELEMENTWISE, [r1, down],
                  fn=_add if pl else None,
+                 cost=elementwise_cost(b * s * d, n_in=2))
+
+
+def _moe_uniform_block(g, cfg, n2, b, s, tag, moe_p, moe_branch_cap):
+    """The cost-only expert fan-out: router → scatter dispatch → equal-FLOP
+    expert branches (one ``[d → 3·d_e]`` GEMM each, stacking into one
+    ``branch_gemm``) → scatter combine; dispatch and combine carry no
+    payload."""
+    e = cfg.moe
+    d = cfg.d_model
+    router = g.add(f"{tag}.router", OpKind.REDUCE, [n2],
+                   cost=gemm_cost(b * s, d, e.n_experts))
+    disp = g.add(f"{tag}.dispatch", OpKind.SCATTER, [n2, router],
+                 cost=gather_cost(b * s * e.top_k, d))
+    nb = min(e.n_experts, moe_branch_cap)
+    tok_per_branch = b * s * e.top_k / e.n_experts * (e.n_experts / nb)
+    outs = []
+    for j in range(nb):
+        # gate|up|downᵀ of expert j side by side: the x@w payload does the
+        # FLOPs the analytic cost models (one [d → 3·d_e] GEMM per branch)
+        ew = ({"w": torch.cat([moe_p["experts"]["gate"][j],
+                               moe_p["experts"]["up"][j],
+                               moe_p["experts"]["down"][j].t()], dim=1)}
+              if moe_p is not None else None)
+        outs.append(_gemm_node(g, f"{tag}.expert{j}", disp, ew,
+                               int(tok_per_branch), d, 3 * e.d_expert,
+                               fuse_sig=("egemm", d, e.d_expert)))
+    if e.n_shared:
+        sp = (moe_p["shared"]
+              if moe_p is not None and "shared" in moe_p else None)
+        sw = ({"w": torch.cat([sp["gate"]["w"], sp["up"]["w"],
+                               sp["down"]["w"].t()], dim=1)}
+              if sp is not None else None)
+        outs.append(_gemm_node(g, f"{tag}.shared_expert", n2, sw,
+                               b * s, d, 3 * e.d_expert * e.n_shared))
+    return g.add(f"{tag}.combine", OpKind.SCATTER, outs + [router],
+                 cost=gather_cost(b * s * e.top_k, d))
+
+
+# -- routed (ragged) MoE fan-out ---------------------------------------------
+#
+# The dispatch and combine payloads both recompute the routing decision from
+# the router node's logits (pure, deterministic, cheap next to the expert
+# GEMMs), so the graph needs no multi-output node.
+
+def _moe_capacities(n_tokens: int, e, nb: int, top_k: int) -> tuple[int, ...]:
+    """Static per-expert capacities, deliberately UNEQUAL (0.5×–1.5× the
+    mean routed load) so the exported fan-out is ragged and exercises the
+    grouped ragged-M kernel; the total stays near ``capacity_factor`` ×
+    routed tokens."""
+    base = n_tokens * top_k / nb * e.capacity_factor
+    return tuple(max(1, int(round(base * (0.5 + j / max(nb - 1, 1)))))
+                 for j in range(nb))
+
+
+def _topk_routing(logits, nb: int, top_k: int, aux_free: bool):
+    """(combine weights [N, k], expert ids [N, k]) from router logits: the
+    selection rule of :func:`repro_torch.models.ffn.route` without the
+    balancing bias (zero at init)."""
+    lf = logits.reshape(-1, nb).float()
+    scores = torch.sigmoid(lf) if aux_free else torch.softmax(lf, dim=-1)
+    top_w, top_idx = torch.topk(scores, top_k, dim=-1)
+    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+    return top_w, top_idx
+
+
+def _make_router(rw):
+    def router(h):
+        return torch.matmul(h.float(), rw)
+    return router
+
+
+def _make_dispatch(j: int, cap: int, nb: int, top_k: int, aux_free: bool):
+    """Per-expert token gather: the ``cap`` rows routed to expert ``j``
+    (capacity-truncated, zero-padded when fewer arrive).  The cumsum rank
+    equals the within-expert rank of a stable sort by expert id, so the
+    overflow semantics are the sort dispatch's
+    (:func:`repro_torch.models.ffn.moe_ffn_sort`)."""
+    def dispatch(h, logits):
+        d = h.shape[-1]
+        xf = h.reshape(-1, d)
+        _, top_idx = _topk_routing(logits, nb, top_k, aux_free)
+        expert_flat = top_idx.reshape(-1)                       # [N·k]
+        tok = torch.arange(expert_flat.shape[0], device=h.device) // top_k
+        mine = expert_flat == j
+        rank = torch.cumsum(mine.long(), dim=0) - mine.long()   # rank in j
+        take = mine & (rank < cap)
+        slot = torch.where(take, rank, torch.full_like(rank, cap))
+        buf = torch.zeros((cap + 1, d), dtype=xf.dtype, device=h.device)
+        buf.index_add_(0, slot, xf[tok] * take[:, None].to(xf.dtype))
+        return buf[:cap]
+    return dispatch
+
+
+def _make_glu(dff: int):
+    def glu(h):
+        return F.silu(h[..., :dff]) * h[..., dff:]
+    return glu
+
+
+def _make_combine(caps: tuple[int, ...], nb: int, top_k: int, aux_free: bool):
+    """Weighted scatter-add of the per-expert outputs back to token order:
+    each (token, k) pair re-derives its expert and within-expert rank as
+    the dispatch nodes did, reads that row of the concatenated expert
+    outputs and sums ``router_weight × row`` over k (pairs past capacity
+    contribute zero).  The capacity and offset tables are made once per
+    device, on the first call (a capture's warm-up), never during graph
+    recording."""
+    offs = [sum(caps[:j]) for j in range(nb)]
+    tables: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def combine(*args):
+        *eouts, h, logits = args
+        d = h.shape[-1]
+        xf = h.reshape(-1, d)
+        n = xf.shape[0]
+        if h.device not in tables:
+            tables[h.device] = (torch.tensor(caps, device=h.device),
+                                torch.tensor(offs, device=h.device))
+        caps_t, offs_t = tables[h.device]
+        top_w, top_idx = _topk_routing(logits, nb, top_k, aux_free)
+        expert_flat = top_idx.reshape(-1)                       # [N·k]
+        w_flat = top_w.reshape(-1)
+        onehot = (expert_flat[:, None]
+                  == torch.arange(nb, device=h.device)[None, :]).long()
+        ranks = torch.cumsum(onehot, dim=0) - onehot
+        rank = torch.gather(ranks, 1, expert_flat[:, None])[:, 0]
+        cap_e = caps_t[expert_flat]
+        take = rank < cap_e
+        row = offs_t[expert_flat] + torch.minimum(rank, cap_e - 1)
+        allout = torch.cat(eouts, dim=0)                        # [ΣC, d]
+        rows = allout[row] * (w_flat * take).to(allout.dtype)[:, None]
+        y = rows.reshape(n, top_k, d).sum(dim=1)
+        return y.reshape(h.shape).to(h.dtype)
+    return combine
+
+
+def _moe_ragged_block(g, cfg, n2, b, s, tag, moe_p, moe_branch_cap,
+                      cap_scale: float = 1.0):
+    """Routed expert fan-out with real dispatch/combine payloads.
+
+    router → nb parallel per-expert gathers (unequal static capacities) →
+    TWO grouped ragged-M GEMM waves (gate∥up, then down; each stacks into
+    ONE ``grouped_gemm`` launch at capture, the branches sharing ``(K, F)``
+    but not M) → weighted scatter-add combine (+ the always-on shared
+    expert).  Fan-out is capped at ``moe_branch_cap`` branches and routing
+    restricted to the first nb experts, so the exported math is
+    self-consistent.  ``cap_scale`` < 1 shrinks the capacities to force
+    overflow."""
+    e = cfg.moe
+    d, de = cfg.d_model, e.d_expert
+    nb = min(e.n_experts, moe_branch_cap)
+    top_k = min(e.top_k, nb)
+    caps = tuple(max(1, int(round(c * cap_scale)))
+                 for c in _moe_capacities(b * s, e, nb, top_k))
+    rw = (moe_p["router"]["w"].float()[:, :nb].contiguous()
+          if moe_p is not None else None)
+    router = g.add(
+        f"{tag}.router", OpKind.REDUCE, [n2],
+        fn=_make_router(rw) if moe_p is not None else None,
+        cost=gemm_cost(b * s, d, e.n_experts),
+        out_shape=(b, s, nb), out_dtype=torch.float32)
+    outs = []
+    for j in range(nb):
+        disp = g.add(
+            f"{tag}.dispatch{j}", OpKind.GATHER, [n2, router],
+            fn=(_make_dispatch(j, caps[j], nb, top_k, e.router_aux_free)
+                if moe_p is not None else None),
+            cost=gather_cost(caps[j], d), out_shape=(caps[j], d))
+        ew = ({"w": torch.cat([moe_p["experts"]["gate"][j],
+                               moe_p["experts"]["up"][j]], dim=1)}
+              if moe_p is not None else None)
+        h = _gemm_node(g, f"{tag}.expert{j}_in", disp, ew,
+                       caps[j], d, 2 * de,
+                       fuse_sig=("egemm_in", d, 2 * de),
+                       out_shape=(caps[j], 2 * de))
+        glu = g.add(f"{tag}.expert{j}_glu", OpKind.ELEMENTWISE, [h],
+                    fn=_make_glu(de) if moe_p is not None else None,
+                    cost=elementwise_cost(caps[j] * de, n_in=1,
+                                          flops_per_elem=5),
+                    out_shape=(caps[j], de))
+        outs.append(_gemm_node(
+            g, f"{tag}.expert{j}_down", glu,
+            {"w": moe_p["experts"]["down"][j]} if moe_p is not None else None,
+            caps[j], de, d, fuse_sig=("egemm_down", de, d),
+            out_shape=(caps[j], d)))
+    comb = g.add(
+        f"{tag}.combine", OpKind.SCATTER, outs + [n2, router],
+        fn=(_make_combine(caps, nb, top_k, e.router_aux_free)
+            if moe_p is not None else None),
+        cost=gather_cost(b * s * e.top_k, d))
+    if not e.n_shared:
+        return comb
+    dsh = de * e.n_shared
+    sp = (moe_p["shared"]
+          if moe_p is not None and "shared" in moe_p else None)
+    sw = ({"w": torch.cat([sp["gate"]["w"], sp["up"]["w"]], dim=1)}
+          if sp is not None else None)
+    sh = _gemm_node(g, f"{tag}.shared_in", n2, sw, b * s, d, 2 * dsh,
+                    fuse_sig=("sgemm_in", d, 2 * dsh))
+    shg = g.add(f"{tag}.shared_glu", OpKind.ELEMENTWISE, [sh],
+                fn=_make_glu(dsh) if sp is not None else None,
+                cost=elementwise_cost(b * s * dsh, n_in=1, flops_per_elem=5))
+    shd = _gemm_node(g, f"{tag}.shared_down", shg,
+                     sp["down"] if sp is not None else None,
+                     b * s, dsh, d, fuse_sig=("sgemm_down", dsh, d))
+    return g.add(f"{tag}.moe_out", OpKind.ELEMENTWISE, [comb, shd],
+                 fn=_add if moe_p is not None else None,
+                 cost=elementwise_cost(b * s * d, n_in=2))
+
+
+# -- RWKV6 --------------------------------------------------------------------
+
+def _shift_mix(x, mu):
+    """Token-shift interpolation from the zero prefill state
+    (``ssm._token_shift`` at x_prev = 0)."""
+    xs = torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
+    return x + (xs - x) * mu.to(x.dtype)
+
+
+def _rwkv_decay_payload(a, wb, w_base):
+    """w_t = exp(-exp(base + lora_b(tanh(lora_a(x))))) — fp32 decay."""
+    w_log = w_base + torch.matmul(torch.tanh(a), wb).float()
+    return torch.exp(-torch.exp(w_log))
+
+
+def _wkv_scan_payload(r, k, v, w, u):
+    """The WKV recurrence from the zero state through the ``rwkv6`` wrapper
+    (the kernel on the card, its plain version on the CPU)."""
+    from ..kernels.rwkv6 import rwkv6_model
+    h, hs = u.shape
+    b, t, d = r.shape
+    rh = r.reshape(b, t, h, hs).float()
+    kh = k.reshape(b, t, h, hs).float()
+    vh = v.reshape(b, t, h, hs).float()
+    wh = w.reshape(b, t, h, hs)
+    s0 = torch.zeros((b, h, hs, hs), dtype=torch.float32, device=r.device)
+    y, _ = rwkv6_model(rh, kh, vh, wh, u, s0)
+    return y.reshape(b, t, d).to(r.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _make_rwkv_groupnorm(hs: int):
+    """Per-head group-norm (ln_x) in fp32, as ``rwkv_time_mix_seq``."""
+    def groupnorm(y, scale, bias):
+        b, t, d = y.shape
+        yf = y.float().reshape(b, t, d // hs, hs)
+        mu = yf.mean(-1, keepdim=True)
+        var = yf.var(-1, unbiased=False, keepdim=True)
+        yf = (yf - mu) * torch.rsqrt(var + 1e-5)
+        return (yf.reshape(b, t, d) * scale.float()
+                + bias.float()).to(y.dtype)
+    return groupnorm
+
+
+def _silu_gate(y, go):
+    return y * F.silu(go)
+
+
+def _relu_sq(x):
+    return torch.square(torch.relu(x))
+
+
+def _rwkv_layer(g, cfg, x, b, s, tag, pl, root):
+    """RWKV6: five parallel token-shift mixes feeding the r/k/v/g/decay
+    projections, the WKV scan, group-norm, silu-gate and the squared-relu
+    channel mix."""
+    d, dff = cfg.d_model, cfg.d_ff
+    hs = cfg.ssm.head_dim if cfg.ssm else 64
+    with_fn = pl is not None
+    tm = pl["time_mix"] if pl else None
+    cm = pl["channel_mix"] if pl else None
+    n1 = _norm_node(g, f"{tag}.norm1", x, pl and pl["norm1"], cfg.norm,
+                    b * s * d)
+    mixes = {}
+    for i, nm in enumerate(("r", "k", "v", "g", "w")):
+        mixes[nm] = g.add(f"{tag}.mix_{nm}", OpKind.ELEMENTWISE, [n1],
+                          fn=_shift_mix if with_fn else None,
+                          cost=elementwise_cost(b * s * d, n_in=1,
+                                                flops_per_elem=3),
+                          fuse_sig=("tshift", s, d),
+                          **({"consts": (tm["mu"][i],)} if with_fn else {}))
+    pr = {nm: _gemm_node(g, f"{tag}.w{nm}", mixes[nm], tm and tm["w" + nm],
+                         b * s, d, d)
+          for nm in ("r", "k", "v", "g")}
+    la = _gemm_node(g, f"{tag}.w_lora", mixes["w"], tm and tm["w_lora_a"],
+                    b * s, d, RWKV_LORA)
+    wdec = g.add(f"{tag}.w_decay", OpKind.GEMM, [la],
+                 fn=_rwkv_decay_payload if with_fn else None,
+                 cost=gemm_cost(b * s, RWKV_LORA, d),
+                 fuse_sig=("wdecay", s, d),
+                 **({"consts": (tm["w_lora_b"]["w"], tm["w_base"])}
+                    if with_fn else {}))
+    scan = g.add(f"{tag}.wkv_scan", OpKind.SCAN,
+                 [pr["r"], pr["k"], pr["v"], wdec],
+                 fn=_wkv_scan_payload if with_fn else None,
+                 cost=scan_cost(b, s, d, hs), fuse_sig=("wkv", s, d, hs),
+                 **({"consts": (tm["u"],)} if with_fn else {}))
+    gn = g.add(f"{tag}.ln_x", OpKind.NORM, [scan],
+               fn=_make_rwkv_groupnorm(hs) if with_fn else None,
+               cost=norm_cost(b * s * d), fuse_sig=("rwkvgn", s, d, hs),
+               **({"consts": (tm["ln_x"]["scale"], tm["ln_x"]["bias"])}
+                  if with_fn else {}))
+    gated = g.add(f"{tag}.gate_mul", OpKind.ELEMENTWISE, [gn, pr["g"]],
+                  fn=_silu_gate if with_fn else None,
+                  cost=elementwise_cost(b * s * d, n_in=2, flops_per_elem=5))
+    o = _gemm_node(g, f"{tag}.wo", gated, tm and tm["wo"], b * s, d, d)
+    r1 = g.add(f"{tag}.res1", OpKind.ELEMENTWISE, [x, o],
+               fn=_add if with_fn else None,
+               cost=elementwise_cost(b * s * d, n_in=2))
+    n2 = _norm_node(g, f"{tag}.norm2", r1, pl and pl["norm2"], cfg.norm,
+                    b * s * d)
+    cmix = g.add(f"{tag}.cm_mix", OpKind.ELEMENTWISE, [n2],
+                 fn=_shift_mix if with_fn else None,
+                 cost=elementwise_cost(b * s * d, n_in=1, flops_per_elem=3),
+                 fuse_sig=("tshift", s, d),
+                 **({"consts": (cm["mu"][0],)} if with_fn else {}))
+    ck = _ffn_gemm(g, f"{tag}.cm_k", cmix, root, cm and cm["wk"],
+                   b * s, d, dff)
+    act = g.add(f"{tag}.cm_act", OpKind.ELEMENTWISE, [ck],
+                fn=_relu_sq if with_fn else None,
+                cost=elementwise_cost(b * s * dff, n_in=1, flops_per_elem=2))
+    cv = _ffn_gemm(g, f"{tag}.cm_v", act, root, cm and cm["wv"],
+                   b * s, dff, d)
+    return g.add(f"{tag}.res2", OpKind.ELEMENTWISE, [r1, cv],
+                 fn=_add if with_fn else None,
                  cost=elementwise_cost(b * s * d, n_in=2))
 
 

@@ -1,0 +1,168 @@
+"""RWKV-6 ("Finch") blocks: the time mix (token-shift projections, the WKV
+recurrence, group-norm and the gate) and the channel mix.
+
+The RWKV6 half of the JAX package's ``models/ssm.py``.  Each block has a
+sequence form that processes T tokens from a carried state and returns the
+new state; a decode step is the sequence form at T = 1.  The recurrence, per
+head of size K with the state S [K, K] in fp32:
+
+    out_t = r_t · (diag(u)·k_tᵀv_t + S_{t-1})
+    S_t   = diag(w_t)·S_{t-1} + k_tᵀv_t          (w_t data-dependent decay)
+
+With ``use_kernels`` it runs in the port's ``rwkv6`` kernel at every T (the
+JAX package's decode step runs the plain recurrence; the kernel computes the
+same function, so the card's decode path has no plain version on it);
+otherwise in :func:`wkv_scan_ref`, a Python loop over time.  The Mamba head
+(Hymba's parallel SSM) is not ported (ROADMAP A6).
+"""
+from __future__ import annotations
+
+import torch
+
+from ..configs.base import ModelConfig
+from .layers import check_device, init_linear, linear
+
+RWKV_LORA = 32  # data-dependent decay LoRA rank (Finch §3)
+
+
+def _head_size(cfg: ModelConfig) -> int:
+    return cfg.ssm.head_dim if cfg.ssm else 64
+
+
+def init_rwkv_time_mix(generator: torch.Generator, cfg: ModelConfig, *,
+                       device: torch.device | str,
+                       lead: tuple[int, ...] = ()) -> dict:
+    d = cfg.d_model
+    hs = _head_size(cfg)
+    n_heads = d // hs
+    dt = cfg.dtype
+    device = check_device(device)
+    kw = {"device": device, "lead": lead}
+    return {
+        # token-shift mixes of (r, k, v, g, w)
+        "mu": torch.rand(lead + (5, d), generator=generator,
+                         dtype=torch.float32, device=device).to(dt),
+        "wr": init_linear(generator, d, d, False, dt, **kw),
+        "wk": init_linear(generator, d, d, False, dt, **kw),
+        "wv": init_linear(generator, d, d, False, dt, **kw),
+        "wg": init_linear(generator, d, d, False, dt, **kw),
+        "wo": init_linear(generator, d, d, False, dt, **kw),
+        # decay: w_t = exp(-exp(base + lora(x)))
+        "w_base": torch.full(lead + (d,), -6.0, dtype=torch.float32,
+                             device=device),
+        "w_lora_a": init_linear(generator, d, RWKV_LORA, False, dt, **kw),
+        "w_lora_b": init_linear(generator, RWKV_LORA, d, False, dt, **kw),
+        "u": torch.randn(lead + (n_heads, hs), generator=generator,
+                         dtype=torch.float32, device=device) * 0.1,
+        "ln_x": {"scale": torch.ones(lead + (d,), dtype=dt, device=device),
+                 "bias": torch.zeros(lead + (d,), dtype=dt, device=device)},
+    }
+
+
+def _token_shift(x: torch.Tensor, x_prev: torch.Tensor) -> torch.Tensor:
+    """x: [B,T,d] shifted right by one; the first slot is x_prev [B,d]."""
+    return torch.cat([x_prev[:, None].to(x.dtype), x[:, :-1]], dim=1)
+
+
+def _rwkv_proj(p: dict, x: torch.Tensor, x_prev: torch.Tensor):
+    """The 5 parallel token-shift projections (r, k, v, g, w)."""
+    xs = _token_shift(x, x_prev)
+    mu = p["mu"].to(x.dtype)
+    mix = [x + (xs - x) * mu[i] for i in range(5)]
+    r = linear(p["wr"], mix[0])
+    k = linear(p["wk"], mix[1])
+    v = linear(p["wv"], mix[2])
+    g = torch.nn.functional.silu(linear(p["wg"], mix[3]))
+    w_log = p["w_base"] + linear(
+        p["w_lora_b"], torch.tanh(linear(p["w_lora_a"], mix[4]))).float()
+    w = torch.exp(-torch.exp(w_log))                 # decay in (0, 1)
+    return r, k, v, g, w
+
+
+def wkv_scan_ref(rh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
+                 wh: torch.Tensor, u: torch.Tensor, s0: torch.Tensor):
+    """The plain WKV recurrence on head-split fp32 tensors [B,T,H,K] →
+    (s_final [B,H,K,K], y [B,T,H,K]).  Shared by :func:`rwkv_time_mix_seq`
+    and the exporter's scan payload."""
+    s = s0
+    outs = []
+    for t in range(rh.shape[1]):
+        rt, kt, vt, wt = rh[:, t], kh[:, t], vh[:, t], wh[:, t]
+        kv = kt[..., :, None] * vt[..., None, :]           # [B,H,K,K]
+        outs.append(torch.einsum("bhk,bhkj->bhj", rt,
+                                 u[None, :, :, None] * kv + s))
+        s = wt[..., :, None] * s + kv
+    return s, torch.stack(outs, dim=1)
+
+
+def rwkv_time_mix_seq(p: dict, x: torch.Tensor, state, cfg: ModelConfig,
+                      use_kernels: bool = False):
+    """x: [B,T,d]; state: (x_prev [B,d], S [B,H,K,K] fp32) → (y, state')."""
+    b, t, d = x.shape
+    hs = _head_size(cfg)
+    h = d // hs
+    x_prev, s0 = state
+    r, k, v, g, w = _rwkv_proj(p, x, x_prev)
+    rh = r.reshape(b, t, h, hs).float()
+    kh = k.reshape(b, t, h, hs).float()
+    vh = v.reshape(b, t, h, hs).float()
+    wh = w.reshape(b, t, h, hs)
+    if use_kernels:
+        from ..kernels.rwkv6 import rwkv6_model
+        y, s_final = rwkv6_model(rh, kh, vh, wh, p["u"], s0)
+    else:
+        s_final, y = wkv_scan_ref(rh, kh, vh, wh, p["u"], s0)
+
+    y = y.reshape(b, t, d).to(x.dtype)
+    # group-norm over each head (ln_x), then the gate and the output proj
+    yf = y.float().reshape(b, t, h, hs)
+    mu_ = yf.mean(-1, keepdim=True)
+    var = yf.var(-1, unbiased=False, keepdim=True)
+    yf = (yf - mu_) * torch.rsqrt(var + 1e-5)
+    y = (yf.reshape(b, t, d) * p["ln_x"]["scale"].float()
+         + p["ln_x"]["bias"].float()).to(x.dtype)
+    y = linear(p["wo"], y * g)
+    return y, (x[:, -1], s_final)
+
+
+def rwkv_time_mix_step(p: dict, x: torch.Tensor, state, cfg: ModelConfig,
+                       use_kernels: bool = False):
+    """Decode: x [B,1,d]."""
+    return rwkv_time_mix_seq(p, x, state, cfg, use_kernels)
+
+
+def init_rwkv_channel_mix(generator: torch.Generator, cfg: ModelConfig, *,
+                          device: torch.device | str,
+                          lead: tuple[int, ...] = ()) -> dict:
+    d, dff = cfg.d_model, cfg.d_ff
+    dt = cfg.dtype
+    device = check_device(device)
+    kw = {"device": device, "lead": lead}
+    return {
+        "mu": torch.rand(lead + (2, d), generator=generator,
+                         dtype=torch.float32, device=device).to(dt),
+        "wk": init_linear(generator, d, dff, False, dt, **kw),
+        "wv": init_linear(generator, dff, d, False, dt, **kw),
+    }
+
+
+def rwkv_channel_mix(p: dict, x: torch.Tensor, x_prev: torch.Tensor,
+                     cfg: ModelConfig):
+    xs = _token_shift(x, x_prev)
+    mu = p["mu"].to(x.dtype)
+    xk = x + (xs - x) * mu[0]
+    k = torch.square(torch.relu(linear(p["wk"], xk)))
+    return linear(p["wv"], k), x[:, -1]
+
+
+def rwkv_state_init(cfg: ModelConfig, batch: int, *,
+                    device: torch.device | str) -> dict:
+    d = cfg.d_model
+    hs = _head_size(cfg)
+    h = d // hs
+    return {
+        "tm_x": torch.zeros((batch, d), dtype=cfg.dtype, device=device),
+        "tm_s": torch.zeros((batch, h, hs, hs), dtype=torch.float32,
+                            device=device),
+        "cm_x": torch.zeros((batch, d), dtype=cfg.dtype, device=device),
+    }

@@ -1,4 +1,4 @@
-"""Transformer assembly of the dense LM: parameter init, the prefill
+"""Transformer assembly of the decoder LM: parameter init, the prefill
 forward and the single-token decode steps (dense slab and paged KV).
 
 The tree layout is the JAX package's ``init_lm``: ``{"embed": {"table"},
@@ -7,9 +7,13 @@ The tree layout is the JAX package's ``init_lm``: ``{"embed": {"table"},
 converted by :mod:`repro_torch.bridge` and this init are interchangeable.
 Where the JAX package scans a stack with ``jax.lax.scan``, the port loops
 over the layer index in Python, with each layer's attention window an int
-(0 = none).  Caches are stacked ``[L, ...]`` per stack as there; decode
-writes them in place.  Only dense stacks are ported; the other families
-(MoE, MLA, hybrid, ssm, vlm, encdec) raise, naming ROADMAP A6.  Training
+(0 = none).  Stacks are of one block kind each: ``dense`` (GQA + MLP),
+``dense_prefix`` and ``moe`` (the MoE family: its first layers keep a wide
+dense MLP, the rest route to experts) and ``rwkv`` (RWKV-6 time and channel
+mix).  Caches are stacked ``[L, ...]`` per stack as there — ``(k, v)`` for
+attention stacks, ``{tm_x, tm_s, cm_x}`` recurrent state for RWKV — and
+decode writes them in place.  MLA attention, hybrid (Mamba) stacks, meta
+tokens, MTP heads and modality frontends raise, naming ROADMAP A6.  Training
 (``lm_loss``, the MTP loss) is ROADMAP A9.
 """
 from __future__ import annotations
@@ -21,9 +25,11 @@ import torch
 from ..configs.base import ModelConfig
 from .attention import (attn_decode, attn_paged_decode, attn_prefill,
                         init_cache, init_gqa, init_paged_cache)
-from .ffn import ffn, init_ffn
+from .ffn import ffn, init_ffn, init_mlp, mlp
 from .layers import (apply_norm, check_device, embed, init_embedding,
                      init_norm, unembed)
+from .ssm import (init_rwkv_channel_mix, init_rwkv_time_mix,
+                  rwkv_channel_mix, rwkv_state_init, rwkv_time_mix_seq)
 
 
 def layer_kinds(cfg: ModelConfig) -> list[tuple[str, int]]:
@@ -72,29 +78,38 @@ def stack_meta(cfg: ModelConfig) -> list[tuple[str, int, tuple[int, ...]]]:
 def init_block(generator: torch.Generator, cfg: ModelConfig, layer_kind: str,
                *, device: torch.device | str,
                lead: tuple[int, ...] = ()) -> dict:
-    """Params of ``lead`` stacked blocks of ``layer_kind`` (dense only)."""
-    if layer_kind != "dense" or cfg.mla is not None:
+    """Params of ``lead`` stacked blocks of ``layer_kind`` (dense,
+    dense_prefix, moe or rwkv)."""
+    kw = {"device": device, "lead": lead}
+    if layer_kind == "rwkv":
+        return {
+            "norm1": init_norm(cfg.d_model, cfg.norm, cfg.dtype, **kw),
+            "time_mix": init_rwkv_time_mix(generator, cfg, **kw),
+            "norm2": init_norm(cfg.d_model, cfg.norm, cfg.dtype, **kw),
+            "channel_mix": init_rwkv_channel_mix(generator, cfg, **kw),
+        }
+    if layer_kind not in ("dense", "dense_prefix", "moe") \
+            or cfg.mla is not None:
         raise NotImplementedError(
             f"{layer_kind!r} blocks of {cfg.name} are not ported yet "
             "(ROADMAP A6)")
-    kw = {"device": device, "lead": lead}
     return {
         "norm1": init_norm(cfg.d_model, cfg.norm, cfg.dtype, **kw),
         "attn": init_gqa(generator, cfg, **kw),
         "norm2": init_norm(cfg.d_model, cfg.norm, cfg.dtype, **kw),
-        "ffn": init_ffn(generator, cfg, **kw),
+        "ffn": (init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.act,
+                         cfg.dtype, **kw) if layer_kind == "dense_prefix"
+                else init_ffn(generator, cfg, **kw)),
     }
 
 
 def init_lm(cfg: ModelConfig, generator: torch.Generator,
             device: torch.device | str = "cuda") -> dict:
-    """Random dense-LM params on ``device`` drawn from ``generator`` (which
-    must live on that device).  Scales follow the JAX package: linear
-    weights ``d_in**-0.5``, embeddings ``0.02``, zero biases, unit norms."""
+    """Random LM params on ``device`` drawn from ``generator`` (which must
+    live on that device).  Scales follow the JAX package: linear weights
+    ``d_in**-0.5``, embeddings ``0.02``, zero biases, unit norms."""
     device = check_device(device)
-    if cfg.meta_tokens or cfg.mtp_heads or cfg.frontend is not None:
-        raise NotImplementedError(f"{cfg.name} is not a plain dense LM; not "
-                                  "ported yet (ROADMAP A6)")
+    _check_supported(cfg)
     p = {
         "embed": init_embedding(generator, cfg.vocab_size, cfg.d_model,
                                 cfg.dtype, device=device),
@@ -109,12 +124,13 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator,
     return p
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    if (cfg.family != "dense" or cfg.moe is not None or cfg.mla is not None
-            or cfg.meta_tokens or cfg.frontend is not None):
+def _check_supported(cfg: ModelConfig) -> None:
+    if (cfg.family not in ("dense", "moe", "ssm") or cfg.mla is not None
+            or cfg.meta_tokens or cfg.mtp_heads or cfg.frontend is not None):
         raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) is not a plain dense LM; not ported "
-            "yet (ROADMAP A6)")
+            f"{cfg.name} ({cfg.family}) needs MLA, hybrid stacks, meta "
+            "tokens, MTP heads or a modality frontend; not ported yet "
+            "(ROADMAP A6)")
 
 
 def layer_params(tree: Any, li: int) -> Any:
@@ -130,43 +146,73 @@ def _window(w: int) -> int | None:
 
 # ============================ block =========================================
 
+def _ffn(p: dict, x: torch.Tensor, cfg: ModelConfig, use_kernels: bool,
+         layer_kind: str) -> torch.Tensor:
+    if layer_kind == "dense_prefix":
+        return mlp(p, x, cfg.act)
+    return ffn(p, x, cfg, None, use_kernels)[0]
+
+
+def _rwkv_block(p: dict, x: torch.Tensor, state: dict, cfg: ModelConfig,
+                use_kernels: bool):
+    """RWKV-6 block from ``state`` → (x', (tm_x, tm_s, cm_x))."""
+    y, (tm_x, tm_s) = rwkv_time_mix_seq(
+        p["time_mix"], apply_norm(p["norm1"], x, cfg.norm, use_kernels),
+        (state["tm_x"], state["tm_s"]), cfg, use_kernels)
+    x = x + y
+    h = apply_norm(p["norm2"], x, cfg.norm, use_kernels)
+    y2, cm_x = rwkv_channel_mix(p["channel_mix"], h, state["cm_x"], cfg)
+    return x + y2, (tm_x, tm_s, cm_x)
+
+
 def block_seq(p: dict, x: torch.Tensor, cfg: ModelConfig,
               positions: torch.Tensor, window: int | None,
-              use_kernels: bool = False):
-    """Full-sequence dense block (prefill). Returns (x', (k, v))."""
+              use_kernels: bool = False, layer_kind: str = "dense"):
+    """Full-sequence block (prefill). Returns (x', cache): ``(k, v)``, or
+    the RWKV state ``{tm_x, tm_s, cm_x}`` after the sequence."""
+    if layer_kind == "rwkv":
+        state = rwkv_state_init(cfg, x.shape[0], device=x.device)
+        x, (tm_x, tm_s, cm_x) = _rwkv_block(p, x, state, cfg, use_kernels)
+        return x, {"tm_x": tm_x, "tm_s": tm_s, "cm_x": cm_x}
     h = apply_norm(p["norm1"], x, cfg.norm, use_kernels)
     attn_out, kv = attn_prefill(p["attn"], h, cfg, positions, window,
                                 use_kernels)
     x = x + attn_out * cfg.residual_scale
     h2 = apply_norm(p["norm2"], x, cfg.norm, use_kernels)
-    f_out, _ = ffn(p["ffn"], h2, cfg)
+    f_out = _ffn(p["ffn"], h2, cfg, use_kernels, layer_kind)
     return x + f_out * cfg.residual_scale, kv
 
 
 def block_step(p: dict, x: torch.Tensor, cache, pos: torch.Tensor,
                cfg: ModelConfig, window: int | None,
-               use_kernels: bool = False):
-    """Single-token dense decode. x: [B,1,d]; the cache is written in place."""
+               use_kernels: bool = False, layer_kind: str = "dense"):
+    """Single-token decode. x: [B,1,d]; the cache (``(k, v)`` or the RWKV
+    state) is written in place."""
+    if layer_kind == "rwkv":
+        x, new = _rwkv_block(p, x, cache, cfg, use_kernels)
+        for key, value in zip(("tm_x", "tm_s", "cm_x"), new):
+            cache[key].copy_(value)
+        return x, cache
     h = apply_norm(p["norm1"], x, cfg.norm, use_kernels)
     attn_out, cache = attn_decode(p["attn"], h, cache, pos, cfg, window,
                                   use_kernels)
     x = x + attn_out * cfg.residual_scale
     h2 = apply_norm(p["norm2"], x, cfg.norm, use_kernels)
-    f_out, _ = ffn(p["ffn"], h2, cfg)
+    f_out = _ffn(p["ffn"], h2, cfg, use_kernels, layer_kind)
     return x + f_out * cfg.residual_scale, cache
 
 
 def block_step_paged(p: dict, x: torch.Tensor, pages,
                      block_tables: torch.Tensor, pos: torch.Tensor,
                      cfg: ModelConfig, window: int | None,
-                     use_kernels: bool = False):
+                     use_kernels: bool = False, layer_kind: str = "dense"):
     """Single-token decode against paged KV. x: [B,1,d]; pages per layer."""
     h = apply_norm(p["norm1"], x, cfg.norm, use_kernels)
     attn_out, pages = attn_paged_decode(p["attn"], h, pages, block_tables,
                                         pos, cfg, window, use_kernels)
     x = x + attn_out * cfg.residual_scale
     h2 = apply_norm(p["norm2"], x, cfg.norm, use_kernels)
-    f_out, _ = ffn(p["ffn"], h2, cfg)
+    f_out = _ffn(p["ffn"], h2, cfg, use_kernels, layer_kind)
     return x + f_out * cfg.residual_scale, pages
 
 
@@ -179,24 +225,38 @@ def _head(params: dict, x: torch.Tensor, cfg: ModelConfig,
                    x)
 
 
+def _stack_caches(caches: list):
+    """Per-layer caches of one stack → the stacked ``[L, ...]`` cache."""
+    if isinstance(caches[0], dict):
+        return {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
+    return tuple(torch.stack(leaves) for leaves in zip(*caches))
+
+
+def _layer_cache(cache, li: int):
+    """Layer ``li`` of a stacked cache (views, so writes land in place)."""
+    if isinstance(cache, dict):
+        return {k: v[li] for k, v in cache.items()}
+    return tuple(leaf[li] for leaf in cache)
+
+
 def lm_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
                use_kernels: bool = False, with_cache: bool = True):
-    """Prefill forward → (logits [B,S,V] fp32, caches): one ``(k, v)`` per
-    stack, each ``[L,B,S,KVH,D]`` (None without ``with_cache``)."""
-    _check_dense(cfg)
+    """Prefill forward → (logits [B,S,V] fp32, caches): per stack ``(k, v)``
+    each ``[L,B,S,KVH,D]``, or the RWKV state leaves ``[L,B,...]`` (None
+    without ``with_cache``)."""
+    _check_supported(cfg)
     x = embed(params["embed"], tokens)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     caches = []
     for stack, (kind, n, windows) in zip(params["stacks"], stack_meta(cfg)):
-        ks, vs = [], []
+        layer_caches = []
         for li in range(n):
-            x, (k, v) = block_seq(layer_params(stack, li), x, cfg, positions,
-                                  _window(windows[li]), use_kernels)
-            ks.append(k)
-            vs.append(v)
-        caches.append((torch.stack(ks), torch.stack(vs)) if with_cache
-                      else None)
+            x, cache = block_seq(layer_params(stack, li), x, cfg, positions,
+                                 _window(windows[li]), use_kernels, kind)
+            if with_cache:
+                layer_caches.append(cache)
+        caches.append(_stack_caches(layer_caches) if with_cache else None)
     return _head(params, x, cfg, use_kernels), caches
 
 
@@ -207,10 +267,10 @@ def lm_loss(*args, **kwargs):
 
 def lm_prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
                cache_len: int | None = None, use_kernels: bool = False):
-    """Prefill → (last-token logits [B,V], caches zero-padded to
-    ``cache_len``)."""
+    """Prefill → (last-token logits [B,V], caches): KV caches zero-padded to
+    ``cache_len``; recurrent state (no sequence axis) as it is."""
     logits, caches = lm_forward(params, tokens, cfg, use_kernels)
-    if cache_len is not None:
+    if cache_len is not None and cfg.family != "ssm":
         caches = [_pad_cache(c, cache_len) for c in caches]
     return logits[:, -1], caches
 
@@ -224,10 +284,16 @@ def _pad_cache(cache, length: int):
 
 def init_decode_caches(cfg: ModelConfig, batch: int, length: int, *,
                        device: torch.device | str):
-    """Empty dense caches ``(k, v)`` ``[L,B,length,KVH,D]`` per stack."""
-    _check_dense(cfg)
+    """Empty decode caches per stack: ``(k, v)`` ``[L,B,length,KVH,D]``, or
+    the RWKV state leaves ``[L,B,...]``."""
+    _check_supported(cfg)
     caches = []
-    for _, n, _ in stack_meta(cfg):
+    for kind, n, _ in stack_meta(cfg):
+        if kind == "rwkv":
+            state = rwkv_state_init(cfg, batch, device=device)
+            caches.append({k: v.new_zeros((n,) + v.shape)
+                           for k, v in state.items()})
+            continue
         k, v = init_cache(cfg, batch, length, device=device)
         caches.append((k.new_zeros((n,) + k.shape),
                        v.new_zeros((n,) + v.shape)))
@@ -239,13 +305,14 @@ def lm_decode(params: dict, token: torch.Tensor, caches: list,
               use_kernels: bool = False):
     """One decode step. token, pos: [B] int. → (logits [B,V], caches), the
     caches written in place."""
-    _check_dense(cfg)
+    _check_supported(cfg)
     x = embed(params["embed"], token[:, None])
-    for stack, (k, v), (_, n, windows) in zip(params["stacks"], caches,
-                                              stack_meta(cfg)):
+    for stack, cache, (kind, n, windows) in zip(params["stacks"], caches,
+                                                stack_meta(cfg)):
         for li in range(n):
-            x, _ = block_step(layer_params(stack, li), x, (k[li], v[li]), pos,
-                              cfg, _window(windows[li]), use_kernels)
+            x, _ = block_step(layer_params(stack, li), x,
+                              _layer_cache(cache, li), pos, cfg,
+                              _window(windows[li]), use_kernels, kind)
     return _head(params, x, cfg, use_kernels)[:, 0], caches
 
 
@@ -256,7 +323,7 @@ def init_paged_decode_caches(cfg: ModelConfig, num_pages: int,
         raise ValueError(
             f"family {cfg.family!r} carries recurrent state; paged KV "
             "applies only to pure-attention stacks")
-    _check_dense(cfg)
+    _check_supported(cfg)
     caches = []
     for _, n, _ in stack_meta(cfg):
         k, v = init_paged_cache(cfg, num_pages, page_size, device=device)
@@ -271,12 +338,13 @@ def lm_paged_decode(params: dict, token: torch.Tensor, caches: list,
     """One decode step over paged caches. token, pos: [B]; block_tables:
     [B,MAXP] int32 (shared by every layer). → (logits, caches), the pages
     written in place."""
-    _check_dense(cfg)
+    _check_supported(cfg)
     x = embed(params["embed"], token[:, None])
-    for stack, (k, v), (_, n, windows) in zip(params["stacks"], caches,
-                                              stack_meta(cfg)):
+    for stack, cache, (kind, n, windows) in zip(params["stacks"], caches,
+                                                stack_meta(cfg)):
         for li in range(n):
             x, _ = block_step_paged(layer_params(stack, li), x,
-                                    (k[li], v[li]), block_tables, pos, cfg,
-                                    _window(windows[li]), use_kernels)
+                                    _layer_cache(cache, li), block_tables,
+                                    pos, cfg, _window(windows[li]),
+                                    use_kernels, kind)
     return _head(params, x, cfg, use_kernels)[:, 0], caches

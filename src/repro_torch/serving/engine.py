@@ -1,8 +1,10 @@
 """Continuous-batching inference engine with an overload-robust admission tier.
 
 The port of the JAX package's ``serving/engine.py``: a fixed pool of decode
-slots sharing one stacked KV cache (a dense slab, or fixed pages behind
-block tables with ``paged_kv=True``); one engine tick is either one prefill
+slots sharing one stacked cache (a dense KV slab, fixed KV pages behind
+block tables with ``paged_kv=True``, or, for RWKV, recurrent state per slot,
+where ``paged_kv=True`` degrades to the dense layout as in the JAX package);
+one engine tick is either one prefill
 or one batched decode step; per-request sampling; EOS / max-token
 completion; the admission tier of :mod:`.admission` (bounded EDF queue,
 load shedding, deadline expiry, priority preemption) on a deterministic
@@ -144,6 +146,8 @@ class InferenceEngine:
             from ..models.transformer import init_decode_caches
             self.caches = init_decode_caches(self.cfg, max_slots, cache_len,
                                              device=self.device)
+        # a recurrent stack (RWKV) updates its state in place every step
+        self._recurrent = self.cfg.family in ("ssm", "hybrid")
         self.decode_graph: CudaGraphReplay | None = None
         self._step = self._make_step()
         # Measured-mode Opara schedule of this engine's step graph, filled by
@@ -199,7 +203,8 @@ class InferenceEngine:
         """(Re-)schedule this engine's step graph with measured timings.
 
         Exports the model's operator DAG at this engine's decode geometry
-        (batch = ``max_slots``) with the port's dense exporter, binds zero
+        (batch = ``max_slots``; MoE models with the routed fan-out, RWKV
+        with its scan) with the port's exporter, binds zero
         tokens as profiling inputs, and plans through this engine's
         :class:`repro_torch.core.Session` — so the one profiling inference
         is shared by every engine with the same signature.  The plan is
@@ -384,9 +389,9 @@ class InferenceEngine:
         }
 
     def kv_cache_bytes(self) -> int:
-        """Total bytes held by the KV cache (dense slab or page pool)."""
-        return sum(t.numel() * t.element_size()
-                   for kv in self.caches for t in kv)
+        """Total bytes held by the cache (dense slab, page pool, or
+        recurrent state)."""
+        return sum(t.numel() * t.element_size() for t in _leaves(self.caches))
 
     # -- one tick -----------------------------------------------------------------
     def step(self) -> list[Request]:
@@ -514,9 +519,8 @@ class InferenceEngine:
         if (req.eos_id is not None and first == req.eos_id) \
                 or len(req.output) >= req.max_tokens:
             return [self._complete(req)]
-        for big, small in zip(self.caches, cache):
-            for b, s in zip(big, small):
-                _splice(b, s, slot)
+        for big, small in zip(_leaves(self.caches), _leaves(cache)):
+            _splice(big, small, slot)
         self.slots[slot] = req
         self.pos[slot] = len(tokens_list)
         self.last_token[slot] = first
@@ -780,6 +784,10 @@ class InferenceEngine:
         logits = None
         faults = self._faults()
         if self._use_compiled:
+            # recurrent state, unlike a KV write, is not idempotent: keep
+            # it so that the eager rung re-runs the step from it
+            saved = ([t.clone() for t in _leaves(self.caches)]
+                     if self._recurrent else None)
             try:
                 logits = self._step([self.last_token, self.pos])
                 if faults is not None:
@@ -789,7 +797,11 @@ class InferenceEngine:
                     logits = faults.fire("decode_step", payload=logits)
             except Exception as exc:
                 # step watchdog: latch onto the eager step; the graph writes
-                # the caches in place, so re-running the step is idempotent
+                # the KV caches in place, so re-running the step is
+                # idempotent there, and recurrent state is restored first
+                if saved is not None:
+                    for leaf, kept in zip(_leaves(self.caches), saved):
+                        leaf.copy_(kept)
                 self.fault_stats["decode_faults"] += 1
                 self.fault_stats["watchdog_fallbacks"] += 1
                 self._use_compiled = False
@@ -858,9 +870,20 @@ class InferenceEngine:
         return finished
 
 
+def _leaves(tree) -> list[torch.Tensor]:
+    """The tensors of a cache tree — per stack a ``(k, v)`` tuple or a dict
+    of recurrent-state leaves — in a fixed order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [leaf for key in sorted(tree) for leaf in _leaves(tree[key])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for item in tree for leaf in _leaves(item)]
+    return [tree]
+
+
 def _splice(big: torch.Tensor, small: torch.Tensor, slot: int) -> None:
-    """Copy a batch-1 cache leaf ``[L,1,T,...]`` into the shared cache
-    ``[L,B,T,...]`` at ``slot``, in place."""
+    """Copy a batch-1 cache leaf ``[L,1,...]`` (KV ``[L,1,T,...]`` or a
+    recurrent state) into the shared cache ``[L,B,...]`` at ``slot``, in
+    place."""
     if big.dim() != small.dim():
         raise ValueError(f"cache rank mismatch {tuple(big.shape)} vs "
                          f"{tuple(small.shape)}")

@@ -408,3 +408,125 @@ def test_paged_engine_equals_dense_engine_bf16(cuda):
     assert all(state != "pending" for state, _ in paged.values())
     assert paged_engine.fault_stats["watchdog_fallbacks"] == 0
     assert paged_engine.fault_stats["paged_decode_fallbacks"] == 0
+
+
+# ---- the C7 repair: a decode row with no attended position -------------------
+
+def test_decode_kernels_average_v_on_a_row_with_no_attended_position(cuda):
+    """The plain versions (and the JAX package) return V averaged over every
+    position of such a row (null pages included); so must the kernels."""
+    for dtype in (torch.bfloat16, torch.float32):
+        q = _randn(cuda, 20, 3, 4, 64, dtype=dtype)
+        k = _randn(cuda, 21, 3, 200, 2, 64, dtype=dtype)
+        v = _randn(cuda, 22, 3, 200, 2, 64, dtype=dtype)
+        valid = torch.arange(200, device=cuda)[None] < torch.tensor(
+            [[0], [37], [0]], device=cuda)
+        got = dops.decode_attention(q, k, v, valid)
+        want = decode_attention_ref(q, k, v, valid)
+        _assert_kernel_close(got, want)
+        mean = v[0].float().mean(0)                       # [KVH, D]
+        _assert_kernel_close(got[0],
+                             mean.repeat_interleave(2, dim=0).to(dtype))
+        qp, kp, vp, bt, lengths, starts = _paged_case(cuda, dtype)
+        lengths[1] = 0                     # row 1: nothing attended
+        starts[2] = lengths[2]             # row 2: an empty window
+        got = pops.paged_decode_attention(qp, kp, vp, bt, lengths, starts)
+        _assert_kernel_close(got, paged_decode_attention_ref(
+            qp, kp, vp, bt, lengths, starts))
+
+
+# ---- moe_gemm and rwkv6 --------------------------------------------------------
+
+from repro_torch.kernels.moe_gemm import ops as mops  # noqa: E402
+from repro_torch.kernels.moe_gemm.ref import moe_mlp_ref  # noqa: E402
+from repro_torch.kernels.rwkv6 import ops as wops  # noqa: E402
+from repro_torch.kernels.rwkv6.ref import rwkv6_ref  # noqa: E402
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("e,c,d,f", [(4, 1, 256, 128), (3, 13, 200, 136),
+                                     (2, 37, 72, 40), (5, 0, 64, 64),
+                                     (1, 7, 7168, 64)])
+def test_moe_gemm_kernel_matches_plain(cuda, dtype, e, c, d, f):
+    buf = _randn(cuda, 30, e, c, d, dtype=dtype, scale=0.5)
+    gate = _randn(cuda, 31, e, d, f, dtype=dtype, scale=d ** -0.5)
+    up = _randn(cuda, 32, e, d, f, dtype=dtype, scale=d ** -0.5)
+    down = _randn(cuda, 33, e, f, d, dtype=dtype, scale=f ** -0.5)
+    before = mops.launches
+    got = mops.moe_mlp(buf, gate, up, down)
+    assert mops.launches == before + (1 if c else 0)
+    assert got.shape == buf.shape and got.dtype == dtype
+    _assert_kernel_close(got, moe_mlp_ref(buf, gate, up, down))
+
+
+@pytest.mark.parametrize("b,h,t,k", [(1, 32, 64, 64), (8, 32, 1, 64),
+                                     (2, 3, 17, 64), (2, 2, 33, 16)])
+def test_rwkv6_kernel_matches_plain(cuda, b, h, t, k):
+    r, kk, v = (_randn(cuda, s, b, h, t, k) for s in (40, 41, 42))
+    g = torch.Generator(device=cuda).manual_seed(43)
+    w = 0.8 + 0.199 * torch.rand(b, h, t, k, generator=g, device=cuda)
+    u = _randn(cuda, 44, h, k)
+    s0 = _randn(cuda, 45, b, h, k, k)
+    before = wops.launches
+    out, s_final = wops.rwkv6(r, kk, v, w, u, s0)
+    assert wops.launches == before + 1
+    want_out, want_s = rwkv6_ref(r, kk, v, w, u, s0)
+    _assert_kernel_close(out, want_out)
+    _assert_kernel_close(s_final, want_s)
+
+
+def test_moe_and_rwkv_wrappers_raise_on_device_dtype_and_layout(cuda):
+    buf = torch.zeros(2, 3, 64, device=cuda)
+    w = torch.zeros(2, 64, 32, device=cuda)
+    down = torch.zeros(2, 32, 64, device=cuda)
+    with pytest.raises(ValueError, match="devices"):
+        mops.moe_mlp(buf, w.cpu(), w, down)
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        mops.moe_mlp(buf.half(), w.half(), w.half(), down.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        wide = torch.zeros(2, 3, 128, device=cuda)
+        mops.moe_mlp(wide[..., ::2], w, w, down)
+    x = torch.zeros(1, 2, 5, 64, device=cuda)
+    u, s0 = torch.zeros(2, 64, device=cuda), torch.zeros(1, 2, 64, 64,
+                                                         device=cuda)
+    with pytest.raises(TypeError, match="fp32"):
+        wops.rwkv6(x.bfloat16(), x, x, x, u, s0)
+    with pytest.raises(ValueError, match="head sizes"):
+        big = torch.zeros(1, 2, 5, 80, device=cuda)
+        wops.rwkv6(big, big, big, big, torch.zeros(2, 80, device=cuda),
+                   torch.zeros(1, 2, 80, 80, device=cuda))
+
+
+def _family_engine(cuda, arch):
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import InferenceEngine
+    model = Model(get_config(arch, smoke=True), use_kernels=True)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0), cuda)
+    return InferenceEngine(model, params, max_slots=4, max_len=64, seed=1)
+
+
+@pytest.mark.parametrize("arch,kernel", [("kimi-k2-1t-a32b", "moe_gemm"),
+                                         ("rwkv6-1.6b", "rwkv6")])
+def test_family_decode_step_graph_is_bit_equal_to_the_eager_step(cuda, arch,
+                                                                 kernel):
+    """The decode step of a Kimi-K2 or RWKV6 smoke engine, recorded into a
+    CUDA graph, gives the eager step's logits and caches bit for bit (the
+    RWKV state is put back between the two, since each step advances it)."""
+    from repro_torch.serving import Request
+    from repro_torch.serving.engine import _leaves
+    engine = _family_engine(cuda, arch)
+    for i in range(3):
+        engine.submit(Request(rid=i, prompt=[5 + i, 9, 2, 7], max_tokens=30))
+    for _ in range(5):
+        engine.step()
+    assert engine.decode_graph.recorded_launches[kernel] > 0
+    before = [t.clone() for t in _leaves(engine.caches)]
+    graph_logits = engine._step([engine.last_token, engine.pos]).clone()
+    after_graph = [t.clone() for t in _leaves(engine.caches)]
+    for leaf, kept in zip(_leaves(engine.caches), before):
+        leaf.copy_(kept)
+    eager = engine._eager_decode()
+    assert torch.equal(graph_logits, eager)
+    for a, b in zip(after_graph, _leaves(engine.caches)):
+        assert torch.equal(a, b)
