@@ -41,7 +41,17 @@ Phases (any failure raises and the script exits non-zero):
      on identical inputs; whole-model logits over the positions whose
      expert choice agrees in bf16, over all of them in fp32), paged against
      dense streams, decode ticks graph vs eager;
-  9. RWKV6-1.6B at full width and depth (24 layers): the op graph (seq 512,
+  9. DeepSeek-V3 at full width, 4 of 61 layers (3 dense-prefix + 1 MoE,
+     MLA attention, the MTP head built): the MLA form of paged decode vs
+     plain at the serving shapes (8 slots, 128 heads, Dk 576, Dv 512, 16-
+     and 128-position pages, full and ragged lengths, bf16 and fp32) and
+     on rows with no attended position; the routed op graph through
+     Session.compile (branch_gemm and grouped_gemm); the serve trace dense
+     and paged (bf16, then fp32 at 64 of the 256 experts) with the MLA
+     kernel on the paged engine; the kernel route vs the plain route (the
+     MLA and MoE layers on identical inputs, whole-model logits, fp32
+     teacher-forced decode); decode ticks graph vs eager;
+ 10. RWKV6-1.6B at full width and depth (24 layers): the op graph (seq 512,
      the wkv_scan nodes launch rwkv6) through Session.compile, held against
      eager per-op execution; the serve trace on the dense-slab engine in
      bf16 and fp32 with phase 6's gates; a decode tick graph vs eager.
@@ -102,7 +112,8 @@ FP32_PEAK = {"h100-sxm": 67e12, "h100-pcie": 51e12, "h100-nvl": 60e12}
 
 # every kernel of the port, in the order of the kernels line
 KERNELS = ("branch_gemm", "grouped_gemm", "rmsnorm", "flash_attention",
-           "decode_attention", "paged_decode", "moe_gemm", "rwkv6")
+           "decode_attention", "paged_decode", "paged_decode_mla", "moe_gemm",
+           "rwkv6")
 
 
 def _json_row(result: dict) -> dict:
@@ -853,7 +864,8 @@ def serve_both(make_engine, specs: list[dict], dtype,
     return runs
 
 
-def compare_streams(runs: dict, exact: bool, coupled: bool = False) -> None:
+def compare_streams(runs: dict, exact: bool, coupled: bool = False,
+                    gated: bool = True) -> None:
     """Paged vs dense: equal terminal states; equal streams for every request
     that was never preempted, and up to its first preemption for one that
     was.  A resumed request continues from retained pages (paged) or from a
@@ -862,10 +874,12 @@ def compare_streams(runs: dict, exact: bool, coupled: bool = False) -> None:
     (MoE: a decode token's expert capacity depends on its batchmates, so a
     resumed request that differs can move any batchmate) every stream must
     agree up to the step in which a preempted request first resumed, and
-    the streams that differ after it are counted."""
+    the streams that differ after it are counted.  Without ``gated`` (the
+    two engines run different attention arithmetic) the comparison is
+    reported and nothing is held."""
     dense, dense_pre, dense_cut = runs["dense"]
     paged, paged_pre, paged_cut = runs["paged"]
-    if dense_pre != paged_pre or dense_cut != paged_cut:
+    if gated and (dense_pre != paged_pre or dense_cut != paged_cut):
         raise AssertionError(f"preemptions differ: {dense_pre} {paged_pre}")
     if {r: s for r, (s, _) in dense.items()} != \
             {r: s for r, (s, _) in paged.items()}:
@@ -882,18 +896,19 @@ def compare_streams(runs: dict, exact: bool, coupled: bool = False) -> None:
             held = None if dense_cut is None else dense_cut[rid]
         else:
             held = dense_pre.get(rid)
-        if held is None or first < held:
+        if gated and (held is None or first < held):
             raise AssertionError(
                 f"rid {rid}: paged and dense streams differ at token {first} "
                 f"(held equal up to {held})")
     n_tok = sum(len(o) for _, o in dense.values())
     log(f"[serve] paged vs dense ({'exact' if exact else 'up to a resume'}"
-        f"{', coupled batch' if coupled else ''}): terminal states equal; "
+        f"{', coupled batch' if coupled else ''}"
+        f"{'' if gated else ', reported only'}): terminal states equal; "
         f"{len(dense) - len(diverged)}/{len(dense)} streams equal ({n_tok} "
         f"tokens); preempted requests (rid: tokens before the first "
         f"preemption) {dense_pre}; streams that diverge after a resume (rid, "
         f"first differing token, length, preempted at) {diverged}")
-    if exact and diverged:
+    if gated and exact and diverged:
         raise AssertionError("paged and dense token streams differ")
 
 
@@ -921,8 +936,8 @@ def _check_agreement(what: str, got, want, failures: list,
                         f"route (rel_l2 {rel:.3e}, top1 {agree:.4f})")
 
 
-def _kernel_ops(*names: str) -> dict:
-    """The wrapper modules (each with its ``launches`` count) by kernel."""
+def _counters(*names: str) -> dict:
+    """(wrapper module, name of its launch count) by kernel."""
     from repro_torch.kernels.branch_gemm import ops as bops
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.flash_attention import ops as fops
@@ -931,19 +946,25 @@ def _kernel_ops(*names: str) -> dict:
     from repro_torch.kernels.paged_decode import ops as pops
     from repro_torch.kernels.rmsnorm import ops as rops
     from repro_torch.kernels.rwkv6 import ops as wops
-    ops = {"branch_gemm": bops, "grouped_gemm": gops, "rmsnorm": rops,
-           "flash_attention": fops, "decode_attention": dops,
-           "paged_decode": pops, "moe_gemm": mops, "rwkv6": wops}
-    return {name: ops[name] for name in names}
+    counters = {"branch_gemm": (bops, "launches"),
+                "grouped_gemm": (gops, "launches"),
+                "rmsnorm": (rops, "launches"),
+                "flash_attention": (fops, "launches"),
+                "decode_attention": (dops, "launches"),
+                "paged_decode": (pops, "launches"),
+                "paged_decode_mla": (pops, "mla_launches"),
+                "moe_gemm": (mops, "launches"), "rwkv6": (wops, "launches")}
+    return {name: counters[name] for name in names}
 
 
 def reset_launches() -> None:
-    for m in _kernel_ops(*KERNELS).values():
-        m.launches = 0
+    for module, attr in _counters(*KERNELS).values():
+        setattr(module, attr, 0)
 
 
 def read_launches(*names: str) -> dict:
-    return {name: m.launches for name, m in _kernel_ops(*names).items()}
+    return {name: getattr(module, attr)
+            for name, (module, attr) in _counters(*names).items()}
 
 
 def phase_serve(seed: int) -> dict:
@@ -1124,11 +1145,13 @@ def rounding_point(cfg, params, prompt: list[int]) -> None:
 
 def teacher_forced(cfg, model, plain, params, specs, seed: int,
                    failures: list, gate_top1: bool, paged: bool = True,
-                   steps: int = SERVE_TOKENS) -> None:
+                   steps: int = SERVE_TOKENS,
+                   paged_is_dense: bool = True) -> None:
     """``steps`` decode steps at 8 slots on the same forced tokens: the
     kernel route (dense slab and, with ``paged``, paged) against the plain
-    route (dense slab); paged must equal dense on the kernel route, step
-    for step."""
+    route (dense slab); with ``paged_is_dense`` (one decode routine for
+    both, as GQA's) paged must equal dense on the kernel route, step for
+    step."""
     from repro_torch.models.transformer import (init_decode_caches,
                                                 init_paged_decode_caches)
     from repro_torch.serving.engine import _leaves
@@ -1169,7 +1192,7 @@ def teacher_forced(cfg, model, plain, params, specs, seed: int,
         if paged:
             got_p.append(model.paged_decode(params, forced[t], pages, bt,
                                             pos)[0])
-            if not torch.equal(got_p[-1], got_d[-1]):
+            if paged_is_dense and not torch.equal(got_p[-1], got_d[-1]):
                 raise AssertionError(f"step {t}: paged decode logits differ "
                                      "from dense on the kernel route")
     what = (f"{cfg.name} {_dt(cfg.dtype)} {steps} teacher-forced decode "
@@ -1179,8 +1202,9 @@ def teacher_forced(cfg, model, plain, params, specs, seed: int,
     if paged:
         _check_agreement(f"{what}, paged", torch.stack(got_p),
                          torch.stack(want), failures, gate_top1)
-        log("[serve] teacher-forced paged logits bit-equal to dense at every "
-            "step")
+        if paged_is_dense:
+            log("[serve] teacher-forced paged logits bit-equal to dense at "
+                "every step")
 
 
 # =============================================================================
@@ -1427,7 +1451,7 @@ def _agreeing_positions(a: RouteRecorder, b: RouteRecorder):
 
 
 def kimi_forward_gate(what: str, cfg, params, prompts, failures: list,
-                      gate_top1: bool) -> None:
+                      gate_top1: bool, tag: str = "kimi") -> None:
     """Kernel route vs plain route, whole model, on each prompt.  In bf16
     the logits gate covers the positions whose expert choice (and capacity
     outcome) agrees in both routes — a bf16 ulp upstream of the router can
@@ -1447,7 +1471,7 @@ def kimi_forward_gate(what: str, cfg, params, prompts, failures: list,
         routed, kept = _agreeing_positions(kr, pr)
         flips = 1.0 - float(routed.float().mean())
         moved = float((routed & ~kept).float().mean())
-        log(f"[kimi] {what}, {tokens.shape[1]} positions: expert choice "
+        log(f"[{tag}] {what}, {tokens.shape[1]} positions: expert choice "
             f"flips at {flips:.4f} of them (<= 0.10); capacity outcome moved "
             f"by another token's flip at {moved:.4f}")
         if flips > 0.10:
@@ -1464,7 +1488,8 @@ def kimi_forward_gate(what: str, cfg, params, prompts, failures: list,
         del got, want
 
 
-def kimi_rounding_point(cfg, params, prompt: list[int]) -> None:
+def kimi_rounding_point(cfg, params, prompt: list[int],
+                        tag: str = "kimi") -> None:
     """Diagnostic (reported, not gated): the expert flips between the plain
     route and the plain route with only its softmax probabilities kept in
     fp32 — what one moved rounding point does to the routing."""
@@ -1481,13 +1506,13 @@ def kimi_rounding_point(cfg, params, prompt: list[int]) -> None:
     finally:
         attention._sdpa = plain_sdpa
     routed, kept = _agreeing_positions(a, b)
-    log(f"[kimi] diagnostic: plain route with fp32 softmax probabilities vs "
+    log(f"[{tag}] diagnostic: plain route with fp32 softmax probabilities vs "
         f"the plain route, {tokens.shape[1]} positions: expert choice flips "
         f"at {1.0 - float(routed.float().mean()):.4f}, capacity outcome "
         f"moved at {float((routed & ~kept).float().mean()):.4f}")
 
 
-def kimi_graph(cfg, params, seed: int) -> dict:
+def moe_graph(cfg, params, seed: int, tag: str) -> dict:
     """The routed-MoE op graph (16 expert branches) through Session.compile
     into one CUDA graph, held against eager per-op execution."""
     from repro_torch.core import Session, SessionConfig, SimConfig
@@ -1497,7 +1522,7 @@ def kimi_graph(cfg, params, seed: int) -> dict:
     t0 = time.perf_counter()
     graph = build_lm_opgraph(cfg, batch=BATCH, seq=SEQ, params=params)
     caps = [n.out_shape[0] for n in graph if ".dispatch" in n.name]
-    log(f"[kimi] op graph: {len(graph)} ops, {len(caps)} routed expert "
+    log(f"[{tag}] op graph: {len(graph)} ops, {len(caps)} routed expert "
         f"branches with capacities {caps}, export "
         f"{time.perf_counter() - t0:.2f} s")
 
@@ -1525,7 +1550,7 @@ def kimi_graph(cfg, params, seed: int) -> dict:
     launches = read_launches("branch_gemm", "grouped_gemm")
     # -- end of the path's run ---------------------------------------------------
     recorded = exe.replay.recorded_launches
-    log(f"[kimi] compile {compile_s:.2f} s; program_stats {json.dumps(stats)}"
+    log(f"[{tag}] compile {compile_s:.2f} s; program_stats {json.dumps(stats)}"
         f"; launches in the graph (one forward) {recorded}; wrapper launches "
         f"over the run {launches}")
     if recorded["grouped_gemm"] != int(stats["n_grouped_gemm"]) or \
@@ -1540,10 +1565,10 @@ def kimi_graph(cfg, params, seed: int) -> dict:
                 not bool(torch.isfinite(got).all()):
             raise AssertionError(f"bad logits {tuple(got.shape)}")
         rel, agree = _agreement(got, want)
-        log(f"[kimi] request {i}: logits rel_l2 {rel:.3e} (<= "
+        log(f"[{tag}] request {i}: logits rel_l2 {rel:.3e} (<= "
             f"{LOGITS_REL_L2}) top1 agreement {agree:.4f} (>= {TOP1_AGREE})")
         if rel > LOGITS_REL_L2 or agree < TOP1_AGREE:
-            raise AssertionError(f"kimi request {i} disagrees with eager "
+            raise AssertionError(f"{tag} request {i} disagrees with eager "
                                  "per-op execution")
         del ref, got, want
     inputs = outputs[0][0]
@@ -1551,15 +1576,16 @@ def kimi_graph(cfg, params, seed: int) -> dict:
     seq_ms = cuda_ms(lambda: run_sequential_uncompiled(graph, inputs,
                                                        exe.output_ids),
                      iters=3, warmup=1)
-    log(f"[kimi] per-forward ms: sequential eager {seq_ms:.3f}, CUDA-graph "
+    log(f"[{tag}] per-forward ms: sequential eager {seq_ms:.3f}, CUDA-graph "
         f"replay {replay_ms:.3f} (median of 10)")
-    profile_replay(exe.replay.graph.replay, tag="kimi-profile")
+    profile_replay(exe.replay.graph.replay, tag=f"{tag}-profile")
     del outputs, model, exe, sess, graph
     free_card()
     return {"launches": launches, "recorded": recorded}
 
 
-def _moe_layer_gate(cfg, params, gen, failures: list) -> None:
+def _moe_layer_gate(cfg, params, gen, failures: list,
+                    tag: str = "kimi") -> None:
     """The MoE layer, kernel route vs plain route on identical inputs (so
     routing cannot differ): a 512-token prefill and a decode tick."""
     from repro_torch.models.ffn import moe_ffn
@@ -1570,31 +1596,31 @@ def _moe_layer_gate(cfg, params, gen, failures: list) -> None:
         got, _ = moe_ffn(p, x, cfg, None, True)
         want, _ = moe_ffn(p, x, cfg, None, False)
         rel, _ = _agreement(got, want)
-        log(f"[kimi] {_dt(cfg.dtype)} MoE layer {list(shape)}, kernel route "
+        log(f"[{tag}] {_dt(cfg.dtype)} MoE layer {list(shape)}, kernel route "
             f"vs plain route on the same input: rel_l2 {rel:.3e} (<= "
             f"{LOGITS_REL_L2})")
         if rel > LOGITS_REL_L2:
             failures.append(f"MoE layer {list(shape)}: rel_l2 {rel:.3e}")
 
 
-def _slice_experts(tree, n: int, dtype):
-    """The first ``n`` experts of an MoE param tree, cast to ``dtype``."""
-    if isinstance(tree, list):
-        return [_slice_experts(v, n, dtype) for v in tree]
-    out = {}
-    for k, v in tree.items():
+def _slice_experts_(tree, n: int, dtype) -> None:
+    """In place: keep the first ``n`` experts of every MoE subtree (the
+    expert axis is -3 of the stacked ``[L, E, ..]`` and of an unstacked MTP
+    block's ``[E, ..]`` weights) and cast every leaf to ``dtype`` (routers
+    stay fp32).  Each old leaf is dropped as soon as its replacement exists,
+    so the card never holds both trees."""
+    for k in (range(len(tree)) if isinstance(tree, list) else list(tree)):
+        v = tree[k]
         if k == "experts":
-            out[k] = {kk: vv[:, :n].to(dtype).contiguous()
-                      for kk, vv in v.items()}
+            for kk in list(v):
+                v[kk] = v[kk].narrow(-3, 0, n).to(dtype).contiguous()
         elif k == "router":
-            out[k] = {"w": v["w"][..., :n].to(torch.float32).contiguous(),
-                      "bias": v["bias"][..., :n].to(torch.float32)
-                      .contiguous()}
+            for kk in list(v):
+                v[kk] = v[kk][..., :n].to(torch.float32).contiguous()
         elif isinstance(v, (dict, list)):
-            out[k] = _slice_experts(v, n, dtype)
+            _slice_experts_(v, n, dtype)
         else:
-            out[k] = v.to(dtype)
-    return out
+            tree[k] = v.to(dtype)
 
 
 def _decode_tick(label: str, eng, specs: list[dict], tag: str) -> dict:
@@ -1660,7 +1686,7 @@ def phase_kimi(seed: int) -> dict:
         f"{cfg.moe.n_shared} vocab={cfg.vocab_size} {_dt(cfg.dtype)}: "
         f"{n_params / 1e9:.2f} B params, init {time.perf_counter() - t0:.2f}"
         f" s, {torch.cuda.memory_allocated() / 1e9:.1f} GB on the card")
-    graph = kimi_graph(cfg, params, seed)
+    graph = moe_graph(cfg, params, seed, "kimi")
 
     failures: list[str] = []
     specs = serve_specs(cfg.vocab_size, seed)
@@ -1714,8 +1740,8 @@ def phase_kimi(seed: int) -> dict:
     cfg32 = dataclasses.replace(
         cfg, dtype=torch.float32,
         moe=dataclasses.replace(cfg.moe, n_experts=64))
-    params32 = _slice_experts(params, 64, torch.float32)
-    del params
+    _slice_experts_(params, 64, torch.float32)
+    params32, params = params, None
     free_card()
     log(f"[kimi] fp32 at {cfg32.moe.n_experts} experts: "
         f"{torch.cuda.memory_allocated() / 1e9:.1f} GB on the card")
@@ -1752,7 +1778,305 @@ def _param_leaves(tree) -> list:
 
 
 # =============================================================================
-# 9. RWKV6-1.6B: op graph and serving at full width and depth
+# 9. DeepSeek-V3: the MLA kernel, the op graph and serving at full width
+# =============================================================================
+
+DS_LAYERS = 4           # the 3 dense-prefix layers and the first MoE layer
+
+
+def _mla_operands(gen, dtype, lengths, ps: int, cfg) -> tuple:
+    """The MLA form's operands at a decode tick of 8 slots: random queries,
+    latent pages and ``wk_b`` at DeepSeek-V3's widths, a shuffled block
+    table over ``MAX_LEN`` positions a slot (page 0 is the null page)."""
+    m = cfg.mla
+    maxp = MAX_LEN // ps
+    n_pages = 1 + SLOTS * maxp
+
+    def rnd(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale
+                ).to(dtype)
+    perm = torch.randperm(n_pages - 1, generator=torch.Generator()
+                          .manual_seed(ps)) + 1
+    return (rnd((SLOTS, cfg.n_heads, m.qk_nope_head_dim)),
+            rnd((SLOTS, cfg.n_heads, m.qk_rope_head_dim)),
+            rnd((n_pages, ps, m.kv_lora_rank)),
+            rnd((n_pages, ps, m.qk_rope_head_dim)),
+            rnd((m.kv_lora_rank, cfg.n_heads, m.qk_nope_head_dim),
+                m.qk_nope_head_dim ** -0.5),
+            perm.reshape(SLOTS, maxp).to(torch.int32).cuda(),
+            lengths.to(device="cuda", dtype=torch.int32),
+            (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5)
+
+
+def mla_kernel_checks(env: dict, gen: torch.Generator) -> dict:
+    """The MLA form of paged decode against its plain version at the serving
+    shapes (8 slots of 1024 positions, 128 heads, Dk 576, Dv 512; 16- and
+    128-position pages; every position attended and ragged lengths; bf16
+    and fp32), and rows with no attended position.  Times are of the
+    attention after the absorption, which both sides share."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_decode import ops as pops
+    from repro_torch.kernels.paged_decode.kernel import paged_mla_decode_cuda
+    from repro_torch.kernels.paged_decode.ref import (
+        absorb_query, paged_decode_attention_ref,
+        paged_mla_decode_attention_ref)
+    F = torch.nn.functional
+    hw = env["hw"]
+    cfg = get_config("deepseek-v3-671b")
+    h, rank, rope = cfg.n_heads, cfg.mla.kv_lora_rank, cfg.mla.qk_rope_head_dim
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device="cuda")
+    results = {}
+    ragged = torch.tensor(np.random.default_rng(4321).integers(
+        17, MAX_LEN + 1, SLOTS))
+    full = torch.full((SLOTS,), MAX_LEN)
+    for ps in (PAGE, 128):
+        for tag, lengths in (("full", full), ("ragged", ragged)):
+            for dtype in (torch.bfloat16, torch.float32):
+                args = _mla_operands(gen, dtype, lengths, ps, cfg)
+                q_nope, q_pe, ckv, kpe, wk_b, bt, lens, scale = args
+                got = pops.paged_mla_decode_attention(*args)
+                want = paged_mla_decode_attention_ref(*args)
+                torch.cuda.synchronize()
+                what = f"ps={ps} {tag} lengths"
+                err = check_close(got, want, f"paged_decode_mla {what}")
+                if dtype == torch.float32 and (ps, tag) != (PAGE, "full"):
+                    log(f"[kernel] paged_decode_mla {what} {_dt(dtype)}: "
+                        f"max_abs_err {err:.3g}")
+                    continue
+                q_lat = absorb_query(q_nope, wk_b)
+                out = torch.empty_like(got)
+                q_cat = torch.cat([q_lat, q_pe], dim=-1)
+
+                def kernel(q_lat=q_lat, q_pe=q_pe, ckv=ckv, kpe=kpe, bt=bt,
+                           lens=lens, out=out, scale=scale):
+                    paged_mla_decode_cuda(q_lat, q_pe, ckv, kpe, bt, lens,
+                                          out, scale)
+
+                def plain(q_cat=q_cat, ckv=ckv, kpe=kpe, bt=bt, lens=lens,
+                          scale=scale):
+                    k_cat = torch.cat([ckv, kpe], dim=-1)[:, :, None, :]
+                    return paged_decode_attention_ref(
+                        q_cat, k_cat, ckv[:, :, None, :], bt, lens, None,
+                        scale)
+
+                # the library yardstick: SDPA on the slab gathered beforehand
+                # (one latent KV head broadcast under the 128 query heads)
+                idx = bt.long()
+                k_slab = torch.cat([ckv, kpe], -1)[idx].reshape(
+                    SLOTS, 1, MAX_LEN, rank + rope)
+                v_slab = ckv[idx].reshape(SLOTS, 1, MAX_LEN, rank)
+                mask = (torch.arange(MAX_LEN, device="cuda")[None]
+                        < lens[:, None])[:, None, None, :]
+
+                def sdpa(q=q_cat[:, :, None], k=k_slab, v=v_slab, mask=mask,
+                         scale=scale):
+                    return F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=mask, scale=scale, enable_gqa=True)
+                try:
+                    lib_err = float((sdpa()[:, :, 0].float() - want.float())
+                                    .abs().max())
+                except RuntimeError as exc:
+                    log(f"[kernel] SDPA refuses Dk {rank + rope} != Dv "
+                        f"{rank}: {exc}")
+                    sdpa = None
+                else:
+                    log(f"[kernel] SDPA on the gathered slab max_abs_err vs "
+                        f"plain {lib_err:.3g}")
+                n_valid = int(lens.sum())
+                pages_read = int(((lens + ps - 1) // ps).sum())
+                size = got.element_size()
+                peak = (hw.peak_flops if dtype == torch.bfloat16
+                        else FP32_PEAK[hw.name])
+                # QK^T over rank + rope and P V over rank per attended
+                # position and head; each attended page row read once, the
+                # queries read and the output written once, plus the table
+                # entries and lengths
+                bound, by = gemm_bound_ms(
+                    2.0 * h * (2 * rank + rope) * n_valid,
+                    size * (n_valid * (rank + rope) + SLOTS * h * (2 * rank
+                                                                   + rope))
+                    + 4 * (pages_read + SLOTS), peak, hw.hbm_bw)
+                kernel_ms = cuda_ms(kernel, flush=flush)
+                plain_ms = cuda_ms(plain, flush=flush)
+                library_ms = (cuda_ms(sdpa, flush=flush)
+                              if sdpa is not None else None)
+                lib = "none" if library_ms is None else f"{library_ms:.4f}"
+                log(f"[kernel] paged_decode_mla {what} B={SLOTS} H={h} "
+                    f"Dk={rank + rope} Dv={rank} {_dt(dtype)} ({n_valid} "
+                    f"positions attended): max_abs_err {err:.3g} kernel_ms "
+                    f"{kernel_ms:.4f} plain_ms {plain_ms:.4f} "
+                    f"library_ms(SDPA on the gathered slab) {lib} bound_us "
+                    f"{bound * 1e3:.3f} ({by})")
+                results[("paged_decode_mla", f"ps{ps} {tag}", dtype)] = dict(
+                    max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
+                    bound_ms=bound, bound_by=by, library_ms=library_ms)
+                del args, got, want, k_slab, v_slab
+    # rows with no attended position (row 0's trailing entries on the null
+    # page): V averaged over every table entry, as the plain version gives
+    for dtype in (torch.bfloat16, torch.float32):
+        args = list(_mla_operands(gen, dtype, torch.tensor([0, 300] * 4),
+                                  PAGE, cfg))
+        args[5][0, 20:] = 0
+        got = pops.paged_mla_decode_attention(*args)
+        want = paged_mla_decode_attention_ref(*args)
+        torch.cuda.synchronize()
+        err = check_close(got, want, "paged_decode_mla all-masked rows")
+        mean = args[2][args[5][0].long()].float().reshape(-1, rank).mean(0)
+        log(f"[kernel] paged_decode_mla all-masked rows {_dt(dtype)}: "
+            f"max_abs_err vs plain {err:.3g} (vs the mean of ckv over the "
+            f"table: {float((got[0].float() - mean).abs().max()):.3g})")
+    del flush
+    return results
+
+
+def _mla_layer_gate(cfg, params, gen, failures: list) -> None:
+    """The first layer's MLA paged decode, kernel route vs plain route on
+    identical inputs (8 slots at ragged positions, 16-position pages of
+    random latents): the attention routine is all that differs."""
+    from repro_torch.models.attention import mla_paged_decode
+    from repro_torch.models.transformer import layer_params
+    m = cfg.mla
+    maxp = MAX_LEN // PAGE
+    n_pages = 1 + SLOTS * maxp
+
+    def rnd(shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(cfg.dtype)
+    p = layer_params(params["stacks"][0]["attn"], 0)
+    x = rnd((SLOTS, 1, cfg.d_model))
+    pages = (rnd((n_pages, PAGE, m.kv_lora_rank)),
+             rnd((n_pages, PAGE, m.qk_rope_head_dim)))
+    bt = (torch.randperm(n_pages - 1, generator=torch.Generator()
+                         .manual_seed(9)) + 1).reshape(SLOTS, maxp)
+    bt = bt.to(torch.int32).cuda()
+    pos = torch.tensor(np.random.default_rng(9).integers(17, MAX_LEN - 1,
+                                                         SLOTS),
+                       dtype=torch.int32, device="cuda")
+    got, _ = mla_paged_decode(p, x, tuple(t.clone() for t in pages), bt, pos,
+                              cfg, True)
+    want, _ = mla_paged_decode(p, x, tuple(t.clone() for t in pages), bt, pos,
+                               cfg, False)
+    rel, _ = _agreement(got, want)
+    log(f"[deepseek] {_dt(cfg.dtype)} MLA layer paged decode at {SLOTS} "
+        f"slots, kernel route vs plain route on the same input: rel_l2 "
+        f"{rel:.3e} (<= {LOGITS_REL_L2})")
+    if rel > LOGITS_REL_L2:
+        failures.append(f"MLA layer: rel_l2 {rel:.3e}")
+
+
+def phase_deepseek(env: dict, gen: torch.Generator, seed: int) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import AdmissionConfig, InferenceEngine
+
+    mla = mla_kernel_checks(env, gen)
+    # 4 of 61 layers: DeepSeek-V3's layout up to its first MoE layer (the
+    # dense prefix is keyed on the config's name, which stays its own)
+    cfg = dataclasses.replace(get_config("deepseek-v3-671b"),
+                              n_layers=DS_LAYERS)
+    t0 = time.perf_counter()
+    params = Model(cfg).init(torch.Generator(device="cuda").manual_seed(seed),
+                             "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _param_leaves(params))
+    n_mtp = sum(t.numel() for t in _param_leaves(params["mtp"]))
+    m, e = cfg.mla, cfg.moe
+    log(f"[deepseek] {cfg.name}: {cfg.n_layers} of 61 layers (3 dense "
+        f"prefix + 1 MoE) d={cfg.d_model} heads={cfg.n_heads} MLA q_rank="
+        f"{m.q_lora_rank} kv_rank={m.kv_lora_rank} nope={m.qk_nope_head_dim}"
+        f" rope={m.qk_rope_head_dim} v_head={m.v_head_dim} d_ff={cfg.d_ff} "
+        f"experts={e.n_experts} top{e.top_k} d_expert={e.d_expert} shared="
+        f"{e.n_shared} vocab={cfg.vocab_size} {_dt(cfg.dtype)}, MTP head "
+        f"built ({n_mtp / 1e9:.2f} B params, not run by serving): "
+        f"{n_params / 1e9:.2f} B params, init {time.perf_counter() - t0:.2f}"
+        f" s, {torch.cuda.memory_allocated() / 1e9:.1f} GB on the card")
+    graph = moe_graph(cfg, params, seed, "deepseek")
+
+    failures: list[str] = []
+    specs = serve_specs(cfg.vocab_size, seed)
+    admission = AdmissionConfig(policy="edf", preemption=True,
+                                expire_running=False)
+
+    def engine(c, p):
+        def make(paged: bool):
+            return InferenceEngine(
+                Model(c, use_kernels=True), p, max_slots=SLOTS,
+                max_len=MAX_LEN, seed=seed, admission=admission,
+                paged_kv=paged, page_size=PAGE,
+                num_pages=1 + 2 * SLOTS * (MAX_LEN // PAGE) if paged else None)
+        return make
+
+    # -- the serving path's run: launch counts from 0 ---------------------------
+    reset_launches()
+    runs = serve_both(engine(cfg, params), specs, cfg.dtype)
+    launches = read_launches("rmsnorm", "paged_decode_mla", "moe_gemm")
+    # -- end of the serving path's run ------------------------------------------
+    log(f"[deepseek] wrapper launches over both serving runs {launches}; "
+        f"the GQA attention kernels (MLA prefill and dense decode are plain, "
+        f"as in the JAX package) "
+        f"{read_launches('flash_attention', 'decode_attention', 'paged_decode')}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"the DeepSeek-V3 serve path launched no "
+                                 f"{name}")
+    # the dense engine's latent attention is plain and the paged one's is
+    # the kernel: in bf16 the two round differently (ROADMAP C12), so the
+    # streams are reported here and held in fp32 below
+    compare_streams(runs, exact=False, coupled=True, gated=False)
+    del runs
+
+    by_len = sorted(specs, key=lambda s: len(s["prompt"]))
+    prompts = [by_len[0], by_len[len(by_len) // 2], by_len[-1]]
+    _mla_layer_gate(cfg, params, gen, failures)
+    _moe_layer_gate(cfg, params, gen, failures, tag="deepseek")
+    kimi_forward_gate(f"{cfg.name} bf16", cfg, params, prompts, failures,
+                      gate_top1=False, tag="deepseek")
+    kimi_rounding_point(cfg, params, prompts[1]["prompt"], tag="deepseek")
+    ticks = {}
+    for paged in (False, True):
+        label = "paged" if paged else "dense"
+        ticks[label] = _decode_tick(label, engine(cfg, params)(paged), specs,
+                                    "deepseek")
+        free_card()
+    for s in (by_len[0], by_len[-1]):
+        tokens = torch.tensor([s["prompt"]], device="cuda")
+        model = Model(cfg, use_kernels=True)
+        ms = cuda_ms(lambda: model.prefill(params, {"tokens": tokens},
+                                           cache_len=MAX_LEN), iters=5)
+        log(f"[deepseek] prefill {tokens.shape[1]} tokens (batch 1, eager, "
+            f"kernel route, median of 5): {ms:.3f} ms")
+
+    # fp32 at 64 of the 256 experts (all of them in fp32 are ~107 GB), every
+    # width unchanged, still the sort dispatch (> 32 experts); converted in
+    # place, since the bf16 model and its fp32 copy do not fit together
+    cfg32 = dataclasses.replace(
+        cfg, dtype=torch.float32,
+        moe=dataclasses.replace(cfg.moe, n_experts=64))
+    _slice_experts_(params, 64, torch.float32)
+    params32, params = params, None
+    free_card()
+    log(f"[deepseek] fp32 at {cfg32.moe.n_experts} experts: "
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB on the card")
+    runs = serve_both(engine(cfg32, params32), specs, torch.float32)
+    compare_streams(runs, exact=False, coupled=True)
+    del runs
+    _mla_layer_gate(cfg32, params32, gen, failures)
+    _moe_layer_gate(cfg32, params32, gen, failures, tag="deepseek")
+    kimi_forward_gate(f"{cfg.name} fp32 E=64", cfg32, params32, prompts,
+                      failures, gate_top1=True, tag="deepseek")
+    teacher_forced(cfg32, Model(cfg32, use_kernels=True),
+                   Model(cfg32, use_kernels=False), params32, specs[:SLOTS],
+                   seed, failures, gate_top1=True, steps=8,
+                   paged_is_dense=False)
+    del params32
+    free_card()
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return {"launches": launches, "graph": graph, "ticks": ticks, "mla": mla}
+
+
+# =============================================================================
+# 10. RWKV6-1.6B: op graph and serving at full width and depth
 # =============================================================================
 
 def rwkv_graph(cfg, params, seed: int) -> dict:
@@ -1973,12 +2297,18 @@ def main() -> int:
     phase_masked_row(gen)
     kimi = phase_kimi(args.seed)
     free_card()
+    deepseek = phase_deepseek(env, gen, args.seed)
+    free_card()
     rwkv = phase_rwkv(args.seed)
 
     for path, launches in (("main", main_path["launches"]["branch_gemm"]),
                            ("ragged", ragged["launches"]["grouped_gemm"]),
                            ("kimi graph",
                             kimi["graph"]["launches"]["grouped_gemm"]),
+                           ("deepseek graph (branch_gemm)",
+                            deepseek["graph"]["launches"]["branch_gemm"]),
+                           ("deepseek graph (grouped_gemm)",
+                            deepseek["graph"]["launches"]["grouped_gemm"]),
                            ("rwkv graph", rwkv["graph"]["launches"]["rwkv6"])):
         if launches <= 0:
             raise AssertionError(f"the {path} path launched no kernel")
@@ -2014,6 +2344,11 @@ def main() -> int:
              replaces="src/repro/kernels/paged_decode/kernel.py:70",
              launches=serve["launches"]["paged_decode"],
              **attention[("paged_decode", "decode", bf16)]),
+        dict(name="paged_decode_mla", route="cuda",
+             source="src/repro_torch/csrc/mla_decode.cu",
+             replaces="src/repro/kernels/paged_decode/ops.py:59",
+             launches=deepseek["launches"]["paged_decode_mla"],
+             **deepseek["mla"][("paged_decode_mla", f"ps{PAGE} full", bf16)]),
         dict(name="moe_gemm", route="cuda",
              source="src/repro_torch/csrc/moe.cu",
              replaces="src/repro/kernels/moe_gemm/kernel.py:51",

@@ -26,12 +26,13 @@ from .base import (
 _ARCH_MODULES = {
     "qwen2-0.5b": "qwen2_0_5b",
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+    "deepseek-v3-671b": "deepseek_v3_671b",
     "rwkv6-1.6b": "rwkv6_1_6b",
 }
 
 # registered in the JAX package, not ported yet (ROADMAP queue A6)
 _NOT_PORTED = (
-    "deepseek-v3-671b", "whisper-medium", "glm4-9b", "llama3.2-1b",
+    "whisper-medium", "glm4-9b", "llama3.2-1b",
     "minicpm-2b", "hymba-1.5b", "llava-next-mistral-7b",
 )
 

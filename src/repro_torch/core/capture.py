@@ -95,12 +95,14 @@ class Step:
 
 def _launch_counts() -> dict[str, int]:
     """Every kernel wrapper's launch count, by kernel."""
-    return {name: ops.launches for name, ops in (
+    counts = {name: ops.launches for name, ops in (
         ("branch_gemm", branch_gemm_ops), ("grouped_gemm", grouped_gemm_ops),
         ("rmsnorm", rmsnorm_ops), ("flash_attention", flash_attention_ops),
         ("decode_attention", decode_attention_ops),
         ("paged_decode", paged_decode_ops), ("moe_gemm", moe_gemm_ops),
         ("rwkv6", rwkv6_ops))}
+    counts["paged_decode_mla"] = paged_decode_ops.mla_launches
+    return counts
 
 
 class CudaGraphReplay:

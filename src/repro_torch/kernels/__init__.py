@@ -17,7 +17,9 @@ Kernels:
     decode_attention single-token decode against the dense KV slab
     paged_decode   single-token decode through a block table into KV pages
                    (the last three in ``csrc/attention.cu``; the two decode
-                   kernels share one device routine)
+                   kernels share one device routine), and its MLA form:
+                   one latent KV head under all query heads
+                   (``csrc/mla_decode.cu``)
     moe_gemm       grouped expert SwiGLU MLP over the MoE capacity buffers
                    (``csrc/moe.cu``)
     rwkv6          the WKV6 recurrence of RWKV-6's time mix, state on chip
@@ -36,6 +38,9 @@ TILE_M = 64   # output rows per block; must equal BM in csrc/gemm.cu (checked
               # when the library loads)
 DECODE_CHUNK = 128   # KV positions per decode block; must equal DEC_CHUNK in
                      # csrc/attention.cu (checked when the library loads)
+MLA_TILE = 32        # KV positions per tile of the MLA decode; must equal
+                     # CH in csrc/mla_decode.cu (checked when the library
+                     # loads)
 RWKV6_MAX_K = 64     # largest head size of the rwkv6 kernel; must equal KMAX
                      # in csrc/rwkv6.cu (checked when the library loads)
 

@@ -33,6 +33,8 @@ _FLASH = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _F, _P)
 _DECODE = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _F, _P)
 _PAGED = (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
           _F, _P)
+_MLA = (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _F,
+        _P)
 _SIGNATURES = {
     "branch_gemm_bf16": (_P, _P, _P, _I, _I, _I, _I, _P),
     "branch_gemm_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
@@ -48,6 +50,9 @@ _SIGNATURES = {
     "paged_decode_bf16": _PAGED,
     "paged_decode_f32": _PAGED,
     "decode_chunk_size": (),
+    "mla_decode_bf16": _MLA,
+    "mla_decode_f32": _MLA,
+    "mla_decode_tile_positions": (),
     "moe_mlp_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "moe_mlp_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "rwkv6_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
@@ -159,13 +164,17 @@ def library() -> KernelLibrary:
     with _lock:
         if _lib is None:
             lib = KernelLibrary([ctypes.CDLL(str(p)) for p in build()])
-            from . import DECODE_CHUNK, RWKV6_MAX_K, TILE_M
+            from . import DECODE_CHUNK, MLA_TILE, RWKV6_MAX_K, TILE_M
             if lib.gemm_tile_m() != TILE_M:
                 raise RuntimeError(f"csrc BM={lib.gemm_tile_m()} != "
                                    f"kernels.TILE_M={TILE_M}")
             if lib.decode_chunk_size() != DECODE_CHUNK:
                 raise RuntimeError(f"csrc DEC_CHUNK={lib.decode_chunk_size()}"
                                    f" != kernels.DECODE_CHUNK={DECODE_CHUNK}")
+            if lib.mla_decode_tile_positions() != MLA_TILE:
+                raise RuntimeError(
+                    f"csrc mla_decode CH={lib.mla_decode_tile_positions()} "
+                    f"!= kernels.MLA_TILE={MLA_TILE}")
             if lib.rwkv6_head_max() != RWKV6_MAX_K:
                 raise RuntimeError(f"csrc rwkv6 KMAX={lib.rwkv6_head_max()} "
                                    f"!= kernels.RWKV6_MAX_K={RWKV6_MAX_K}")

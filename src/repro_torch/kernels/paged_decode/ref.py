@@ -1,4 +1,5 @@
-"""Plain PyTorch version of paged single-token decode attention.
+"""Plain PyTorch version of paged single-token decode attention (GQA, and
+the MLA form over latent pages).
 
 Layout contract (the engine's page pool — write-friendly at
 ``(page, offset)``):
@@ -38,3 +39,33 @@ def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     if starts is not None:
         valid &= posn >= starts[:, None]
     return attend_one(q, k, v, valid, scale)
+
+
+def absorb_query(q_nope: torch.Tensor, wk_b: torch.Tensor) -> torch.Tensor:
+    """MLA's matrix absorption ``q_lat[.., h, r] = Σ_d q_nope[.., h, d] ·
+    wk_b[r, h, d]``: q_nope ``[.., H, D_nope]``, wk_b ``[rank, H, D_nope]``
+    → ``[.., H, rank]`` in q_nope's dtype, one batched product per head
+    with fp32 accumulation and one rounding (the JAX package's einsum with
+    ``preferred_element_type=float32``)."""
+    h, nope = q_nope.shape[-2:]
+    q = q_nope.reshape(-1, h, nope).transpose(0, 1)          # [H, N, D]
+    lat = torch.matmul(q, wk_b.permute(1, 2, 0))             # [H, N, rank]
+    return lat.transpose(0, 1).reshape(*q_nope.shape[:-1], wk_b.shape[0])
+
+
+def paged_mla_decode_attention_ref(q_nope: torch.Tensor, q_pe: torch.Tensor,
+                                   ckv_pages: torch.Tensor,
+                                   kpe_pages: torch.Tensor,
+                                   wk_b: torch.Tensor,
+                                   block_tables: torch.Tensor,
+                                   lengths: torch.Tensor,
+                                   scale: float) -> torch.Tensor:
+    """MLA form, as the JAX package's wrapper computes it: absorb ``q_nope``
+    through ``wk_b``, then one kvh = 1 paged attention of ``[q_lat ‖ q_pe]``
+    against ``[ckv ‖ kpe]`` pages with ``V = ckv`` → the latent output
+    ``[B, H, rank]``.  Concatenating the pages copies the pool; the kernel
+    reads the two page arrays where they are."""
+    q_cat = torch.cat([absorb_query(q_nope, wk_b), q_pe], dim=-1)
+    k_cat = torch.cat([ckv_pages, kpe_pages], dim=-1)[:, :, None, :]
+    return paged_decode_attention_ref(q_cat, k_cat, ckv_pages[:, :, None, :],
+                                      block_tables, lengths, None, scale)

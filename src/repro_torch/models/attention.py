@@ -1,28 +1,36 @@
-"""Attention: GQA (optionally sliding-window) with prefill, single-token
-decode against a dense KV slab and decode against paged KV, plus the causal
-window mask and params the dense export uses.
+"""Attention: GQA (optionally sliding-window) and MLA (DeepSeek-style
+latent attention), each with prefill, single-token decode against a dense
+KV slab and decode against paged KV, plus the causal window mask and params
+the dense export uses.
 
-Kernel dispatch: with ``use_kernels=True`` prefill calls the port's flash
-attention kernel (with the layer's window; the JAX package's kernel route
-drops it, ROADMAP C2), dense decode the decode-attention kernel and paged
-decode the paged-decode kernel.  Each wrapper runs its plain version on CPU
-tensors.  Otherwise the plain math of :func:`_sdpa` runs.
+Kernel dispatch: with ``use_kernels=True`` GQA prefill calls the port's
+flash attention kernel (with the layer's window; the JAX package's kernel
+route drops it, ROADMAP C2), dense decode the decode-attention kernel and
+paged decode the paged-decode kernel.  MLA, as in the JAX package, runs a
+kernel on its paged decode only (the MLA form of the paged-decode kernel);
+its prefill and dense decode are the plain latent attention, and
+``use_kernels`` routes its two norms through the rmsnorm kernel.  Each
+wrapper runs its plain version on CPU tensors.  Otherwise the plain math of
+:func:`_sdpa` runs.
 
 Caches are written in place (``index_put_`` on the preallocated tensors)
 and returned: a CUDA graph replays against fixed addresses, so the decode
-step must update the static cache rather than build a new one.
+step must update the static cache rather than build a new one.  MLA caches
+the compressed latent: ``(c_kv [.., rank], k_rope [.., rope])`` per layer.
 
-Not ported: MLA (DeepSeek, ROADMAP A6), the flash-structured
-``chunked_attention`` of long prefill (its custom VJP comes with training,
-A9; the plain path raises above its threshold instead) and the JAX
-package's ``REPRO_*`` performance flags (their defaults are what runs here).
+Not ported: the flash-structured ``chunked_attention`` of long prefill (its
+custom VJP comes with training, A9; the plain path raises above its
+threshold instead) and the JAX package's ``REPRO_*`` performance flags
+(their defaults are what runs here: the where-style cache update, and no
+int8 latent cache, so the JAX engine's refusal of ``kv_quant`` on paged MLA
+has nothing to refuse here).
 """
 from __future__ import annotations
 
 import torch
 
 from ..configs.base import ModelConfig
-from .layers import apply_rope, init_linear, linear
+from .layers import apply_norm, apply_rope, init_linear, init_norm, linear
 
 NEG_INF = -1e30
 # s·t above which the JAX package's plain path switches to
@@ -176,43 +184,211 @@ def gqa_paged_decode(p: dict, x: torch.Tensor, pages, block_tables: torch.Tensor
     return y, (k_pages, v_pages)
 
 
-def _check_gqa(cfg: ModelConfig) -> None:
-    if cfg.mla is not None:
-        raise _not_ported(f"MLA attention ({cfg.name})", "A6")
+# -- MLA (DeepSeek-V3) ----------------------------------------------------------
+
+def init_mla(generator: torch.Generator, cfg: ModelConfig, *,
+             device: torch.device | str, lead: tuple[int, ...] = ()) -> dict:
+    """The JAX package's ``init_mla`` tree: low-rank query and latent KV
+    projections, their norms, and the per-head ``wk_b``/``wv_b``
+    up-projections."""
+    m = cfg.mla
+    d, h, dt = cfg.d_model, cfg.n_heads, cfg.dtype
+    kw = {"device": device, "lead": lead}
+    qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq_a": init_linear(generator, d, m.q_lora_rank, False, dt, **kw),
+        "q_norm": init_norm(m.q_lora_rank, "rmsnorm", dt, **kw),
+        "wq_b": init_linear(generator, m.q_lora_rank, h * qk_head, False, dt,
+                            **kw),
+        "wkv_a": init_linear(generator, d,
+                             m.kv_lora_rank + m.qk_rope_head_dim, False, dt,
+                             **kw),
+        "kv_norm": init_norm(m.kv_lora_rank, "rmsnorm", dt, **kw),
+        "wk_b": init_linear(generator, m.kv_lora_rank,
+                            h * m.qk_nope_head_dim, False, dt, **kw),
+        "wv_b": init_linear(generator, m.kv_lora_rank, h * m.v_head_dim,
+                            False, dt, **kw),
+        "wo": init_linear(generator, h * m.v_head_dim, d, False, dt, **kw),
+    }
+
+
+def _mla_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,
+             positions: torch.Tensor, use_kernels: bool):
+    """The shared projections → (q_nope, q_rope, c_kv, k_rope), RoPE on the
+    query's rope part and on the one shared rope key."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    nope, rank = m.qk_nope_head_dim, m.kv_lora_rank
+    cq = apply_norm(p["q_norm"], linear(p["wq_a"], x), "rmsnorm", use_kernels)
+    q = linear(p["wq_b"], cq).reshape(b, s, cfg.n_heads,
+                                      nope + m.qk_rope_head_dim)
+    kv = linear(p["wkv_a"], x)
+    c_kv = apply_norm(p["kv_norm"], kv[..., :rank].contiguous(), "rmsnorm",
+                      use_kernels)                       # [B,S,rank]
+    q_rope = apply_rope(q[..., nope:], positions, cfg.rope_theta)
+    k_rope = apply_rope(kv[:, :, None, rank:], positions,
+                        cfg.rope_theta)[:, :, 0]
+    return q[..., :nope], q_rope, c_kv, k_rope
+
+
+def _wk_b(p: dict, cfg: ModelConfig) -> torch.Tensor:
+    m = cfg.mla
+    return p["wk_b"]["w"].reshape(m.kv_lora_rank, cfg.n_heads,
+                                  m.qk_nope_head_dim)
+
+
+def value_up(lat: torch.Tensor, wv_b: torch.Tensor,
+             v_head: int) -> torch.Tensor:
+    """Per-head value up-projection of the latent output ``[.., H, rank]``
+    through ``wv_b`` ``[rank, H·v_head]`` (fp32 accumulation, one rounding)
+    → ``[.., H·v_head]``."""
+    h, rank = lat.shape[-2:]
+    wv = wv_b.reshape(rank, h, v_head).permute(1, 0, 2)       # [H,rank,v]
+    out = torch.matmul(lat.reshape(-1, h, rank).transpose(0, 1), wv)
+    return out.transpose(0, 1).reshape(*lat.shape[:-2], h * v_head)
+
+
+def _mla_out(p: dict, lat: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return linear(p["wo"], value_up(lat, p["wv_b"]["w"], cfg.mla.v_head_dim))
+
+
+def _mla_scale(cfg: ModelConfig) -> float:
+    return (cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim) ** -0.5
+
+
+def mla_attention(p: dict, q_nope: torch.Tensor, q_rope: torch.Tensor,
+                  c_kv: torch.Tensor, k_rope: torch.Tensor, cfg: ModelConfig,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Latent attention in the absorbed form: MLA is GQA with ONE shared
+    latent KV head.  ``q_lat = q_nope · W_kbᵀ`` per head, then
+    ``[q_lat ‖ q_rope]`` attends ``[c_kv ‖ k_rope]`` with ``V = c_kv``
+    (Dk = rank + rope, Dv = rank) and the output goes up through ``wv_b``
+    and ``wo``."""
+    from ..kernels.paged_decode.ref import absorb_query
+    q_lat = absorb_query(q_nope, _wk_b(p, cfg))
+    q_cat = torch.cat([q_lat, q_rope], dim=-1)            # [B,S,H,rank+rope]
+    k_cat = torch.cat([c_kv, k_rope], dim=-1)[:, :, None, :]
+    lat = _sdpa(q_cat, k_cat, c_kv[:, :, None, :], mask,
+                scale=_mla_scale(cfg))                    # [B,S,H,rank]
+    return _mla_out(p, lat, cfg)
+
+
+def mla_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                positions: torch.Tensor, use_kernels: bool = False):
+    """Returns (attn_out [B,S,d_model], (c_kv [B,S,rank], k_rope
+    [B,S,rope])).  Plain latent attention on either route, as in the JAX
+    package."""
+    s = x.shape[1]
+    if s * s > CHUNK_THRESHOLD:
+        raise _not_ported(f"MLA prefill of {s} tokens (s·s > 2^22 runs the "
+                          "JAX package's chunked_attention)", "A9")
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, cfg, positions, use_kernels)
+    mask = causal_window_mask(positions[0], positions[0], None)
+    y = mla_attention(p, q_nope, q_rope, c_kv, k_rope, cfg, mask=mask)
+    return y, (c_kv, k_rope)
+
+
+def mla_decode(p: dict, x: torch.Tensor, cache, pos: torch.Tensor,
+               cfg: ModelConfig, use_kernels: bool = False):
+    """One-token decode against the dense latent slab ``(c_kv [B,T,rank],
+    k_rope [B,T,rope])``: writes the new latent at ``pos`` in place and
+    attends positions <= pos."""
+    c_cache, r_cache = cache
+    b, t = c_cache.shape[0], c_cache.shape[1]
+    q_nope, q_rope, c_new, r_new = _mla_qkv(p, x, cfg, pos[:, None],
+                                            use_kernels)
+    rows = torch.arange(b, device=x.device)
+    pos_l = pos.long()
+    _write_rows(c_cache, rows, pos_l, c_new[:, 0])
+    _write_rows(r_cache, rows, pos_l, r_new[:, 0])
+    valid = torch.arange(t, device=x.device)[None, :] <= pos_l[:, None]
+    y = mla_attention(p, q_nope, q_rope, c_cache, r_cache, cfg,
+                      mask=valid[:, None, :])
+    return y, (c_cache, r_cache)
+
+
+def mla_paged_decode(p: dict, x: torch.Tensor, pages,
+                     block_tables: torch.Tensor, pos: torch.Tensor,
+                     cfg: ModelConfig, use_kernels: bool = False):
+    """One-token decode over latent pages (ckv ``[P,ps,rank]``, kpe
+    ``[P,ps,rope]``): the new latent is written at ``(table[pos // ps],
+    pos % ps)`` in place; the absorbed attention runs through the block
+    table (the MLA form of the paged-decode kernel with ``use_kernels``)."""
+    from ..kernels.paged_decode import paged_mla_decode_attention
+    from ..kernels.paged_decode.ref import paged_mla_decode_attention_ref
+    ckv_pages, kpe_pages = pages
+    ps = ckv_pages.shape[1]
+    b = x.shape[0]
+    q_nope, q_rope, c_new, r_new = _mla_qkv(p, x, cfg, pos[:, None],
+                                            use_kernels)
+    rows = torch.arange(b, device=x.device)
+    pos_l = pos.long()
+    page = block_tables.long()[rows, pos_l // ps]
+    off = pos_l % ps
+    _write_rows(ckv_pages, page, off, c_new[:, 0])
+    _write_rows(kpe_pages, page, off, r_new[:, 0])
+    lengths = (pos_l + 1).to(torch.int32)
+    attend = (paged_mla_decode_attention if use_kernels
+              else paged_mla_decode_attention_ref)
+    lat = attend(q_nope[:, 0], q_rope[:, 0], ckv_pages, kpe_pages,
+                 _wk_b(p, cfg), block_tables, lengths, _mla_scale(cfg))
+    y = _mla_out(p, lat[:, None], cfg)
+    return y, (ckv_pages, kpe_pages)
+
+
+# -- dispatch -----------------------------------------------------------------
+
+def init_attention(generator: torch.Generator, cfg: ModelConfig, *,
+                   device: torch.device | str,
+                   lead: tuple[int, ...] = ()) -> dict:
+    init = init_mla if cfg.mla is not None else init_gqa
+    return init(generator, cfg, device=device, lead=lead)
 
 
 def attn_prefill(p, x, cfg, positions, window=None, use_kernels=False):
-    _check_gqa(cfg)
+    if cfg.mla is not None:
+        return mla_prefill(p, x, cfg, positions, use_kernels)
     return gqa_prefill(p, x, cfg, positions, window, use_kernels)
 
 
 def attn_decode(p, x, cache, pos, cfg, window=None, use_kernels=False):
-    _check_gqa(cfg)
+    if cfg.mla is not None:
+        return mla_decode(p, x, cache, pos, cfg, use_kernels)
     return gqa_decode(p, x, cache, pos, cfg, window, use_kernels)
 
 
 def attn_paged_decode(p, x, pages, block_tables, pos, cfg, window=None,
                       use_kernels=False):
-    _check_gqa(cfg)
+    if cfg.mla is not None:
+        return mla_paged_decode(p, x, pages, block_tables, pos, cfg,
+                                use_kernels)
     return gqa_paged_decode(p, x, pages, block_tables, pos, cfg, window,
                             use_kernels)
+
+
+def _cache_shapes(cfg: ModelConfig, lead: tuple[int, int]):
+    """(shape of the first leaf, shape of the second) per layer: GQA's
+    ``(k, v)`` ``[.., KVH, D]``, MLA's latent ``(c_kv [.., rank], k_rope
+    [.., rope])``."""
+    if cfg.mla is not None:
+        return (lead + (cfg.mla.kv_lora_rank,),
+                lead + (cfg.mla.qk_rope_head_dim,))
+    kv = lead + (cfg.n_kv_heads, cfg.head_dim)
+    return kv, kv
 
 
 def init_cache(cfg: ModelConfig, batch: int, length: int, dtype=None, *,
                device: torch.device | str):
     """Empty per-layer KV cache (single layer); transformer stacks [L, ...]."""
-    _check_gqa(cfg)
-    shape = (batch, length, cfg.n_kv_heads, cfg.head_dim)
     dtype = dtype or cfg.dtype
-    return (torch.zeros(shape, dtype=dtype, device=device),
-            torch.zeros(shape, dtype=dtype, device=device))
+    return tuple(torch.zeros(shape, dtype=dtype, device=device)
+                 for shape in _cache_shapes(cfg, (batch, length)))
 
 
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
                      dtype=None, *, device: torch.device | str):
-    """Single-layer paged KV pages (page 0 reserved as the null page)."""
-    _check_gqa(cfg)
-    shape = (num_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
+    """Single-layer paged KV pages (page 0 reserved as the null page); MLA
+    pages the compressed latent."""
     dtype = dtype or cfg.dtype
-    return (torch.zeros(shape, dtype=dtype, device=device),
-            torch.zeros(shape, dtype=dtype, device=device))
+    return tuple(torch.zeros(shape, dtype=dtype, device=device)
+                 for shape in _cache_shapes(cfg, (num_pages, page_size)))

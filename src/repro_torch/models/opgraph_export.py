@@ -26,8 +26,15 @@ Reproduced on purpose: like the reference's dense export, this graph applies
 NO rotary embedding — raw Q and K feed the scores stage — so its logits are
 not the model facade's (ROADMAP queue C).
 
-MLA, hybrid and encoder-decoder exports are not ported yet (ROADMAP A6)
-and raise ``NotImplementedError``.
+An MLA layer (DeepSeek-V3) replaces the q/k/v branches with the absorbed
+latent form, as the reference's: low-rank query and KV projections, the
+query's absorption through ``wk_b`` (with RoPE), the latent KV prep (norm,
+RoPE on the shared rope key), the same decomposed attention stages with one
+latent KV head (Dk = rank + rope, Dv = rank), then the per-head ``wv_b``
+up-projection and ``wo``.
+
+Hybrid and encoder-decoder exports are not ported yet (ROADMAP A6) and
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -46,9 +53,9 @@ from ..core.profiler import (
     norm_cost,
     scan_cost,
 )
-from .attention import NEG_INF, causal_window_mask
+from .attention import NEG_INF, causal_window_mask, value_up
 from .export_costs import act_gemm_cost, stream_cost
-from .layers import apply_norm
+from .layers import apply_norm, apply_rope, rmsnorm
 from .ssm import RWKV_LORA
 from .transformer import layer_params, stack_meta
 
@@ -292,6 +299,108 @@ def _attn_stages(g, pre, q, k, v, b, s, t, nh, kvh, hd,
                       scale, causal, window, with_fn)
 
 
+# -- MLA (DeepSeek-style latent attention), decomposed ------------------------
+
+def _positions(b: int, s: int, device) -> torch.Tensor:
+    return torch.arange(s, device=device)[None].expand(b, s)
+
+
+@functools.lru_cache(maxsize=None)
+def _make_mla_q_lat(nh: int, nope: int, rope: int, theta: float):
+    """Absorbed query: RoPE on the rope part, ``wk_b`` folded into q_nope
+    (fp32 accumulation, one rounding), head-major ``[B,H,S,rank+rope]``."""
+    from ..kernels.paged_decode.ref import absorb_query
+
+    def q_lat(qflat, wk_b):
+        b, s, _ = qflat.shape
+        q = qflat.reshape(b, s, nh, nope + rope)
+        q_rope = apply_rope(q[..., nope:], _positions(b, s, qflat.device),
+                            theta)
+        lat = absorb_query(q[..., :nope], wk_b.reshape(-1, nh, nope))
+        return torch.cat([lat, q_rope], dim=-1).permute(0, 2, 1, 3)
+    return q_lat
+
+
+@functools.lru_cache(maxsize=None)
+def _make_mla_kv_prep(rank: int, theta: float):
+    """Latent KV: rmsnorm the compressed part, RoPE on the shared rope key,
+    concatenated — ONE latent head, head-major ``[B,1,S,rank+rope]``."""
+    def kv_prep(kv, scale):
+        b, s, _ = kv.shape
+        c_kv = rmsnorm({"scale": scale}, kv[..., :rank])
+        k_rope = apply_rope(kv[:, :, None, rank:],
+                            _positions(b, s, kv.device), theta)[:, :, 0]
+        return torch.cat([c_kv, k_rope], dim=-1)[:, None]
+    return kv_prep
+
+
+@functools.lru_cache(maxsize=None)
+def _make_latent_v(rank: int):
+    def latent_v(kcat):
+        return kcat[..., :rank]
+    return latent_v
+
+
+@functools.lru_cache(maxsize=None)
+def _make_mla_out(nh: int, rank: int, v_head: int):
+    """Per-head value up-projection ``[B,S,H·rank] → [B,S,H·v_head]``."""
+    def mla_out(lat_flat, wv_b):
+        b, s, _ = lat_flat.shape
+        return value_up(lat_flat.reshape(b, s, nh, rank), wv_b, v_head)
+    return mla_out
+
+
+def _mla_block(g, cfg, n1, b, s, tag, attn_p):
+    """MLA at traced-kernel granularity (absorbed formulation, kvh = 1):
+    low-rank Q/KV projections → latent score/context GEMMs with the
+    mask+softmax stage explicit → per-head value up-projection → wo.
+    Works cost-only and payload-backed alike."""
+    m, d, nh = cfg.mla, cfg.d_model, cfg.n_heads
+    nope, rope, rank = m.qk_nope_head_dim, m.qk_rope_head_dim, m.kv_lora_rank
+    qk_head = nope + rope
+    with_fn = attn_p is not None
+    cq = _gemm_node(g, f"{tag}.wq_a", n1, attn_p and attn_p["wq_a"],
+                    b * s, d, m.q_lora_rank)
+    qn = g.add(f"{tag}.q_norm", OpKind.NORM, [cq],
+               fn=(lambda h: rmsnorm(attn_p["q_norm"], h)) if with_fn
+               else None,
+               cost=norm_cost(b * s * m.q_lora_rank))
+    qb = _gemm_node(g, f"{tag}.wq_b", qn, attn_p and attn_p["wq_b"],
+                    b * s, m.q_lora_rank, nh * qk_head)
+    q_lat = g.add(f"{tag}.q_lat", OpKind.GEMM, [qb],
+                  fn=_make_mla_q_lat(nh, nope, rope, cfg.rope_theta)
+                  if with_fn else None,
+                  cost=gemm_cost(b * s * nh, nope, rank),
+                  fuse_sig=("qlat", s, nh, nope, rank),
+                  out_shape=(b, nh, s, rank + rope),
+                  **({"consts": (attn_p["wk_b"]["w"],)} if with_fn else {}))
+    kva = _gemm_node(g, f"{tag}.wkv_a", n1, attn_p and attn_p["wkv_a"],
+                     b * s, d, rank + rope)
+    kvp = g.add(f"{tag}.kv_prep", OpKind.NORM, [kva],
+                fn=_make_mla_kv_prep(rank, cfg.rope_theta)
+                if with_fn else None,
+                cost=norm_cost(b * s * (rank + rope)),
+                fuse_sig=("mlakv", s, rank, rope),
+                out_shape=(b, 1, s, rank + rope),
+                **({"consts": (attn_p["kv_norm"]["scale"],)}
+                   if with_fn else {}))
+    vlat = g.add(f"{tag}.v_lat", OpKind.ELEMENTWISE, [kvp],
+                 fn=_make_latent_v(rank) if with_fn else None,
+                 cost=elementwise_cost(b * s * rank),
+                 fuse_sig=("vlat", s, rank), out_shape=(b, 1, s, rank))
+    mrg = _attn_core(g, f"{tag}.", q_lat, kvp, vlat, b, s, s, nh, 1,
+                     rank + rope, rank, scale=qk_head ** -0.5, causal=True,
+                     window=None, with_fn=with_fn)
+    aout = g.add(f"{tag}.attn_out", OpKind.GEMM, [mrg],
+                 fn=_make_mla_out(nh, rank, m.v_head_dim)
+                 if with_fn else None,
+                 cost=gemm_cost(b * s * nh, rank, m.v_head_dim),
+                 fuse_sig=("mlaout", s, nh, rank, m.v_head_dim),
+                 **({"consts": (attn_p["wv_b"]["w"],)} if with_fn else {}))
+    return _gemm_node(g, f"{tag}.wo", aout, attn_p and attn_p["wo"],
+                      b * s, nh * m.v_head_dim, d)
+
+
 def _glu(a, c):
     return F.silu(a) * c
 
@@ -303,21 +412,26 @@ def _add(a, c):
 def _dense_layer(g, cfg, x, b, s, tag, pl, root, moe: bool,
                  moe_branch_cap: int = 16, moe_dispatch: str = "auto",
                  moe_cap_scale: float = 1.0):
-    if cfg.mla is not None:
-        raise _not_ported("MLA attention")
     d, hd, nh, kvh = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     bias = cfg.qkv_bias
     n1 = _norm_node(g, f"{tag}.norm1", x, pl and pl["norm1"], cfg.norm,
                     b * s * d)
     attn_p = pl["attn"] if pl else None
-    # QKV: 3 parallel GEMM branches (the canonical Opara wave) feeding the
-    # decomposed attention stages
-    q = _gemm_node(g, f"{tag}.wq", n1, attn_p and attn_p["wq"], b * s, d, nh * hd, bias)
-    k = _gemm_node(g, f"{tag}.wk", n1, attn_p and attn_p["wk"], b * s, d, kvh * hd, bias)
-    v = _gemm_node(g, f"{tag}.wv", n1, attn_p and attn_p["wv"], b * s, d, kvh * hd, bias)
-    mrg = _attn_stages(g, f"{tag}.", q, k, v, b, s, s, nh, kvh, hd,
-                       causal=True, window=None, with_fn=pl is not None)
-    o = _gemm_node(g, f"{tag}.wo", mrg, attn_p and attn_p["wo"], b * s, nh * hd, d, False)
+    if cfg.mla is not None:
+        o = _mla_block(g, cfg, n1, b, s, tag, attn_p)
+    else:
+        # QKV: 3 parallel GEMM branches (the canonical Opara wave) feeding
+        # the decomposed attention stages
+        q = _gemm_node(g, f"{tag}.wq", n1, attn_p and attn_p["wq"], b * s,
+                       d, nh * hd, bias)
+        k = _gemm_node(g, f"{tag}.wk", n1, attn_p and attn_p["wk"], b * s,
+                       d, kvh * hd, bias)
+        v = _gemm_node(g, f"{tag}.wv", n1, attn_p and attn_p["wv"], b * s,
+                       d, kvh * hd, bias)
+        mrg = _attn_stages(g, f"{tag}.", q, k, v, b, s, s, nh, kvh, hd,
+                           causal=True, window=None, with_fn=pl is not None)
+        o = _gemm_node(g, f"{tag}.wo", mrg, attn_p and attn_p["wo"], b * s,
+                       nh * hd, d, False)
     r1 = g.add(f"{tag}.res1", OpKind.ELEMENTWISE, [x, o],
                fn=_add if pl else None,
                cost=elementwise_cost(b * s * d, n_in=2))

@@ -10,11 +10,14 @@ over the layer index in Python, with each layer's attention window an int
 (0 = none).  Stacks are of one block kind each: ``dense`` (GQA + MLP),
 ``dense_prefix`` and ``moe`` (the MoE family: its first layers keep a wide
 dense MLP, the rest route to experts) and ``rwkv`` (RWKV-6 time and channel
-mix).  Caches are stacked ``[L, ...]`` per stack as there — ``(k, v)`` for
-attention stacks, ``{tm_x, tm_s, cm_x}`` recurrent state for RWKV — and
-decode writes them in place.  MLA attention, hybrid (Mamba) stacks, meta
-tokens, MTP heads and modality frontends raise, naming ROADMAP A6.  Training
-(``lm_loss``, the MTP loss) is ROADMAP A9.
+mix).  Attention is GQA, or MLA (DeepSeek-V3) when the config has one.
+Caches are stacked ``[L, ...]`` per stack as there — ``(k, v)`` for GQA
+stacks, the latent ``(c_kv, k_rope)`` for MLA stacks, ``{tm_x, tm_s,
+cm_x}`` recurrent state for RWKV — and decode writes them in place.  An
+MTP config gets the reference's ``mtp`` subtree (projection, one block,
+norm); nothing at serving reads it, and its loss is training's.  Hybrid
+(Mamba) stacks, meta tokens and modality frontends raise, naming ROADMAP
+A6.  Training (``lm_loss``, the MTP loss) is ROADMAP A9.
 """
 from __future__ import annotations
 
@@ -24,10 +27,10 @@ import torch
 
 from ..configs.base import ModelConfig
 from .attention import (attn_decode, attn_paged_decode, attn_prefill,
-                        init_cache, init_gqa, init_paged_cache)
+                        init_attention, init_cache, init_paged_cache)
 from .ffn import ffn, init_ffn, init_mlp, mlp
 from .layers import (apply_norm, check_device, embed, init_embedding,
-                     init_norm, unembed)
+                     init_linear, init_norm, unembed)
 from .ssm import (init_rwkv_channel_mix, init_rwkv_time_mix,
                   rwkv_channel_mix, rwkv_state_init, rwkv_time_mix_seq)
 
@@ -88,14 +91,13 @@ def init_block(generator: torch.Generator, cfg: ModelConfig, layer_kind: str,
             "norm2": init_norm(cfg.d_model, cfg.norm, cfg.dtype, **kw),
             "channel_mix": init_rwkv_channel_mix(generator, cfg, **kw),
         }
-    if layer_kind not in ("dense", "dense_prefix", "moe") \
-            or cfg.mla is not None:
+    if layer_kind not in ("dense", "dense_prefix", "moe"):
         raise NotImplementedError(
             f"{layer_kind!r} blocks of {cfg.name} are not ported yet "
             "(ROADMAP A6)")
     return {
         "norm1": init_norm(cfg.d_model, cfg.norm, cfg.dtype, **kw),
-        "attn": init_gqa(generator, cfg, **kw),
+        "attn": init_attention(generator, cfg, **kw),
         "norm2": init_norm(cfg.d_model, cfg.norm, cfg.dtype, **kw),
         "ffn": (init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.act,
                          cfg.dtype, **kw) if layer_kind == "dense_prefix"
@@ -121,16 +123,27 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator,
     if not cfg.tie_embeddings:
         p["head"] = init_embedding(generator, cfg.vocab_size, cfg.d_model,
                                    cfg.dtype, device=device)
+    if cfg.mtp_heads:
+        # DeepSeek-V3's multi-token-prediction head, as the reference builds
+        # it: [h ‖ embed(next)] projected back to d, one block, a norm
+        d = cfg.d_model
+        p["mtp"] = {
+            "proj": init_linear(generator, 2 * d, d, False, cfg.dtype,
+                                device=device),
+            "block": init_block(generator, cfg,
+                                "dense" if cfg.moe is None else "moe",
+                                device=device),
+            "norm": init_norm(d, cfg.norm, cfg.dtype, device=device),
+        }
     return p
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if (cfg.family not in ("dense", "moe", "ssm") or cfg.mla is not None
-            or cfg.meta_tokens or cfg.mtp_heads or cfg.frontend is not None):
+    if (cfg.family not in ("dense", "moe", "ssm") or cfg.meta_tokens
+            or cfg.frontend is not None):
         raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) needs MLA, hybrid stacks, meta "
-            "tokens, MTP heads or a modality frontend; not ported yet "
-            "(ROADMAP A6)")
+            f"{cfg.name} ({cfg.family}) needs hybrid stacks, meta tokens or "
+            "a modality frontend; not ported yet (ROADMAP A6)")
 
 
 def layer_params(tree: Any, li: int) -> Any:
@@ -276,16 +289,18 @@ def lm_prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
 
 
 def _pad_cache(cache, length: int):
-    """Zero-pad the sequence axis (2, of ``[L,B,S,...]``) to ``length``."""
-    k, v = cache
-    pad = [0, 0] * (k.dim() - 3) + [0, length - k.shape[2]]
-    return (torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad))
+    """Zero-pad the sequence axis (2, of ``[L,B,S,...]``) of each leaf —
+    GQA's ``(k, v)`` or MLA's ``(c_kv, k_rope)`` — to ``length``."""
+    return tuple(torch.nn.functional.pad(
+        leaf, [0, 0] * (leaf.dim() - 3) + [0, length - leaf.shape[2]])
+        for leaf in cache)
 
 
 def init_decode_caches(cfg: ModelConfig, batch: int, length: int, *,
                        device: torch.device | str):
-    """Empty decode caches per stack: ``(k, v)`` ``[L,B,length,KVH,D]``, or
-    the RWKV state leaves ``[L,B,...]``."""
+    """Empty decode caches per stack: ``(k, v)`` ``[L,B,length,KVH,D]``,
+    MLA's ``(c_kv [L,B,length,rank], k_rope [..,rope])``, or the RWKV state
+    leaves ``[L,B,...]``."""
     _check_supported(cfg)
     caches = []
     for kind, n, _ in stack_meta(cfg):
@@ -294,9 +309,8 @@ def init_decode_caches(cfg: ModelConfig, batch: int, length: int, *,
             caches.append({k: v.new_zeros((n,) + v.shape)
                            for k, v in state.items()})
             continue
-        k, v = init_cache(cfg, batch, length, device=device)
-        caches.append((k.new_zeros((n,) + k.shape),
-                       v.new_zeros((n,) + v.shape)))
+        caches.append(tuple(leaf.new_zeros((n,) + leaf.shape) for leaf in
+                            init_cache(cfg, batch, length, device=device)))
     return caches
 
 
@@ -318,7 +332,8 @@ def lm_decode(params: dict, token: torch.Tensor, caches: list,
 
 def init_paged_decode_caches(cfg: ModelConfig, num_pages: int,
                              page_size: int, *, device: torch.device | str):
-    """Paged KV leaves ``[L,P,ps,KVH,D]`` per stack, zero-filled."""
+    """Paged KV leaves per stack, zero-filled: ``[L,P,ps,KVH,D]``, or MLA's
+    latent ``[L,P,ps,rank]`` and ``[L,P,ps,rope]``."""
     if cfg.family in ("ssm", "hybrid"):
         raise ValueError(
             f"family {cfg.family!r} carries recurrent state; paged KV "
@@ -326,9 +341,9 @@ def init_paged_decode_caches(cfg: ModelConfig, num_pages: int,
     _check_supported(cfg)
     caches = []
     for _, n, _ in stack_meta(cfg):
-        k, v = init_paged_cache(cfg, num_pages, page_size, device=device)
-        caches.append((k.new_zeros((n,) + k.shape),
-                       v.new_zeros((n,) + v.shape)))
+        caches.append(tuple(
+            leaf.new_zeros((n,) + leaf.shape) for leaf in
+            init_paged_cache(cfg, num_pages, page_size, device=device)))
     return caches
 
 

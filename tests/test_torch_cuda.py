@@ -530,3 +530,118 @@ def test_family_decode_step_graph_is_bit_equal_to_the_eager_step(cuda, arch,
     assert torch.equal(graph_logits, eager)
     for a, b in zip(after_graph, _leaves(engine.caches)):
         assert torch.equal(a, b)
+
+
+# ---- the MLA form of paged decode ---------------------------------------------
+
+from repro_torch.kernels.paged_decode.ref import (  # noqa: E402
+    paged_mla_decode_attention_ref)
+
+# (B, H, D_nope, rank, rope, ps, MAXP): small, off every multiple (20 heads,
+# rank 40, rope 12 → the scalar load path), and DeepSeek-V3's serving shape
+# (128 heads, rank 512, rope 64) at 4-, 16- and 128-position pages
+MLA_CASES = [(3, 4, 16, 16, 8, 4, 7), (2, 20, 24, 40, 12, 16, 5),
+             (8, 128, 128, 512, 64, 16, 64), (2, 128, 128, 512, 64, 4, 40),
+             (2, 128, 128, 512, 64, 128, 3)]
+
+
+def _mla_case(cuda, dtype, b, h, nope, rank, rope, ps, maxp):
+    """A shuffled table with trailing null pages on the last row; ragged
+    lengths from every position of the table down to one."""
+    n_pages = 1 + b * maxp
+    q_nope = _randn(cuda, 50, b, h, nope, dtype=dtype)
+    q_pe = _randn(cuda, 51, b, h, rope, dtype=dtype)
+    ckv = _randn(cuda, 52, n_pages, ps, rank, dtype=dtype)
+    kpe = _randn(cuda, 53, n_pages, ps, rope, dtype=dtype)
+    wk_b = _randn(cuda, 54, rank, h, nope, dtype=dtype, scale=nope ** -0.5)
+    g = torch.Generator().manual_seed(55)
+    bt = (torch.randperm(n_pages - 1, generator=g) + 1).reshape(
+        b, maxp).to(torch.int32)
+    bt[-1, maxp // 2:] = 0
+    lengths = torch.linspace(maxp * ps, 1, b).round().to(torch.int32)
+    lengths[-1] = min(int(lengths[-1]), (maxp // 2) * ps)
+    return (q_nope, q_pe, ckv, kpe, wk_b, bt.to(cuda), lengths.to(cuda),
+            (nope + rope) ** -0.5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,nope,rank,rope,ps,maxp", MLA_CASES)
+def test_paged_mla_kernel_matches_plain(cuda, dtype, b, h, nope, rank, rope,
+                                        ps, maxp):
+    args = _mla_case(cuda, dtype, b, h, nope, rank, rope, ps, maxp)
+    before = pops.mla_launches
+    got = pops.paged_mla_decode_attention(*args)
+    assert pops.mla_launches == before + 1
+    assert got.shape == (b, h, rank) and got.dtype == dtype
+    _assert_kernel_close(got, paged_mla_decode_attention_ref(*args))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_mla_kernel_averages_v_on_a_row_with_no_attended_position(
+        cuda, dtype):
+    args = list(_mla_case(cuda, dtype, 3, 128, 128, 512, 64, 16, 6))
+    args[6] = torch.tensor([0, 50, 0], dtype=torch.int32, device=cuda)
+    got = pops.paged_mla_decode_attention(*args)
+    _assert_kernel_close(got, paged_mla_decode_attention_ref(*args))
+    ckv, bt = args[2], args[5]
+    mean = ckv[bt[0].long()].float().reshape(-1, 512).mean(0)
+    torch.testing.assert_close(got[0].float(), mean.expand(128, 512),
+                               rtol=1e-2, atol=1e-2)
+
+
+def test_paged_mla_wrapper_raises_on_device_dtype_and_width(cuda):
+    args = list(_mla_case(cuda, torch.float32, 2, 4, 16, 16, 8, 4, 3))
+    with pytest.raises(ValueError, match="devices"):
+        pops.paged_mla_decode_attention(*args[:5], args[5].cpu(), *args[6:])
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        pops.paged_mla_decode_attention(*[a.half() for a in args[:5]],
+                                        *args[5:])
+    with pytest.raises(ValueError, match="int32"):
+        pops.paged_mla_decode_attention(*args[:5], args[5].long(), *args[6:])
+    wide = list(_mla_case(cuda, torch.float32, 2, 4, 16, 520, 8, 4, 3))
+    with pytest.raises(ValueError, match="latent rank"):
+        pops.paged_mla_decode_attention(*wide)
+
+
+def test_deepseek_paged_decode_step_graph_is_bit_equal_to_the_eager_step(
+        cuda):
+    """The paged decode step of a DeepSeek-V3 smoke engine, recorded into a
+    CUDA graph with the MLA kernel, gives the eager step's logits and latent
+    pages bit for bit; in fp32 (rounding far below the greedy margins) its
+    streams equal the dense engine's, whose latent attention is plain."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import InferenceEngine, Request
+    cfg = dataclasses.replace(get_config("deepseek-v3-671b", smoke=True),
+                              dtype=torch.float32)
+    model = Model(cfg, use_kernels=True)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0), cuda)
+    outputs = {}
+    for paged in (False, True):
+        engine = InferenceEngine(model, params, max_slots=4, max_len=64,
+                                 seed=1, paged_kv=paged, page_size=4)
+        reqs = [Request(rid=i, prompt=[5 + i, 9, 2, 7, 3][:3 + i],
+                        max_tokens=12) for i in range(3)]
+        for r in reqs:
+            engine.submit(r)
+        for _ in range(5):
+            engine.step()
+        if paged:
+            assert engine.decode_graph.recorded_launches[
+                "paged_decode_mla"] > 0
+            values = [engine.last_token, engine.pos,
+                      engine._block_table_array()]
+            graph_logits = engine._step(values).clone()
+            pages = [t.clone() for kv in engine.caches for t in kv]
+            eager = engine.model.paged_decode(
+                engine.params, engine._on_device(engine.last_token,
+                                                 torch.long),
+                engine.caches, engine._on_device(values[2], torch.int32),
+                engine._on_device(engine.pos, torch.int32))[0]
+            assert torch.equal(graph_logits, eager)
+            for a, kv in zip(pages, (t for kv in engine.caches for t in kv)):
+                assert torch.equal(a, kv)
+        engine.run(200)
+        outputs[paged] = [tuple(r.output) for r in reqs]
+    assert outputs[True] == outputs[False]
