@@ -7,11 +7,15 @@ Phases (any failure raises and the script exits non-zero):
   1. environment: card name and power limit, torch/CUDA versions, kernel
      build time;
   2. kernels vs plain at the main path's shapes (plus an off-lattice shape
-     and fp32): error, kernel / plain / library times, bound;
+     and fp32): route, error, kernel / plain / library times, bound,
+     TFLOP/s and share of the bound; for bf16 also the simple route (the
+     WMMA routine the wgmma route replaced) at the same shape;
   3. main path: full-width Qwen2-0.5B prefill graph (24 layers, batch 1,
      seq 512, bf16, random weights from --seed) → Session with measured
      calibration and autotune → lowering → one CUDA graph → 3 requests by
-     replay, each held against eager per-op execution on the card;
+     replay, each held against eager per-op execution on the card; every
+     GEMM launch of this and the other op-graph phases (4, 8, 9, 10) on the
+     wgmma route (launches counted by route);
   4. ragged capture: a hand-built ragged matmul fan-out captured into a CUDA
      graph through the grouped_gemm kernel, held against per-op execution;
   5. attention kernels: rmsnorm, flash_attention, decode_attention and
@@ -202,7 +206,17 @@ def phase_environment() -> dict:
         for line in text.splitlines():
             found = re.search(r"([a-z_]+_kernel)I(f|13__nv_bfloat16)"
                               r"(?:NS_(\d+)(\w+?)E)?", line)
-            if "Compiling entry function" in line and found:
+            wgmma = re.search(r"wg\d+gemm_kernelILi(\d+)ELi(\d+)ELb([01])E",
+                              line)
+            name = "" if wgmma is None else (
+                f"{source}:{('branch', 'grouped')[int(wgmma[3])]}_gemm "
+                f"wgmma<bf16, BM {wgmma[1]}, BN {wgmma[2]}>")
+            note = re.search(r"\((C\d{4})\) ([^']*)", line)
+            if note:   # a ptxas remark (e.g. serialised wgmma), any kernel
+                log(f"[build] {name or source}: {note[1]} {note[2][:110]}")
+            elif "Compiling entry function" in line and wgmma:
+                kernel = name
+            elif "Compiling entry function" in line and found:
                 kv = ""
                 if found.group(3):
                     kv = ", " + found.group(4)[:int(found.group(3))]
@@ -239,6 +253,27 @@ def phase_kernels(env: dict, gen: torch.Generator) -> dict:
     def peak(dtype):
         return hw.peak_flops if dtype == torch.bfloat16 else FP32_PEAK[hw.name]
 
+    def report(name, tag, desc, dtype, err, path, flops, bound, by, kernel_ms,
+               simple_ms, plain_ms, library_ms, lib_name, launches):
+        """One [kernel] line: the kernel's route and time, the simple route
+        (the WMMA routine the wgmma route replaced) at the same shape
+        (bf16), the plain version, the library call, the bound, achieved
+        TFLOP/s and the share of the bound."""
+        simple = ("" if simple_ms is None else
+                  f"simple_ms {simple_ms:.4f} ({simple_ms / kernel_ms:.2f}x) ")
+        lib_text = "none" if library_ms is None else f"{library_ms:.4f}"
+        log(f"[kernel] {name} {tag} {desc} "
+            f"{str(dtype).removeprefix('torch.')}: route {path} max_abs_err "
+            f"{err:.3g} kernel_ms {kernel_ms:.4f} "
+            f"({flops / kernel_ms / 1e9:.1f} TFLOP/s, {bound / kernel_ms:.3f}"
+            f" of the bound) {simple}plain_ms {plain_ms:.4f} "
+            f"library_ms({lib_name}) {lib_text} bound_us {bound * 1e3:.2f} "
+            f"({by}) launches {launches}")
+        results[(name, tag)] = dict(
+            max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound,
+            bound_by=by, library_ms=library_ms, simple_ms=simple_ms,
+            route=path)
+
     # branch_gemm: gate||up and wk||wv of the main path, the equal-shape
     # branches Kimi-K2's and RWKV6's op graphs stack, off-lattice, fp32
     for tag, (n, m, k, f), dtype in [
@@ -252,25 +287,28 @@ def phase_kernels(env: dict, gen: torch.Generator) -> dict:
             ("gate||up fp32", (2, 512, 896, 4864), torch.float32)]:
         x, w = rnd((n, m, k), dtype), rnd((n, k, f), dtype, k ** -0.5)
         launches0 = bops.launches
+        path = bops.route(x, w)
         got = bops.branch_gemm(x, w)
         want = branch_gemm_ref(x, w)
         torch.cuda.synchronize()
         err = check_close(got, want, f"branch_gemm {tag}")
         size = x.element_size()
-        bound, by = gemm_bound_ms(2.0 * n * m * k * f,
+        flops = 2.0 * n * m * k * f
+        bound, by = gemm_bound_ms(flops,
                                   size * (n * m * k + n * k * f + n * m * f),
                                   peak(dtype), hw.hbm_bw)
         kernel_ms = cuda_ms(lambda: bops.branch_gemm(x, w), flush=flush)
+        simple_ms = None
+        if dtype == torch.bfloat16:
+            check_close(bops.branch_gemm_simple_bf16(x, w), want,
+                        f"branch_gemm simple {tag}")
+            simple_ms = cuda_ms(lambda: bops.branch_gemm_simple_bf16(x, w),
+                                flush=flush)
         plain_ms = cuda_ms(lambda: branch_gemm_ref(x, w), flush=flush)
         library_ms = cuda_ms(lambda: torch.bmm(x, w), flush=flush)
-        log(f"[kernel] branch_gemm {tag} [{n},{m},{k}]@[{n},{k},{f}] "
-            f"{str(dtype).removeprefix('torch.')}: max_abs_err {err:.3g} "
-            f"kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} "
-            f"library_ms(bmm) {library_ms:.4f} bound_us {bound * 1e3:.2f} "
-            f"({by}) launches {bops.launches - launches0}")
-        results[("branch_gemm", tag)] = dict(
-            max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
-            bound_ms=bound, bound_by=by, library_ms=library_ms)
+        report("branch_gemm", tag, f"[{n},{m},{k}]@[{n},{k},{f}]", dtype, err,
+               path, flops, bound, by, kernel_ms, simple_ms, plain_ms,
+               library_ms, "bmm", bops.launches - launches0)
 
     # grouped_gemm: ragged sizes with a zero-row group, K=896, F=4864; the
     # routed fan-out of Kimi-K2's op graph at a 512-token prefill (16
@@ -289,6 +327,7 @@ def phase_kernels(env: dict, gen: torch.Generator) -> dict:
         w = rnd((len(sizes), k, f), dtype, k ** -0.5)
         table = gops.tile_table(sizes, "cuda")
         launches0 = gops.launches
+        path = bops.route(x, w)
         got = gops.grouped_gemm(x, w, sizes, table)
         want = grouped_gemm_ref(x, w, sizes)
         torch.cuda.synchronize()
@@ -296,13 +335,21 @@ def phase_kernels(env: dict, gen: torch.Generator) -> dict:
         size = x.element_size()
         n_nonempty = sum(1 for m in sizes if m)
         total = sum(sizes)
+        flops = 2.0 * total * k * f
         # each input read once (only non-empty groups' weights are needed)
-        bound, by = gemm_bound_ms(2.0 * total * k * f,
+        bound, by = gemm_bound_ms(flops,
                                   size * (total * k + n_nonempty * k * f
                                           + total * f),
                                   peak(dtype), hw.hbm_bw)
         kernel_ms = cuda_ms(lambda: gops.grouped_gemm(x, w, sizes, table),
                             flush=flush)
+        simple_ms = None
+        if dtype == torch.bfloat16:
+            check_close(gops.grouped_gemm_simple_bf16(x, w, sizes, table),
+                        want, f"grouped_gemm simple {tag}")
+            simple_ms = cuda_ms(
+                lambda: gops.grouped_gemm_simple_bf16(x, w, sizes, table),
+                flush=flush)
         plain_ms = cuda_ms(lambda: grouped_gemm_ref(x, w, sizes), flush=flush)
         library_ms = None
         if dtype == torch.bfloat16 and hasattr(torch, "_grouped_mm"):
@@ -320,15 +367,9 @@ def phase_kernels(env: dict, gen: torch.Generator) -> dict:
                     lambda: torch._grouped_mm(x, w_cm, offs=offs), flush=flush)
                 log(f"[kernel] torch._grouped_mm max_abs_err vs plain "
                     f"{lib_err:.3g}")
-        lib_text = "none" if library_ms is None else f"{library_ms:.4f}"
-        log(f"[kernel] grouped_gemm {tag} sizes={sizes} K={k} F={f} "
-            f"{str(dtype).removeprefix('torch.')}: max_abs_err {err:.3g} "
-            f"kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} "
-            f"library_ms(_grouped_mm) {lib_text} bound_us {bound * 1e3:.2f} "
-            f"({by}) launches {gops.launches - launches0}")
-        results[("grouped_gemm", tag)] = dict(
-            max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
-            bound_ms=bound, bound_by=by, library_ms=library_ms)
+        report("grouped_gemm", tag, f"sizes={sizes} K={k} F={f}", dtype, err,
+               path, flops, bound, by, kernel_ms, simple_ms, plain_ms,
+               library_ms, "_grouped_mm", gops.launches - launches0)
     del flush
     return results
 
@@ -365,8 +406,7 @@ def phase_main_path(seed: int) -> dict:
 
     root = next(n.op_id for n in graph if n.fn is None)
     # -- the main path's run: launch counts from 0 -------------------------
-    bops.launches = 0
-    gops.launches = 0
+    reset_launches()
     sess = Session(SessionConfig(autotune=True,
                                  sim_cfg=SimConfig(head_of_line=True),
                                  calib_dir=CALIB_DIR))
@@ -396,11 +436,13 @@ def phase_main_path(seed: int) -> dict:
             first_request_s = time.perf_counter() - t0
         outputs.append((inputs, outs))
     launches = {"branch_gemm": bops.launches, "grouped_gemm": gops.launches}
+    routes = gemm_routes()
     # -- end of the main path's run ------------------------------------------
     recorded = exe.replay.recorded_launches
     log(f"[main] first request (warm-up + CUDA-graph record + replay) "
         f"{first_request_s:.3f} s; launches in the graph {recorded}; "
-        f"wrapper launches over the run {launches}")
+        f"wrapper launches over the run {launches}, by route {routes}")
+    check_wgmma_only("main", routes)
     if recorded["branch_gemm"] != n_branch:
         raise AssertionError(f"{recorded['branch_gemm']} branch_gemm launches "
                              f"recorded, program has {n_branch} steps")
@@ -499,10 +541,11 @@ def phase_ragged(gen: torch.Generator) -> dict:
     from repro_torch.kernels.branch_gemm import ops as bops
     from repro_torch.kernels.grouped_gemm import ops as gops
 
-    bops.launches = 0
-    gops.launches = 0
+    reset_launches()
     for sizes, k, f, dtype in [((8, 24, 16), 128, 128, torch.float32),
                                ((0, 37, 512, 5), 896, 4864, torch.bfloat16)]:
+        before = gops.launches_by_route["wgmma" if dtype == torch.bfloat16
+                                        else "fp32"]
         g = build_ragged_graph(sizes, k, f, dtype, gen)
         model = Session(SessionConfig(calib_dir=CALIB_DIR)).compile(g)
         stats = model.executable.program_stats()
@@ -522,9 +565,18 @@ def phase_ragged(gen: torch.Generator) -> dict:
             f"{str(dtype).removeprefix('torch.')}: one grouped_gemm step, "
             f"{recorded['grouped_gemm']} launch in the graph, replay vs "
             f"per-op max_abs_err {err:.3g}")
+        after = gops.launches_by_route["wgmma" if dtype == torch.bfloat16
+                                       else "fp32"]
+        if after <= before:
+            raise AssertionError(f"ragged {dtype} capture launched no "
+                                 f"grouped_gemm on its route")
     launches = {"branch_gemm": bops.launches, "grouped_gemm": gops.launches}
-    log(f"[ragged] wrapper launches over the phase {launches}")
-    return {"launches": launches}
+    routes = gemm_routes()
+    log(f"[ragged] wrapper launches over the phase {launches}, by route "
+        f"{routes} (the fp32 capture takes the fp32 route)")
+    if routes["branch_gemm"]["simple"] or routes["grouped_gemm"]["simple"]:
+        raise AssertionError(f"ragged capture took the simple route {routes}")
+    return {"launches": launches, "routes": routes}
 
 
 # =============================================================================
@@ -958,8 +1010,32 @@ def _counters(*names: str) -> dict:
 
 
 def reset_launches() -> None:
+    from repro_torch.kernels.branch_gemm import ops as bops
+    from repro_torch.kernels.grouped_gemm import ops as gops
     for module, attr in _counters(*KERNELS).values():
         setattr(module, attr, 0)
+    for module in (bops, gops):
+        module.launches_by_route.update(dict.fromkeys(module.ROUTES, 0))
+
+
+def gemm_routes() -> dict:
+    """branch_gemm's and grouped_gemm's launches by route since the last
+    reset_launches()."""
+    from repro_torch.kernels.branch_gemm import ops as bops
+    from repro_torch.kernels.grouped_gemm import ops as gops
+    return {"branch_gemm": dict(bops.launches_by_route),
+            "grouped_gemm": dict(gops.launches_by_route)}
+
+
+def check_wgmma_only(tag: str, routes: dict) -> None:
+    """An op-graph path's GEMM launches all took the wgmma route."""
+    off = {name: {r: n for r, n in by.items() if r != "wgmma" and n}
+           for name, by in routes.items()}
+    if any(off.values()):
+        raise AssertionError(f"[{tag}] GEMM launches off the wgmma route: "
+                             f"{routes}")
+    if not any(by["wgmma"] for by in routes.values()):
+        raise AssertionError(f"[{tag}] no wgmma GEMM launch: {routes}")
 
 
 def read_launches(*names: str) -> dict:
@@ -1548,11 +1624,13 @@ def moe_graph(cfg, params, seed: int, tag: str) -> dict:
         outputs.append((inputs, model(inputs)))
     torch.cuda.synchronize()
     launches = read_launches("branch_gemm", "grouped_gemm")
+    routes = gemm_routes()
     # -- end of the path's run ---------------------------------------------------
     recorded = exe.replay.recorded_launches
     log(f"[{tag}] compile {compile_s:.2f} s; program_stats {json.dumps(stats)}"
         f"; launches in the graph (one forward) {recorded}; wrapper launches "
-        f"over the run {launches}")
+        f"over the run {launches}, by route {routes}")
+    check_wgmma_only(tag, routes)
     if recorded["grouped_gemm"] != int(stats["n_grouped_gemm"]) or \
             recorded["grouped_gemm"] < 2:
         raise AssertionError(f"grouped_gemm launches per forward "
@@ -2108,12 +2186,15 @@ def rwkv_graph(cfg, params, seed: int) -> dict:
         outputs.append((inputs, model(inputs)))
     torch.cuda.synchronize()
     launches = read_launches("branch_gemm", "rwkv6")
+    routes = gemm_routes()
     # -- end of the path's run ---------------------------------------------------
     recorded = exe.replay.recorded_launches
     log(f"[rwkv] op graph: {len(graph)} ops, {n_scan} wkv_scan nodes; "
         f"compile {compile_s:.2f} s; program_stats "
         f"{json.dumps(exe.program_stats())}; launches in the graph (one "
-        f"forward) {recorded}; wrapper launches over the run {launches}")
+        f"forward) {recorded}; wrapper launches over the run {launches}, by "
+        f"route {routes}")
+    check_wgmma_only("rwkv", routes)
     if recorded["rwkv6"] != n_scan:
         raise AssertionError(f"{recorded['rwkv6']} rwkv6 launches recorded "
                              f"for {n_scan} wkv_scan nodes")
@@ -2318,12 +2399,12 @@ def main() -> int:
              source="src/repro_torch/csrc/gemm.cu",
              replaces="src/repro/kernels/branch_gemm/kernel.py:46",
              launches=main_path["launches"]["branch_gemm"],
-             **kernels[("branch_gemm", "gate||up")]),
+             **_json_row(kernels[("branch_gemm", "gate||up")])),
         dict(name="grouped_gemm", route="cuda",
              source="src/repro_torch/csrc/gemm.cu",
              replaces="src/repro/kernels/grouped_gemm/kernel.py:52",
              launches=kimi["graph"]["launches"]["grouped_gemm"],
-             **kernels[("grouped_gemm", "kimi gate||up")]),
+             **_json_row(kernels[("grouped_gemm", "kimi gate||up")])),
         dict(name="rmsnorm", route="cuda",
              source="src/repro_torch/csrc/norm.cu",
              replaces="src/repro/kernels/rmsnorm/kernel.py:29",

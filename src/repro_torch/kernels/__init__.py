@@ -34,8 +34,8 @@ from __future__ import annotations
 
 import torch
 
-TILE_M = 64   # output rows per block; must equal BM in csrc/gemm.cu (checked
-              # when the library loads)
+TILE_M = 128  # rows of a grouped_gemm row tile; must equal TILE_M in
+              # csrc/gemm.cu (checked when the library loads)
 DECODE_CHUNK = 128   # KV positions per decode block; must equal DEC_CHUNK in
                      # csrc/attention.cu (checked when the library loads)
 MLA_TILE = 32        # KV positions per tile of the MLA decode; must equal

@@ -36,11 +36,15 @@ _PAGED = (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
 _MLA = (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _F,
         _P)
 _SIGNATURES = {
-    "branch_gemm_bf16": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "branch_gemm_bf16": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "branch_gemm_simple_bf16": (_P, _P, _P, _I, _I, _I, _I, _P),
     "branch_gemm_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
-    "grouped_gemm_bf16": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "grouped_gemm_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "grouped_gemm_simple_bf16": (_P, _P, _P, _P, _I, _I, _I, _P),
     "grouped_gemm_f32": (_P, _P, _P, _P, _I, _I, _I, _P),
     "gemm_tile_m": (),
+    "gemm_has_wgmma_tiles": (_I, _I, _I),
+    "gemm_init": (),
     "rmsnorm_bf16": (_P, _P, _P, _I, _I, _F, _P),
     "rmsnorm_f32": (_P, _P, _P, _I, _I, _F, _P),
     "flash_attention_bf16": _FLASH,
@@ -165,9 +169,21 @@ def library() -> KernelLibrary:
         if _lib is None:
             lib = KernelLibrary([ctypes.CDLL(str(p)) for p in build()])
             from . import DECODE_CHUNK, MLA_TILE, RWKV6_MAX_K, TILE_M
+            from .branch_gemm.kernel import WGMMA_TILES
+            from .grouped_gemm.kernel import GROUPED_TILES
             if lib.gemm_tile_m() != TILE_M:
-                raise RuntimeError(f"csrc BM={lib.gemm_tile_m()} != "
+                raise RuntimeError(f"csrc TILE_M={lib.gemm_tile_m()} != "
                                    f"kernels.TILE_M={TILE_M}")
+            missing = [(bm, bn, grouped) for grouped, tiles in
+                       ((0, WGMMA_TILES), (1, GROUPED_TILES))
+                       for bm, bn in tiles
+                       if not lib.gemm_has_wgmma_tiles(bm, bn, grouped)]
+            if missing:
+                raise RuntimeError(f"csrc/gemm.cu compiles no wgmma tiles "
+                                   f"(BM, BN, grouped) {missing}")
+            err = lib.gemm_init()
+            if err != 0:
+                raise RuntimeError(f"gemm_init failed: CUDA error {err}")
             if lib.decode_chunk_size() != DECODE_CHUNK:
                 raise RuntimeError(f"csrc DEC_CHUNK={lib.decode_chunk_size()}"
                                    f" != kernels.DECODE_CHUNK={DECODE_CHUNK}")

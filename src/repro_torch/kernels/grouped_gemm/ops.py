@@ -5,18 +5,24 @@ for static group sizes; the capturer builds it ONCE when it lowers a
 grouped step, so replay does no host→device copy.  :func:`grouped_gemm` is
 the flat form over rows concatenated per group, :func:`grouped_gemm_parts`
 the per-branch form the capturer calls.  CPU tensors take the plain version;
-CUDA tensors launch the kernel or raise.  ``launches`` counts launches.
+CUDA tensors launch the kernel or raise, on the route that branch_gemm's
+:func:`~repro_torch.kernels.branch_gemm.ops.route` picks.  ``launches``
+counts launches, ``launches_by_route`` splits them by route.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import TILE_M, use_kernel
-from .kernel import _ENTRY, grouped_gemm_cuda
+from ..branch_gemm.ops import (ROUTES, check_cuda_operands, route,
+                               select_tiles)
+from .kernel import GROUPED_TILES, grouped_gemm_cuda
 from .ref import grouped_gemm_ref
 
 launches = 0
-_GRID_LIMIT = 65535     # blockIdx.y (row tiles)
+launches_by_route = dict.fromkeys(ROUTES, 0)
+_GRID_LIMIT = 65535     # blockIdx.y (row tiles) of the simple and fp32 routes
+_BLOCKS_LIMIT = 2**31 - 1   # blockIdx.x of the wgmma route
 
 
 def tile_rows(group_sizes: tuple[int, ...]) -> list[tuple[int, int, int]]:
@@ -60,16 +66,33 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor,
     ``table`` is :func:`tile_table` of ``group_sizes`` on x's device; it is
     built here when not given (a host→device copy: pass it from code that
     runs under CUDA-graph capture)."""
-    global launches
     group_sizes = tuple(int(m) for m in group_sizes)
     _check_sizes(x, w, group_sizes)
     if not use_kernel(x, w):
         return grouped_gemm_ref(x, w, group_sizes)
-    if x.dtype != w.dtype or x.dtype not in _ENTRY:
-        raise TypeError(f"grouped_gemm takes bf16 or fp32 operands of one "
-                        f"dtype, got {x.dtype} @ {w.dtype}")
-    if not (x.is_contiguous() and w.is_contiguous()):
-        raise ValueError("grouped_gemm needs contiguous operands")
+    check_cuda_operands("grouped_gemm", x, w,
+                        (torch.bfloat16, torch.float32))
+    return _launch(x, w, group_sizes, table, route(x, w))
+
+
+def grouped_gemm_simple_bf16(x: torch.Tensor, w: torch.Tensor,
+                             group_sizes: tuple[int, ...],
+                             table: torch.Tensor | None = None,
+                             ) -> torch.Tensor:
+    """The simple route (WMMA on 64x64 tiles) at any bf16 shape on the card,
+    so that a measurement can hold the wgmma route against it; counted as a
+    ``simple`` launch."""
+    group_sizes = tuple(int(m) for m in group_sizes)
+    _check_sizes(x, w, group_sizes)
+    if not use_kernel(x, w):
+        raise ValueError("grouped_gemm_simple_bf16 needs CUDA tensors")
+    check_cuda_operands("grouped_gemm", x, w, (torch.bfloat16,))
+    return _launch(x, w, group_sizes, table, "simple")
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor, group_sizes: tuple[int, ...],
+            table: torch.Tensor | None, path: str) -> torch.Tensor:
+    global launches
     if table is None:
         table = tile_table(group_sizes, x.device)
     n_tiles = len(tile_rows(group_sizes))
@@ -79,13 +102,21 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"tile table must be int32 [{n_tiles}, 3] on "
                          f"{x.device}, got {table.dtype} "
                          f"{tuple(table.shape)} on {table.device}")
-    if n_tiles > _GRID_LIMIT:
+    k, f = w.shape[1], w.shape[2]
+    bn = None
+    if path == "wgmma":
+        bn = select_tiles(1, n_tiles * TILE_M, k, f, GROUPED_TILES)[1]
+        fits = n_tiles * -(-f // bn) <= _BLOCKS_LIMIT
+    else:
+        fits = n_tiles <= _GRID_LIMIT
+    if not fits:
         raise ValueError(f"grouped_gemm grid too large: {n_tiles} row tiles")
-    out = torch.empty((x.shape[0], w.shape[2]), dtype=x.dtype, device=x.device)
+    out = torch.empty((x.shape[0], f), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    grouped_gemm_cuda(x, w, table, out)
+    grouped_gemm_cuda(x, w, table, out, path, bn)
     launches += 1
+    launches_by_route[path] += 1
     return out
 
 

@@ -21,8 +21,12 @@ from repro_torch.core.graph import OpGraph, OpKind  # noqa: E402
 from repro_torch.core.profiler import elementwise_cost, gemm_cost  # noqa: E402
 from repro_torch.core.scheduler import compile_plan, schedule  # noqa: E402
 from repro_torch.kernels.branch_gemm import ops as bops  # noqa: E402
+from repro_torch.kernels.branch_gemm.kernel import (  # noqa: E402
+    WGMMA_TILES, branch_gemm_cuda)
 from repro_torch.kernels.branch_gemm.ref import branch_gemm_ref  # noqa: E402
 from repro_torch.kernels.grouped_gemm import ops as gops  # noqa: E402
+from repro_torch.kernels.grouped_gemm.kernel import (  # noqa: E402
+    GROUPED_TILES, grouped_gemm_cuda)
 from repro_torch.kernels.grouped_gemm.ref import grouped_gemm_ref  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -48,32 +52,152 @@ def _assert_kernel_close(got, want):
         assert err <= 1e-5 * scale
 
 
+def _route_delta(ops, before):
+    return {k: v - before[k] for k, v in ops.launches_by_route.items()
+            if v != before[k]}
+
+
+def _want_route(dtype, k, f):
+    if dtype == torch.float32:
+        return "fp32"
+    return "wgmma" if k % 8 == 0 and f % 8 == 0 else "simple"
+
+
+# the main path's bf16 shapes (Qwen2 gate||up and wk||wv, RWKV r||k||v||g),
+# M off the 128-row tile (77), K off the 64-deep K tile (200), one element
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("n,m,k,f", [(2, 512, 896, 4864), (2, 512, 896, 128),
-                                     (3, 77, 200, 136), (1, 1, 1, 1)])
+                                     (4, 512, 2048, 2048), (3, 77, 200, 136),
+                                     (1, 1, 1, 1)])
 def test_branch_gemm_kernel_matches_plain(cuda, dtype, n, m, k, f):
     g = torch.Generator(device=cuda).manual_seed(m)
     x = torch.randn(n, m, k, generator=g, device=cuda).to(dtype)
     w = (torch.randn(n, k, f, generator=g, device=cuda) * k ** -0.5).to(dtype)
-    before = bops.launches
+    before, by_route = bops.launches, dict(bops.launches_by_route)
     got = bops.branch_gemm(x, w)
     assert bops.launches == before + 1
+    assert _route_delta(bops, by_route) == {_want_route(dtype, k, f): 1}
     _assert_kernel_close(got, branch_gemm_ref(x, w))
 
 
+KIMI_CAPS = (160, 181, 203, 224, 245, 267, 288, 309, 331, 352, 373, 395, 416,
+             437, 459, 480)
+
+
+# a zero-row group and group ends mid-tile; Kimi-K2's routed capacities at a
+# reduced K; K off the K tile with F off the 128-column tile
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("sizes,k,f", [((0, 37, 512, 5), 896, 4864),
                                        ((8, 24, 16), 128, 128),
-                                       ((3, 0, 9), 48, 80)])
+                                       ((3, 0, 9), 48, 80),
+                                       (KIMI_CAPS, 512, 1024),
+                                       ((100, 0, 300, 129, 1), 200, 136)])
 def test_grouped_gemm_kernel_matches_plain(cuda, dtype, sizes, k, f):
     g = torch.Generator(device=cuda).manual_seed(k)
     x = torch.randn(sum(sizes), k, generator=g, device=cuda).to(dtype)
     w = (torch.randn(len(sizes), k, f, generator=g, device=cuda)
          * k ** -0.5).to(dtype)
-    before = gops.launches
+    before, by_route = gops.launches, dict(gops.launches_by_route)
     got = gops.grouped_gemm(x, w, sizes, gops.tile_table(sizes, cuda))
     assert gops.launches == before + 1
+    assert _route_delta(gops, by_route) == {_want_route(dtype, k, f): 1}
     _assert_kernel_close(got, grouped_gemm_ref(x, w, sizes))
+
+
+@pytest.mark.parametrize("tiles", WGMMA_TILES)
+def test_one_wgmma_tile_is_exact_on_identity_rows_and_a_ramp(cuda, tiles):
+    """One 128x128x64 tile: x stacks two 64x64 identities, w is a ramp of
+    small integers, so every product is exact and the output must repeat w
+    bit for bit; a wrong descriptor offset or swizzle shows as moved rows
+    or columns."""
+    x = torch.eye(64, device=cuda).repeat(2, 1)[None].to(torch.bfloat16)
+    w = (torch.arange(64 * 128, device=cuda) % 97).reshape(1, 64, 128).to(
+        torch.bfloat16)
+    out = torch.empty(1, 128, 128, device=cuda, dtype=torch.bfloat16)
+    branch_gemm_cuda(x, w, out, "wgmma", tiles)
+    assert torch.equal(out[0], torch.cat([w[0], w[0]]))
+
+
+@pytest.mark.parametrize("tiles", WGMMA_TILES)
+def test_every_wgmma_branch_tile_matches_plain(cuda, tiles):
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn(3, 77, 200, generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.randn(3, 200, 136, generator=g, device=cuda) * 0.07
+         ).to(torch.bfloat16)
+    out = torch.empty(3, 77, 136, device=cuda, dtype=torch.bfloat16)
+    branch_gemm_cuda(x, w, out, "wgmma", tiles)
+    _assert_kernel_close(out, branch_gemm_ref(x, w))
+
+
+@pytest.mark.parametrize("tiles", GROUPED_TILES)
+def test_every_wgmma_grouped_tile_matches_plain(cuda, tiles):
+    sizes = (100, 0, 300, 129, 1)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    x = torch.randn(sum(sizes), 200, generator=g, device=cuda).to(
+        torch.bfloat16)
+    w = (torch.randn(len(sizes), 200, 136, generator=g, device=cuda) * 0.07
+         ).to(torch.bfloat16)
+    out = torch.empty(sum(sizes), 136, device=cuda, dtype=torch.bfloat16)
+    grouped_gemm_cuda(x, w, gops.tile_table(sizes, cuda), out, "wgmma",
+                      tiles[1])
+    _assert_kernel_close(out, grouped_gemm_ref(x, w, sizes))
+
+
+def test_branch_gemm_k_edge_reads_zeros_not_the_next_branch(cuda):
+    """K = 200 leaves the last K tile 56 rows past K; w[1] holds inf, so a
+    K tile that read into the next branch would poison branch 0."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.randn(2, 130, 200, generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.randn(2, 200, 136, generator=g, device=cuda) * 0.07
+         ).to(torch.bfloat16)
+    w[1] = float("inf")
+    got = bops.branch_gemm(x, w)
+    assert bops.route(x, w) == "wgmma"
+    _assert_kernel_close(got[0], branch_gemm_ref(x[:1], w[:1])[0])
+
+
+def test_grouped_gemm_reads_no_neighbour_into_a_group(cuda):
+    """Group 1's rows and w[1] hold inf: group 0's last row tile runs into
+    group 1's rows (dropped at the store) and its K edge past K = 200 must
+    read zeros, not w[1]."""
+    sizes = (100, 60)
+    g = torch.Generator(device=cuda).manual_seed(10)
+    x = torch.randn(160, 200, generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.randn(2, 200, 136, generator=g, device=cuda) * 0.07
+         ).to(torch.bfloat16)
+    x[100:] = float("inf")
+    w[1] = float("inf")
+    got = gops.grouped_gemm(x, w, sizes, gops.tile_table(sizes, cuda))
+    _assert_kernel_close(got[:100], grouped_gemm_ref(x[:100], w[:1], (100,)))
+
+
+def test_simple_route_is_taken_only_where_the_rule_sends_it(cuda):
+    x = torch.randn(1, 1, 1, device=cuda).to(torch.bfloat16)
+    w = torch.randn(1, 1, 1, device=cuda).to(torch.bfloat16)
+    before = dict(bops.launches_by_route)
+    bops.branch_gemm(x, w)
+    assert _route_delta(bops, before) == {"simple": 1}
+    # a contiguous view 2 bytes past an aligned base: TMA cannot read it
+    flat = torch.randn(1 + 2 * 16 * 16, device=cuda).to(torch.bfloat16)
+    xv = flat[1:].view(2, 16, 16)
+    wv = torch.randn(2, 16, 16, device=cuda).to(torch.bfloat16)
+    before = dict(bops.launches_by_route)
+    got = bops.branch_gemm(xv, wv)
+    assert _route_delta(bops, before) == {"simple": 1}
+    _assert_kernel_close(got, branch_gemm_ref(xv, wv))
+    # the measurement hook runs the simple route at a wgmma shape
+    xs = torch.randn(2, 64, 64, device=cuda).to(torch.bfloat16)
+    before = dict(bops.launches_by_route)
+    got = bops.branch_gemm_simple_bf16(xs, wv.new_ones(2, 64, 32))
+    assert _route_delta(bops, before) == {"simple": 1}
+    _assert_kernel_close(got, branch_gemm_ref(xs, wv.new_ones(2, 64, 32)))
+    before = dict(gops.launches_by_route)
+    sizes = (3, 0, 61)
+    xg = torch.randn(64, 64, device=cuda).to(torch.bfloat16)
+    wg = torch.randn(3, 64, 32, device=cuda).to(torch.bfloat16) * 0.1
+    got = gops.grouped_gemm_simple_bf16(xg, wg, sizes)
+    assert _route_delta(gops, before) == {"simple": 1}
+    _assert_kernel_close(got, grouped_gemm_ref(xg, wg, sizes))
 
 
 def test_wrappers_raise_on_device_dtype_and_layout(cuda):
@@ -107,17 +231,17 @@ def _sum(*xs):
     return sum(xs)
 
 
-def _branchy(device, width=4, d=64, tokens=32, seed=0):
+def _branchy(device, width=4, d=64, tokens=32, seed=0, dtype=torch.float32):
     """Per block ``width`` (gemm → relu) branches that stack into fused
     steps, then a sum."""
     rng = np.random.default_rng(seed)
     g = OpGraph("branchy")
-    cur = g.add("x", OpKind.INPUT, out_shape=(tokens, d))
+    cur = g.add("x", OpKind.INPUT, out_shape=(tokens, d), out_dtype=dtype)
     for blk in range(2):
         outs = []
         for b in range(width):
             w = torch.tensor(rng.standard_normal((d, d)) * 0.05,
-                             dtype=torch.float32, device=device)
+                             dtype=dtype, device=device)
             c = g.add(f"b{blk}_{b}_gemm", OpKind.GEMM, [cur], fn=_mm,
                       cost=gemm_cost(tokens, d, d, 4),
                       fuse_sig=("gemm", tokens, d, d), consts=(w,),
@@ -131,37 +255,49 @@ def _branchy(device, width=4, d=64, tokens=32, seed=0):
     return g
 
 
-def _ragged(device, sizes=(8, 24, 16), k=128, f=128, bias=False, seed=3):
+def _ragged(device, sizes=(8, 24, 16), k=128, f=128, bias=False, seed=3,
+            dtype=torch.float32):
     rng = np.random.default_rng(seed)
     g = OpGraph("ragged")
     for i, m in enumerate(sizes):
-        x = g.add(f"x{i}", OpKind.INPUT, out_shape=(m, k),
-                  out_dtype=torch.float32)
+        x = g.add(f"x{i}", OpKind.INPUT, out_shape=(m, k), out_dtype=dtype)
         consts = (torch.tensor(rng.standard_normal((k, f)) * 0.05,
-                               dtype=torch.float32, device=device),)
+                               dtype=dtype, device=device),)
         if bias:
             consts += (torch.tensor(rng.standard_normal((f,)),
-                                    dtype=torch.float32, device=device),)
+                                    dtype=dtype, device=device),)
         g.add(f"gemm{i}", OpKind.GEMM, [x], fn=_mm_b if bias else _mm,
               cost=gemm_cost(m, k, f, 4), fuse_sig=("gemm", k, f, bias),
               consts=consts, payload="matmul", out_shape=(m, f),
-              out_dtype=torch.float32)
+              out_dtype=dtype)
     return g
 
 
 GRAPHS = {"branchy": _branchy, "ragged": _ragged,
-          "ragged_bias": lambda d: _ragged(d, (0, 40, 8), bias=True)}
+          "ragged_bias": lambda d: _ragged(d, (0, 40, 8), bias=True),
+          "branchy_bf16": lambda d: _branchy(d, dtype=torch.bfloat16),
+          "ragged_bf16": lambda d: _ragged(d, (0, 200, 37, 129),
+                                           dtype=torch.bfloat16)}
 
 
 @pytest.mark.parametrize("name", sorted(GRAPHS))
 def test_cuda_graph_replay_matches_per_op_execution(cuda, name):
+    """Replay against per-op execution (cuBLAS; fp32 1e-5, bf16 1e-2), and
+    bit-equal to the eager step walk: the graph's baked tensor maps read
+    what maps encoded at each eager launch read."""
     g = GRAPHS[name](cuda)
     exe = compile_plan(schedule(g, "opara", "opara"))
     rng = np.random.default_rng(1)
     requests = [{n.name: torch.tensor(rng.standard_normal(n.out_shape) * 0.1,
-                                      dtype=torch.float32, device=cuda)
+                                      dtype=n.out_dtype or torch.float32,
+                                      device=cuda)
                  for n in g if n.fn is None} for _ in range(2)]
+    routes = dict(bops.launches_by_route), dict(gops.launches_by_route)
     outs = [exe(r) for r in requests]          # record, then replay
+    taken = set(_route_delta(bops, routes[0])) | set(
+        _route_delta(gops, routes[1]))
+    bf16 = name.endswith("_bf16")
+    assert taken == ({"wgmma"} if bf16 else {"fp32"})
     stats = exe.program_stats()
     recorded = exe.replay.recorded_launches
     assert {k: recorded[k] for k in ("branch_gemm", "grouped_gemm")} == {
@@ -170,11 +306,14 @@ def test_cuda_graph_replay_matches_per_op_execution(cuda, name):
     assert not any(n for k, n in recorded.items()
                    if k not in ("branch_gemm", "grouped_gemm"))
     assert stats["n_branch_gemm"] + stats["n_grouped_gemm"] >= 1
+    tol = 1e-2 if bf16 else 1e-5
     # clones: the second request did not overwrite the first one's result
     for got, inputs in zip(outs, requests):
         want = run_sequential_uncompiled(g, inputs, exe.output_ids)
         for a, b in zip(got, want):
-            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+            torch.testing.assert_close(a, b, rtol=tol, atol=tol)
+        eager = exe.call_uncompiled(inputs)
+        assert all(torch.equal(a, b) for a, b in zip(got, eager))
     with pytest.raises(ValueError, match="recorded"):
         exe({k: torch.cat([v, v]) for k, v in requests[0].items()})
 

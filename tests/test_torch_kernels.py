@@ -160,3 +160,76 @@ def test_cpu_wrappers_take_the_plain_version_and_count_no_launch():
 def test_wrappers_validate_shapes(call, match):
     with pytest.raises(ValueError, match=match):
         call()
+
+
+# ---- route and tile choice (host-side, no card needed) -----------------------
+
+from hypothesis import given, settings, strategies as st  # noqa: E402
+
+from repro_torch.kernels.branch_gemm.kernel import WGMMA_TILES  # noqa: E402
+from repro_torch.kernels.grouped_gemm.kernel import GROUPED_TILES  # noqa: E402
+
+
+@settings(max_examples=300, deadline=None)
+@given(n=st.integers(1, 64), m=st.integers(1, 70000), k=st.integers(1, 20000),
+       f=st.integers(1, 70000))
+def test_select_tiles_returns_a_compiled_instantiation(n, m, k, f):
+    assert bops.select_tiles(n, m, k, f) in WGMMA_TILES
+    bm, bn = bops.select_tiles(1, m, k, f, GROUPED_TILES)
+    assert (bm, bn) in GROUPED_TILES and bm == TILE_M
+
+
+@pytest.mark.parametrize("shape,tiles", [
+    ((2, 512, 896, 4864), (128, 128)),    # Qwen2 gate||up: 3 full waves
+    ((2, 512, 896, 128), (64, 64)),       # wk||wv: 32 blocks, not 8
+    ((2, 512, 7168, 18432), (128, 256)),  # dense-prefix gate||up
+    ((4, 512, 2048, 2048), (128, 256)),   # RWKV r||k||v||g: one wave
+])
+def test_select_tiles_at_the_main_path_shapes(shape, tiles):
+    assert bops.select_tiles(*shape) == tiles
+
+
+def _bf16(*shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+def _offset_view(*shape):
+    """A contiguous bf16 tensor whose base lies 2 bytes past an aligned
+    address (a view that starts one element into its storage)."""
+    flat = _bf16(1 + int(np.prod(shape)))[1:]
+    return flat.view(shape)
+
+
+@pytest.mark.parametrize("x,w,want", [
+    (_bf16(2, 512, 896), _bf16(2, 896, 4864), "wgmma"),   # gate||up
+    (_bf16(2, 512, 896), _bf16(2, 896, 128), "wgmma"),    # wk||wv
+    (_bf16(3, 77, 200), _bf16(3, 200, 136), "wgmma"),     # M, K off the tile
+    (_bf16(1, 1, 8), _bf16(1, 8, 8), "wgmma"),
+    (_bf16(1, 1, 1), _bf16(1, 1, 1), "simple"),           # K = 1
+    (_bf16(2, 16, 12), _bf16(2, 12, 16), "simple"),       # K % 8 != 0
+    (_bf16(2, 16, 16), _bf16(2, 16, 3), "simple"),        # F % 8 != 0
+    (_bf16(2, 16, 0), _bf16(2, 0, 16), "simple"),         # K = 0
+    (_offset_view(2, 16, 16), _bf16(2, 16, 16), "simple"),  # x base % 16
+    (_bf16(2, 16, 16), _offset_view(2, 16, 16), "simple"),  # w base % 16
+    (torch.zeros(2, 512, 896), torch.zeros(2, 896, 128), "fp32"),
+    (torch.zeros(1, 1, 1), torch.zeros(1, 1, 1), "fp32"),
+])
+def test_route_rule_sends_only_tma_readable_bf16_to_wgmma(x, w, want):
+    assert bops.route(x, w) == want
+
+
+def test_grouped_route_takes_the_flat_operands():
+    assert bops.route(_bf16(5120, 7168), _bf16(16, 7168, 4096)) == "wgmma"
+    assert bops.route(_bf16(7, 5), _bf16(2, 5, 8)) == "simple"
+
+
+def test_tile_rows_follow_tile_m_at_kimi_capacities():
+    caps = (160, 181, 203, 224, 245, 267, 288, 309, 331, 352, 373, 395, 416,
+            437, 459, 480)
+    rows = gops.tile_rows(caps)
+    assert len(rows) == sum(-(-c // TILE_M) for c in caps)
+    # each tile covers up to TILE_M rows of its group; together every row once
+    covered = [r for _, start, end in rows
+               for r in range(start, min(start + TILE_M, end))]
+    assert covered == list(range(sum(caps)))
+    assert [r[0] for r in rows] == sorted(r[0] for r in rows)
