@@ -5,7 +5,8 @@ them against their plain versions, then drive the main path end to end.
 
 Phases (any failure raises and the script exits non-zero):
   1. environment: card name and power limit, torch/CUDA versions, kernel
-     build time;
+     build time, ptxas registers and remarks (a remark on the flash kernel,
+     e.g. serialised wgmma, fails the run);
   2. kernels vs plain at the main path's shapes (plus an off-lattice shape
      and fp32): route, error, kernel / plain / library times, bound,
      TFLOP/s and share of the bound; for bf16 also the simple route (the
@@ -21,7 +22,10 @@ Phases (any failure raises and the script exits non-zero):
   5. attention kernels: rmsnorm, flash_attention, decode_attention and
      paged_decode vs their plain versions at the serving shapes and at odd
      ones (D = 14, ragged T, null pages, clamped window starts), bf16 and
-     fp32: error, kernel / plain / library times, bound;
+     fp32: error, kernel / plain / library times, bound; flash_attention's
+     bf16 prefills (Qwen2-0.5B at 512 and 1024 tokens, Kimi-K2's 64/8 heads
+     of 112) with its route, TFLOP/s, share of the bound and the simple
+     route (the WMMA routine the wgmma route replaced) at the same shape;
   6. serve: full-width Qwen2-0.5B behind ``Model(use_kernels=True)`` and
      ``InferenceEngine`` (8 slots, 1024 positions), once with the dense KV
      slab and once paged (16-position pages): 16 requests of 17-700 prompt
@@ -29,8 +33,9 @@ Phases (any failure raises and the script exits non-zero):
      (EDF preemption); paged and dense streams must be equal (in bf16 up
      to a preempted request's resume, in fp32 entirely); the kernel route
      is held against the plain route (prefill logits and 32 teacher-forced
-     decode steps, bf16 and fp32); a decode tick by CUDA-graph replay is
-     bit-equal to the eager tick; times and a profile of one decode tick;
+     decode steps, bf16 and fp32); every flash_attention launch of the bf16
+     prefills on the wgmma route (here and in phase 8); a decode tick by
+     CUDA-graph replay is bit-equal to the eager tick; times and a profile of one decode tick;
   7. moe_gemm (Kimi-K2's 384 experts, d 7168, f 2048, at a decode tick's
      capacity 1 and a 512-token prefill's 13; fp32; off the tile lattice)
      and rwkv6 (RWKV6-1.6B's 32 heads of 64 at a 512-token prefill and an
@@ -208,13 +213,18 @@ def phase_environment() -> dict:
                               r"(?:NS_(\d+)(\w+?)E)?", line)
             wgmma = re.search(r"wg\d+gemm_kernelILi(\d+)ELi(\d+)ELb([01])E",
                               line)
-            name = "" if wgmma is None else (
-                f"{source}:{('branch', 'grouped')[int(wgmma[3])]}_gemm "
-                f"wgmma<bf16, BM {wgmma[1]}, BN {wgmma[2]}>")
+            flash = re.search(r"flash_wgmma_kernelILi(\d+)ELi(\d+)E", line)
+            name = ""
+            if wgmma:
+                name = (f"{source}:{('branch', 'grouped')[int(wgmma[3])]}"
+                        f"_gemm wgmma<bf16, BM {wgmma[1]}, BN {wgmma[2]}>")
+            elif flash:
+                name = (f"{source}:flash_attention wgmma<bf16, DP {flash[1]}, "
+                        f"BKV {flash[2]}>")
             note = re.search(r"\((C\d{4})\) ([^']*)", line)
             if note:   # a ptxas remark (e.g. serialised wgmma), any kernel
                 log(f"[build] {name or source}: {note[1]} {note[2][:110]}")
-            elif "Compiling entry function" in line and wgmma:
+            elif "Compiling entry function" in line and name:
                 kernel = name
             elif "Compiling entry function" in line and found:
                 kv = ""
@@ -225,6 +235,17 @@ def phase_environment() -> dict:
             elif "registers" in line or "spill" in line:
                 log(f"[build] {kernel}: "
                     f"{line.replace('ptxas info    :', '').strip()}")
+    # a ptxas remark (serialised wgmma, C7515/C7517/C7518) on the flash
+    # kernel fails the run: the remark names its function in quotes
+    flash_remarks = [
+        m[1] for text in _build.build_log.values()
+        for m in re.finditer(r"\((C\d{4})\)[^']*'([^']*)'", text)
+        if "flash" in m[2]]
+    if flash_remarks:
+        raise AssertionError(f"ptxas remarks on the flash_attention kernels: "
+                             f"{flash_remarks}")
+    if not _build.build_log:
+        log("[build] libraries reused: no ptxas output to check")
     hw = detect_hardware()
     log(f"[env] hardware spec {hw.name}: {hw.peak_flops:.4g} FLOP/s bf16, "
         f"{hw.hbm_bw:.4g} B/s")
@@ -623,19 +644,33 @@ def phase_attention_kernels(env: dict, gen: torch.Generator) -> dict:
                 ).to(dtype)
 
     def measure(name, tag, dtype, err, kernel_fn, plain_fn, library_fn,
-                library_label, n_flops, n_bytes, flops_peak=None):
+                library_label, n_flops, n_bytes, flops_peak=None,
+                path=None, simple_fn=None):
+        """One [kernel] line; with ``path`` (flash_attention) also the
+        route, achieved TFLOP/s, the share of the bound and, with
+        ``simple_fn``, the simple route's time at the same shape."""
         peak = flops_peak or (hw.peak_flops if dtype == torch.bfloat16
                               else FP32_PEAK[hw.name])
         bound, by = gemm_bound_ms(n_flops, n_bytes, peak, hw.hbm_bw)
         kernel_ms = cuda_ms(kernel_fn, flush=flush)
+        simple_ms = (cuda_ms(simple_fn, flush=flush)
+                     if simple_fn is not None else None)
         plain_ms = cuda_ms(plain_fn, flush=flush)
         library_ms = (cuda_ms(library_fn, flush=flush)
                       if library_fn is not None else None)
         lib = "none" if library_ms is None else f"{library_ms:.4f}"
-        log(f"[kernel] {name} {tag} {_dt(dtype)}: max_abs_err {err:.3g} "
-            f"kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} "
-            f"library_ms({library_label}) {lib} bound_us {bound * 1e3:.3f} "
-            f"({by}; {n_flops / 1e6:.2f} MFLOP, {n_bytes / 1e6:.3f} MB)")
+        route = "" if path is None else (
+            f"route {path} ({n_flops / kernel_ms / 1e9:.1f} TFLOP/s, "
+            f"{bound / kernel_ms:.3f} of the bound) ")
+        simple = "" if simple_ms is None else (
+            f"simple_ms {simple_ms:.4f} ({simple_ms / kernel_ms:.2f}x) ")
+        vs_lib = "" if path is None or library_ms is None else (
+            f" ({kernel_ms / library_ms:.2f}x the library)")
+        log(f"[kernel] {name} {tag} {_dt(dtype)}: {route}max_abs_err "
+            f"{err:.3g} kernel_ms {kernel_ms:.4f} {simple}plain_ms "
+            f"{plain_ms:.4f} library_ms({library_label}) {lib}{vs_lib} "
+            f"bound_us {bound * 1e3:.3f} ({by}; {n_flops / 1e6:.2f} MFLOP, "
+            f"{n_bytes / 1e6:.3f} MB)")
         return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
                     bound_ms=bound, bound_by=by, library_ms=library_ms)
 
@@ -664,26 +699,47 @@ def phase_attention_kernels(env: dict, gen: torch.Generator) -> dict:
             4.0 * n * d, x.element_size() * (2 * n * d + d),
             flops_peak=FP32_PEAK[hw.name])
 
-    # -- flash attention: a 512-token prefill, then odd shapes ---------------
+    # -- flash attention: the bf16 prefills of the serving paths (Qwen2-0.5B
+    # at 512 tokens and at the engine's max_len, Kimi-K2's 64/8 heads of 112),
+    # each timed beside the simple route (the WMMA routine the wgmma route
+    # replaced) in the same call; fp32; then odd shapes -----------------------
+    from repro_torch.configs import get_config
+    kimi = get_config("kimi-k2-1t-a32b")
+    kimi_heads = (kimi.n_heads, kimi.n_kv_heads, kimi.head_dim)
+    bf16, fp32 = torch.bfloat16, torch.float32
     for tag, (b, s, h, kvh, d, window), dtype, timed in [
-            ("prefill", (1, 512, HEADS, KV_HEADS, HEAD_DIM, 0),
-             torch.bfloat16, True),
-            ("prefill", (1, 512, HEADS, KV_HEADS, HEAD_DIM, 0),
-             torch.float32, True),
-            ("odd D=14 S=77", (2, 77, 4, 2, 14, 0), torch.bfloat16, False),
-            ("odd window=32 S=200", (1, 200, 4, 1, 64, 32), torch.float32,
-             False),
-            ("odd D=128 S=130", (1, 130, 2, 2, 128, 0), torch.bfloat16,
+            ("prefill", (1, 512, HEADS, KV_HEADS, HEAD_DIM, 0), bf16, True),
+            ("prefill S=1024", (1, MAX_LEN, HEADS, KV_HEADS, HEAD_DIM, 0),
+             bf16, True),
+            ("kimi prefill", (1, 512, *kimi_heads, 0), bf16, True),
+            ("prefill", (1, 512, HEADS, KV_HEADS, HEAD_DIM, 0), fp32, True),
+            ("odd D=14 S=77", (2, 77, 4, 2, 14, 0), bf16, False),
+            ("odd window=32 S=200", (1, 200, 4, 1, 64, 32), fp32, False),
+            ("odd D=128 S=130", (1, 130, 2, 2, 128, 0), bf16, False),
+            ("odd D=112 S=200 window=40", (2, 200, 8, 2, 112, 40), bf16,
              False)]:
         q = rnd((b, s, h, d), dtype)
         k, v = rnd((b, s, kvh, d), dtype), rnd((b, s, kvh, d), dtype)
+        path = fops.route(q, k, v)
+        launches0 = fops.launches_by_route[path]
         got = fops.flash_attention(q, k, v, True, window)
         want = flash_attention_ref(q, k, v, True, window)
         torch.cuda.synchronize()
+        if fops.launches_by_route[path] != launches0 + 1:
+            raise AssertionError(f"flash_attention {tag}: no {path} launch")
         err = check_close(got, want, f"flash_attention {tag}")
+        simple_fn = None
+        if dtype == bf16:
+            simple_err = check_close(
+                fops.flash_attention_simple_bf16(q, k, v, True, window), want,
+                f"flash_attention simple {tag}")
+            simple_fn = (lambda q=q, k=k, v=v, w=window:
+                         fops.flash_attention_simple_bf16(q, k, v, True, w))
         if not timed:
-            log(f"[kernel] flash_attention {tag} {_dt(dtype)}: max_abs_err "
-                f"{err:.3g}")
+            log(f"[kernel] flash_attention {tag} {_dt(dtype)}: route {path} "
+                f"max_abs_err {err:.3g}"
+                + ("" if simple_fn is None else
+                   f" (simple route {simple_err:.3g})"))
             continue
 
         def sdpa(q=q, k=k, v=v):
@@ -696,10 +752,12 @@ def phase_attention_kernels(env: dict, gen: torch.Generator) -> dict:
         pairs = _causal_pairs(s, s, window)
         results[("flash_attention", tag, dtype)] = measure(
             "flash_attention", f"{tag} B={b} S=T={s} H={h}/{kvh} D={d}",
-            dtype, err, lambda: fops.flash_attention(q, k, v, True, window),
-            lambda: flash_attention_ref(q, k, v, True, window), sdpa,
-            "SDPA causal gqa", 4.0 * b * h * d * pairs,
-            q.element_size() * (2 * b * s * h * d + 2 * b * s * kvh * d))
+            dtype, err,
+            lambda q=q, k=k, v=v: fops.flash_attention(q, k, v, True, window),
+            lambda q=q, k=k, v=v: flash_attention_ref(q, k, v, True, window),
+            sdpa, "SDPA causal gqa", 4.0 * b * h * d * pairs,
+            q.element_size() * (2 * b * s * h * d + 2 * b * s * kvh * d),
+            path=path, simple_fn=simple_fn)
 
     # -- decode: 8 slots of 1024 positions, attended up to pos ---------------
     rng = np.random.default_rng(1234)
@@ -1011,10 +1069,11 @@ def _counters(*names: str) -> dict:
 
 def reset_launches() -> None:
     from repro_torch.kernels.branch_gemm import ops as bops
+    from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.grouped_gemm import ops as gops
     for module, attr in _counters(*KERNELS).values():
         setattr(module, attr, 0)
-    for module in (bops, gops):
+    for module in (bops, gops, fops):
         module.launches_by_route.update(dict.fromkeys(module.ROUTES, 0))
 
 
@@ -1036,6 +1095,19 @@ def check_wgmma_only(tag: str, routes: dict) -> None:
                              f"{routes}")
     if not any(by["wgmma"] for by in routes.values()):
         raise AssertionError(f"[{tag}] no wgmma GEMM launch: {routes}")
+
+
+def check_flash_wgmma_only(tag: str) -> None:
+    """A bf16 serving run's flash_attention launches since the last
+    reset_launches() all took the wgmma route."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    routes = dict(fops.launches_by_route)
+    log(f"[{tag}] flash_attention launches over the bf16 serving runs, by "
+        f"route {routes}")
+    if any(n for r, n in routes.items() if r != "wgmma") or \
+            not routes["wgmma"]:
+        raise AssertionError(f"[{tag}] bf16 prefills launched flash_attention "
+                             f"off the wgmma route: {routes}")
 
 
 def read_launches(*names: str) -> dict:
@@ -1077,6 +1149,7 @@ def phase_serve(seed: int) -> dict:
     runs = serve_both(engine, specs, cfg.dtype)
     launches = read_launches("rmsnorm", "flash_attention",
                              "decode_attention", "paged_decode")
+    check_flash_wgmma_only("serve")
     # -- end of the main path's run ------------------------------------------
     log(f"[serve] wrapper launches over both runs (eager prefills + graph "
         f"warm-up and recording) {launches}")
@@ -1785,6 +1858,7 @@ def phase_kimi(seed: int) -> dict:
     runs = serve_both(engine(cfg, params), specs, cfg.dtype)
     launches = read_launches("rmsnorm", "flash_attention", "decode_attention",
                              "paged_decode", "moe_gemm")
+    check_flash_wgmma_only("kimi")
     # -- end of the serving path's run ------------------------------------------
     log(f"[kimi] wrapper launches over both serving runs {launches}")
     for name, n in launches.items():

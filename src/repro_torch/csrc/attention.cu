@@ -17,16 +17,65 @@
 // dtype for the P V product; the model's plain attention rounds the
 // normalised p instead, so the two differ by about an ulp of the output.
 //
-// flash_attention: one block of 4 warps per (64-row query tile, head,
-// batch row).  The Q tile stays in shared memory; the block walks the 64-row
-// K/V tiles inside the causal/window band (tiles wholly outside it are
-// skipped) with an online softmax: S = Q K^T (bf16 WMMA, fp32 accumulate),
-// per-row running max and sum in fp32, p rounded to the V dtype and
-// O += P V (WMMA).  O lives in shared memory in fp32 and is rescaled there;
-// the result is O / max(l, 1e-30).  The window is a runtime int (0 = none).
-// Any S, T and D <= 128 are taken: D is zero-padded to a multiple of 16 in
-// shared memory and rows past S or T are masked.  fp32 inputs take the same
-// structure with FMA products on the CUDA cores.
+// flash_attention takes one of three routes, picked by the Python wrapper
+// from dtype, head dim, strides and alignment alone
+// (kernels/flash_attention/ops.py route()); a launch that fails raises and
+// never falls back to another route.  In every route the window is a
+// runtime int (0 = none), K/V tiles wholly outside the causal/window band
+// are skipped, and the result is O / max(l, 1e-30).
+//
+// wgmma (bf16 with D a multiple of 16 up to 128, the D stride 1, every other
+// stride a multiple of 16 bytes and 16-byte aligned bases: what TMA reads).
+// The FA3 form for Hopper.  A block of 160 threads owns 64 query rows of one
+// (head, batch row): warps 0-3 are the consumer warpgroup, warp 4 the
+// producer, of which one thread issues every TMA load.
+//   TMA maps over the model's own layout through strides: q as 4-D (D, S, H,
+//     B), k and v as (D, T, KVH, B), boxes of 64 D x rows x 1 x 1 under the
+//     128-byte swizzle, so a box never reads a neighbouring head or batch
+//     row, and rows past S or T and columns past D read zeros.  A box row
+//     holds 64 bf16, so D > 64 takes two boxes along D (DP = 128); Kimi-K2's
+//     D = 112 gets zeros in columns 112-127.
+//   The producer loads the Q tile once, then keeps K and V tiles of BKV rows
+//     in flight in a ring of two stages (separate K and V full barriers, so
+//     Q K^T starts before V lands; an empty barrier per stage).
+//   S = Q K^T: wgmma.m64nBKVk16 from shared memory, both operands K-major,
+//     DP/16 k-steps (the zero columns past D add nothing).
+//   Softmax on the accumulator registers: thread l of warp w holds rows
+//     16w + l/4 and +8, so row max and sum take two quad shuffles; scale *
+//     log2(e) is folded into exp2; the mask (-inf, p = 0) runs only on tiles
+//     that cross the causal diagonal, the window edge or T (a zero-filled K
+//     row past T scores 0 and must still be masked).
+//   P stays in registers: the fp32 S accumulators of a 16-column slice are
+//     the A-fragment layout of the next wgmma, so they are packed to bf16
+//     pairs (the unnormalised online p rounded to bf16, as the Pallas kernel
+//     does, ROADMAP C8) and fed as the register A operand.
+//   O += P V: wgmma.m64nDPk16 with V [BKV, D] read MN-major in place through
+//     the descriptor's transpose bit (LBO: one D box to the next; SBO: one
+//     8-row group to the next), as gemm.cu reads w.  O lives in fp32
+//     registers and is rescaled there by alpha = exp2(m_old - m_new).
+//   Epilogue: O / max(l, 1e-30) rounded to bf16, stored through strides with
+//     the S-edge row mask.
+//   Raster: blockIdx = (head, batch row, reversed query tile): the query
+//     tiles with the most K/V tiles (the last ones of a causal band) launch
+//     first, and the H/KVH query heads of one KV group sit next to each other
+//     so that their K/V tiles come from L2.  64-row tiles: a 512-token prefill
+//     with 14 heads is 112 blocks for 132 SMs (128-row tiles would give 56);
+//     each block's shared memory (72 or 80 KB) and registers leave room for
+//     two blocks an SM at Kimi-K2's 64 heads (512 blocks).
+//   BKV = 128 for DP = 64 (half as many serial tile steps in the latency-
+//     bound prefill), 64 for DP = 128 (the O accumulators double).
+//
+// simple (bf16 outside the wgmma rule, e.g. D = 14): one block of 4 warps
+// per (64-row query tile, head, batch row).  The Q tile stays in shared
+// memory; the block walks the 64-row K/V tiles of the band with an online
+// softmax: S = Q K^T (bf16 WMMA, fp32 accumulate), per-row running max and
+// sum in fp32, p rounded to the V dtype and O += P V (WMMA), O kept and
+// rescaled in shared memory in fp32.  Any S, T and D <= 128 are taken: D is
+// zero-padded to a multiple of 16 in shared memory and rows past S or T are
+// masked.  Also exposed as flash_attention_simple_bf16, so that a
+// measurement can hold the wgmma route against it.
+//
+// fp32: the simple route's structure with FMA products on the CUDA cores.
 //
 // decode_attention / paged_decode: one device routine.  At decode B*KVH is
 // small (16 for Qwen2-0.5B at 8 slots), so the KV positions are split into
@@ -52,17 +101,26 @@
 //   decode 8 slots, T = 1024 fully valid: K + V 4.19 MB -> 1.25 us, bound by
 //     bytes (the kernel reads only the valid positions; chip_smoke.py counts
 //     those of its run).
-// What this simple design leaves on the table: warp-level WMMA instead of
-// wgmma, no cp.async/TMA pipeline (a tile's loads and math do not overlap), O
-// kept and rescaled in shared memory rather than in registers, 64x64 tiles
-// that give the 512-token prefill only 8 x 14 = 112 blocks for 132 SMs; the
-// decode routine reads K with one thread per position (each a 128-byte row),
-// walks V one position after another per thread (a chain of dependent
-// loads), and leaves half of its threads idle in the P V pass when D = 64.
+//   prefill S = T = 1024 (the serve engine's max_len): 1.88 GFLOP -> 1.9 us;
+//     4.19 MB -> 1.25 us; bound by operations.
+//   Kimi-K2 prefill S = T = 512, 64/8 heads of 112: 3.77 GFLOP -> 3.8 us;
+//     16.5 MB -> 4.9 us; bound by bytes.
+// What the wgmma route leaves on the table: within a block the two products
+// and the softmax run one after another (FA3's overlap of a tile's softmax
+// with the next tile's Q K^T measured slower at the serving shapes, see
+// PERF.md), each (query tile, head) block re-reads its K/V tiles from L2
+// (Kimi-K2's 8 heads a KV group), and the output is stored from registers
+// in 4-byte pieces.  The decode routine
+// reads K with one thread per position (each a 128-byte row), walks V one
+// position after another per thread (a chain of dependent loads), and leaves
+// half of its threads idle in the P V pass when D = 64.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -355,6 +413,310 @@ int launch_flash(const void* q, const void* k, const void* v, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- wgmma route -------------------------------------------------------------
+namespace fa_wg {
+
+using namespace hopper;
+
+constexpr int BQ = 64;          // query rows of a block: one consumer warpgroup
+constexpr int BOX = 64;         // bf16 in a 128-byte swizzled box row
+constexpr int STAGES = 2;       // K/V ring depth
+constexpr int THREADS = 160;    // consumer warpgroup (warps 0-3) + producer warp
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int DP, int BKV>
+struct Cfg {
+  static constexpr int ND = DP / BOX;                 // boxes along D
+  static constexpr int Q_BYTES = ND * BQ * 128;
+  static constexpr int KV_BYTES = ND * BKV * 128;     // one K or one V tile
+  static constexpr int STAGE_BYTES = 2 * KV_BYTES;
+  // Q, the ring, 1024 bytes of slack to align them (the 128-byte swizzle
+  // repeats every 1024 bytes), then the barriers: Q full, K full, V full
+  // and empty per stage
+  static constexpr int SMEM =
+      Q_BYTES + STAGES * STAGE_BYTES + 1024 + 8 * (1 + 3 * STAGES);
+  static_assert(DP == 64 || DP == 128, "wgmma N of P V");
+  static_assert(BKV == 64 || BKV == 128, "wgmma N of Q K^T");
+};
+
+struct Args {
+  __nv_bfloat16* out;
+  long long o_sb, o_ss, o_sh;   // element strides; the D stride is 1
+  int S, T, H, KVH, D;
+  int causal, window;
+  float scale_log2;             // D^-1/2 * log2(e)
+};
+
+template <int DP, int BKV>
+__global__ void __launch_bounds__(THREADS, 2)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap, const Args a) {
+  using C = Cfg<DP, BKV>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* ring = qs + C::Q_BYTES;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(ring + STAGES * C::STAGE_BYTES);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + STAGES;
+  uint64_t* empty = v_full + STAGES;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;   // most K/V tiles first
+  const int kvh = h / (a.H / a.KVH);
+  // the K/V tiles that meet the band of this query tile
+  int hi = a.T;
+  if (a.causal) hi = min(hi, q0 + BQ);
+  const int lo = a.window > 0 ? max(0, q0 - a.window + 1) / BKV * BKV : 0;
+  const int n_tiles = hi > lo ? cdiv(hi - lo, BKV) : 0;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(smem_u32(q_full), 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(smem_u32(&k_full[s]), 1);   // the producer's arrive
+      mbar_init(smem_u32(&v_full[s]), 1);
+      mbar_init(smem_u32(&empty[s]), 4);    // one per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // The role through a shuffle: a value the compiler knows to be
+  // warp-uniform, so it does not take the wgmma path for a divergent one.
+  const int role = __shfl_sync(0xffffffffu, tid / 128, 0);
+  if (role == 1) {
+    // ---- producer warp: one thread issues every TMA load -----------------
+    if (tid == 128) {
+      const uint32_t qbar = smem_u32(q_full);
+      mbar_expect_tx(qbar, C::Q_BYTES);
+#pragma unroll
+      for (int j = 0; j < C::ND; ++j)
+        tma_load_4d(smem_u32(qs + j * BQ * 128), &qmap, qbar, j * BOX, q0, h,
+                    b);
+      for (int n = 0; n < n_tiles; ++n) {
+        const int s = n % STAGES;
+        const int k0 = lo + n * BKV;
+        mbar_wait(smem_u32(&empty[s]), ((n / STAGES) & 1) ^ 1);
+        const uint32_t kt = smem_u32(ring + s * C::STAGE_BYTES);
+        const uint32_t vt = kt + C::KV_BYTES;
+        const uint32_t kbar = smem_u32(&k_full[s]);
+        const uint32_t vbar = smem_u32(&v_full[s]);
+        mbar_expect_tx(kbar, C::KV_BYTES);
+#pragma unroll
+        for (int j = 0; j < C::ND; ++j)
+          tma_load_4d(kt + j * BKV * 128, &kmap, kbar, j * BOX, k0, kvh, b);
+        mbar_expect_tx(vbar, C::KV_BYTES);
+#pragma unroll
+        for (int j = 0; j < C::ND; ++j)
+          tma_load_4d(vt + j * BKV * 128, &vmap, vbar, j * BOX, k0, kvh, b);
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup: 64 query rows ---------------------------------
+  // Thread l of warp w holds rows r = 16w + l/4 and r + 8 of the tile, and
+  // for each 8-column group j the columns 8j + 2(l%4) and +1: accumulator
+  // 4j + e is (row r + 8 (e / 2), column 8j + 2(l%4) + e % 2).
+  const int lane = tid % 32, warp = tid / 32;
+  const int r0 = warp * 16 + lane / 4;
+  const int c0 = 2 * (lane % 4);
+  float m[2] = {-INFINITY, -INFINITY};   // running max of the raw scores
+  float l[2] = {0.0f, 0.0f};             // this thread's share of the sum
+  float o[DP / 2];                       // defined by the first P V wgmma
+  const uint32_t q_addr = smem_u32(qs);
+  mbar_wait(smem_u32(q_full), 0);
+
+  for (int n = 0; n < n_tiles; ++n) {
+    const int s = n % STAGES;
+    const uint32_t phase = (n / STAGES) & 1;
+    const int k0 = lo + n * BKV;
+    const uint32_t k_addr = smem_u32(ring + s * C::STAGE_BYTES);
+    const uint32_t v_addr = k_addr + C::KV_BYTES;
+
+    // S = Q K^T: a k16 step is 32 bytes along a 128-byte row; the steps past
+    // the first 64 columns of D are in the second box
+    float sc[BKV / 2];
+    mbar_wait(smem_u32(&k_full[s]), phase);
+    fence_operands(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;
+      wgmma_ss<0>(sc,
+                  smem_desc(q_addr + (kk / 4) * BQ * 128 + off, 16, 1024),
+                  smem_desc(k_addr + (kk / 4) * BKV * 128 + off, 16, 1024),
+                  kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(sc);
+
+    // the mask, only on a tile that crosses T, the diagonal or the window
+    const bool edge = __shfl_sync(
+        0xffffffffu,
+        k0 + BKV > a.T || (a.causal && k0 + BKV - 1 > q0) ||
+            (a.window > 0 && k0 <= q0 + BQ - 1 - a.window),
+        0);
+    if (edge) {
+#pragma unroll
+      for (int i = 0; i < BKV / 2; ++i) {
+        const int q_pos = q0 + r0 + 8 * ((i % 4) / 2);
+        const int k_pos = k0 + 8 * (i / 4) + c0 + i % 2;
+        bool ok = k_pos < a.T;
+        if (a.causal) ok = ok && k_pos <= q_pos;
+        if (a.window > 0) ok = ok && k_pos > q_pos - a.window;
+        if (!ok) sc[i] = -INFINITY;
+      }
+    }
+
+    // online softmax in registers: a row's four threads share its max
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < BKV / 8; ++j) {
+      mx[0] = fmaxf(mx[0], fmaxf(sc[4 * j], sc[4 * j + 1]));
+      mx[1] = fmaxf(mx[1], fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+    }
+    float alpha[2], msc[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 1));
+      mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 2));
+      // a row with no attended key so far keeps p = 0 and alpha = 0
+      msc[e] = mx[e] == -INFINITY ? 0.0f : mx[e] * a.scale_log2;
+      alpha[e] = exp2f(m[e] * a.scale_log2 - msc[e]);
+      m[e] = mx[e];
+      l[e] *= alpha[e];
+    }
+    // p = exp2(s * scale * log2 e - max), summed in fp32 and rounded to bf16
+    // pairs: register 2j + e/2 is the (row, column pair) of accumulators
+    // 4j + e, e = 0, 2 — slice kk of P is registers 4kk .. 4kk+3, the A
+    // fragment of a m64k16 wgmma
+    uint32_t p[BKV / 4];
+#pragma unroll
+    for (int j = 0; j < BKV / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float p0 = exp2f(fmaf(sc[4 * j + 2 * e], a.scale_log2, -msc[e]));
+        const float p1 =
+            exp2f(fmaf(sc[4 * j + 2 * e + 1], a.scale_log2, -msc[e]));
+        l[e] += p0 + p1;
+        __nv_bfloat162 pair = __floats2bfloat162_rn(p0, p1);
+        p[2 * j + e] = *reinterpret_cast<uint32_t*>(&pair);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      o[4 * j] *= alpha[0];
+      o[4 * j + 1] *= alpha[0];
+      o[4 * j + 2] *= alpha[1];
+      o[4 * j + 3] *= alpha[1];
+    }
+
+    // O += P V: a k16 step is 16 rows (2 KB) down the MN-major V tile; its
+    // D boxes are KV rows x 128 bytes apart
+    mbar_wait(smem_u32(&v_full[s]), phase);
+    fence_operands(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) {
+      const uint32_t pa[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+                              p[4 * kk + 3]};
+      wgmma_rs(o, pa, smem_desc(v_addr + kk * 2048, BKV * 128, 1024),
+               n > 0 || kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(o);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(smem_u32(&empty[s]));
+  }
+
+  // ---- epilogue: O / max(l, 1e-30) -> bf16 pairs, rows past S dropped ----
+  float inv[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    l[e] += __shfl_xor_sync(0xffffffffu, l[e], 1);
+    l[e] += __shfl_xor_sync(0xffffffffu, l[e], 2);
+    inv[e] = 1.0f / fmaxf(l[e], 1e-30f);
+  }
+  __nv_bfloat16* ob = a.out + b * a.o_sb + h * a.o_sh;
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j) {
+    const int col = 8 * j + c0;
+    if (col >= a.D) continue;   // D % 16 == 0: col < D means col + 1 < D
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int q_pos = q0 + r0 + 8 * e;
+      if (q_pos >= a.S) continue;
+      // no K/V tile at all (a window past T): the simple route's zeros
+      const float x0 = n_tiles > 0 ? o[4 * j + 2 * e] * inv[e] : 0.0f;
+      const float x1 = n_tiles > 0 ? o[4 * j + 2 * e + 1] * inv[e] : 0.0f;
+      *reinterpret_cast<__nv_bfloat162*>(ob + q_pos * a.o_ss + col) =
+          __floats2bfloat162_rn(x0, x1);
+    }
+  }
+}
+
+// one operand [B, rows, heads, D] as a 4-D map (D, rows, heads, B), boxes of
+// 64 D x box_rows x 1 x 1; element strides (batch, row, head)
+int encode_operand(CUtensorMap* map, const void* ptr, int B, int rows,
+                   int heads, int D, const long long* st, int box_rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)rows,
+                              (cuuint64_t)heads, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st[1] * 2, (cuuint64_t)st[2] * 2,
+                                 (cuuint64_t)st[0] * 2};
+  const cuuint32_t box[4] = {BOX, (cuuint32_t)box_rows, 1, 1};
+  return encode(map, ptr, 4, dims, strides, box);
+}
+
+template <int DP, int BKV>
+int launch(const void* q, const void* k, const void* v, void* out, int B,
+           int S, int T_, int H, int KVH, int D, const long long* st,
+           int causal, int window, float scale, void* stream) {
+  using C = Cfg<DP, BKV>;
+  CUtensorMap qmap, kmap, vmap;
+  if (int err = encode_operand(&qmap, q, B, S, H, D, st, BQ)) return err;
+  if (int err = encode_operand(&kmap, k, B, T_, KVH, D, st + 3, BKV))
+    return err;
+  if (int err = encode_operand(&vmap, v, B, T_, KVH, D, st + 6, BKV))
+    return err;
+  Args a;
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.o_sb = st[9]; a.o_ss = st[10]; a.o_sh = st[11];
+  a.S = S; a.T = T_; a.H = H; a.KVH = KVH; a.D = D;
+  a.causal = causal; a.window = window;
+  a.scale_log2 = scale * LOG2E;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_wgmma_kernel<DP, BKV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(H, B, cdiv(S, BQ));
+  flash_wgmma_kernel<DP, BKV><<<grid, THREADS, C::SMEM,
+                                static_cast<cudaStream_t>(stream)>>>(
+      qmap, kmap, vmap, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_flash(const void* q, const void* k, const void* v, void* out,
+                 int B, int S, int T_, int H, int KVH, int D,
+                 const long long* strides, int causal, int window,
+                 float scale, void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0) return 0;
+  if (D <= 0 || D > MAX_D || D % 16 != 0 || KVH <= 0 || H % KVH != 0 ||
+      T_ <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (D <= BOX)
+    return launch<64, 128>(q, k, v, out, B, S, T_, H, KVH, D, strides, causal,
+                           window, scale, stream);
+  return launch<128, 64>(q, k, v, out, B, S, T_, H, KVH, D, strides, causal,
+                         window, scale, stream);
+}
+
+}  // namespace fa_wg
+
 // =============================================================================
 // decode: one query token per sequence, dense slab or pages
 // =============================================================================
@@ -631,10 +993,21 @@ extern "C" {
 
 int decode_chunk_size() { return DEC_CHUNK; }
 
+// strides: (batch, row, head) element strides of q, k, v, out; the D stride
+// is 1
 int flash_attention_bf16(const void* q, const void* k, const void* v,
                          void* out, int B, int S, int T, int H, int KVH,
                          int D, const long long* strides, int causal,
                          int window, float scale, void* stream) {
+  return fa_wg::launch_flash(q, k, v, out, B, S, T, H, KVH, D, strides,
+                             causal, window, scale, stream);
+}
+
+int flash_attention_simple_bf16(const void* q, const void* k, const void* v,
+                                void* out, int B, int S, int T, int H,
+                                int KVH, int D, const long long* strides,
+                                int causal, int window, float scale,
+                                void* stream) {
   return launch_flash<__nv_bfloat16>(q, k, v, out, B, S, T, H, KVH, D,
                                      strides, causal, window, scale, stream);
 }

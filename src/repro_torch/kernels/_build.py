@@ -48,6 +48,7 @@ _SIGNATURES = {
     "rmsnorm_bf16": (_P, _P, _P, _I, _I, _F, _P),
     "rmsnorm_f32": (_P, _P, _P, _I, _I, _F, _P),
     "flash_attention_bf16": _FLASH,
+    "flash_attention_simple_bf16": _FLASH,
     "flash_attention_f32": _FLASH,
     "decode_attention_bf16": _DECODE,
     "decode_attention_f32": _DECODE,

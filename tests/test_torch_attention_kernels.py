@@ -209,3 +209,65 @@ def test_wrappers_check_shapes_before_routing():
                                     torch.zeros(3, 4, 2, 8),
                                     torch.zeros(3, 2, dtype=torch.int32),
                                     torch.ones(2, dtype=torch.int32))
+
+
+# ---- flash_attention's route rule (what the wrapper picks on the card) ------
+
+def _bf16(*shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+def _fused_qkv_views():
+    """q, k, v as views into one fused projection [B, S, H + 2 KVH, D]."""
+    qkv = _bf16(2, 70, 8, 64)
+    return qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+
+
+@pytest.mark.parametrize("d,want", [(64, "wgmma"), (112, "wgmma"),
+                                    (128, "wgmma"), (14, "simple"),
+                                    (8, "simple")])
+def test_flash_route_by_head_dim(d, want):
+    q, kv = _bf16(1, 8, 4, d), _bf16(1, 8, 2, d)
+    assert fops.route(q, kv, kv) == want
+
+
+@pytest.mark.parametrize("case,want", [
+    ("fp32", "fp32"),
+    ("misaligned base", "simple"),
+    ("D stride 2", "simple"),
+    ("head stride 136 bytes", "simple"),
+    ("fused projection views", "wgmma")])
+def test_flash_route_by_dtype_alignment_and_strides(case, want):
+    kv = _bf16(1, 8, 2, 64)
+    if case == "fp32":
+        q = kv = torch.zeros(1, 8, 2, 64)
+    elif case == "misaligned base":
+        q = _bf16(1 + 8 * 4 * 64)[1:].view(1, 8, 4, 64)
+        assert q.data_ptr() % 16 != 0
+    elif case == "D stride 2":
+        q = _bf16(1, 8, 4, 128)[..., ::2]
+    elif case == "head stride 136 bytes":
+        q = _bf16(1, 8, 4, 68)[..., :64]
+    if case == "fused projection views":
+        q, k, v = _fused_qkv_views()
+    else:
+        k = v = kv
+    assert fops.route(q, k, v) == want
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64),
+                                     (torch.bfloat16, 14),
+                                     (torch.float32, 64)])
+def test_flash_cpu_wrapper_takes_the_plain_version_and_counts_nothing(dtype,
+                                                                      d):
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    rng = np.random.default_rng(d)
+    q = torch.from_numpy(rng.standard_normal((1, 20, 4, d))).to(dtype)
+    k = torch.from_numpy(rng.standard_normal((1, 20, 2, d))).to(dtype)
+    v = torch.from_numpy(rng.standard_normal((1, 20, 2, d))).to(dtype)
+    before, by_route = fops.launches, dict(fops.launches_by_route)
+    got = fops.flash_attention(q, k, v, True, 5)
+    assert fops.launches == before and fops.launches_by_route == by_route
+    assert torch.equal(got, flash_attention_ref(q, k, v, True, 5))
+    with pytest.raises(ValueError, match="CUDA"):
+        fops.flash_attention_simple_bf16(q, k, v)

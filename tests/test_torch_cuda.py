@@ -350,9 +350,19 @@ def test_rmsnorm_kernel_matches_plain(cuda, dtype, n, d):
     _assert_kernel_close(got, rmsnorm_ref(x, scale))
 
 
+# Qwen2-0.5B's 512-token prefill, D = 14 (simple route in bf16), a window
+# of 32, D = 128 at S = 130, a window of 1, Kimi-K2's 64/8 heads of 112 at
+# S = 200, an S edge at S = 77 with D = 64
 FLASH_CASES = [(1, 512, 14, 2, 64, 0), (2, 77, 4, 2, 14, 0),
                (1, 200, 4, 1, 64, 32), (1, 130, 2, 2, 128, 0),
-               (1, 90, 4, 2, 64, 1)]
+               (1, 90, 4, 2, 64, 1), (1, 200, 64, 8, 112, 0),
+               (2, 77, 4, 2, 64, 0)]
+
+
+def _want_flash_route(dtype, d):
+    if dtype == torch.float32:
+        return "fp32"
+    return "wgmma" if d % 16 == 0 else "simple"
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -362,9 +372,10 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, b, s, h, kvh, d,
     q = _randn(cuda, 1, b, s, h, d, dtype=dtype)
     k = _randn(cuda, 2, b, s, kvh, d, dtype=dtype)
     v = _randn(cuda, 3, b, s, kvh, d, dtype=dtype)
-    before = fops.launches
+    before, by_route = fops.launches, dict(fops.launches_by_route)
     got = fops.flash_attention(q, k, v, causal=True, window=window)
     assert fops.launches == before + 1
+    assert _route_delta(fops, by_route) == {_want_flash_route(dtype, d): 1}
     _assert_kernel_close(got, flash_attention_ref(q, k, v, True, window))
 
 
@@ -374,6 +385,46 @@ def test_flash_attention_reads_strided_operands(cuda):
     q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
     got = fops.flash_attention(q, k, v)
     _assert_kernel_close(got, flash_attention_ref(q, k, v))
+
+
+@pytest.mark.parametrize("d", [64, 112])
+def test_flash_wgmma_reads_no_neighbour_head_batch_row_or_row_past_s(cuda,
+                                                                     d):
+    """The operands are views with inf in the heads and batch rows beside
+    them and in the rows past S (= T): a TMA box that read any of them
+    would make the output non-finite."""
+    s, h, kvh = 150, 8, 2
+    inf = float("inf")
+    big_q = torch.full((3, s + 20, h + 2, d), inf, dtype=torch.bfloat16,
+                       device=cuda)
+    big_k = torch.full((3, s + 20, kvh + 2, d), inf, dtype=torch.bfloat16,
+                       device=cuda)
+    big_v = torch.full_like(big_k, inf)
+    q = big_q[1:2, :s, 1:h + 1]
+    k, v = big_k[1:2, :s, 1:kvh + 1], big_v[1:2, :s, 1:kvh + 1]
+    q.copy_(_randn(cuda, 12, 1, s, h, d, dtype=torch.bfloat16))
+    k.copy_(_randn(cuda, 13, 1, s, kvh, d, dtype=torch.bfloat16))
+    v.copy_(_randn(cuda, 14, 1, s, kvh, d, dtype=torch.bfloat16))
+    assert fops.route(q, k, v) == "wgmma"
+    got = fops.flash_attention(q, k, v, causal=True, window=40)
+    assert bool(torch.isfinite(got).all())
+    _assert_kernel_close(got, flash_attention_ref(q, k, v, True, 40))
+
+
+@pytest.mark.parametrize("s,h,kvh,d,window", [(512, 14, 2, 64, 0),
+                                              (200, 64, 8, 112, 0),
+                                              (130, 2, 2, 128, 17)])
+def test_flash_wgmma_route_agrees_with_the_simple_route(cuda, s, h, kvh, d,
+                                                        window):
+    q = _randn(cuda, 15, 1, s, h, d, dtype=torch.bfloat16)
+    k = _randn(cuda, 16, 1, s, kvh, d, dtype=torch.bfloat16)
+    v = _randn(cuda, 17, 1, s, kvh, d, dtype=torch.bfloat16)
+    by_route = dict(fops.launches_by_route)
+    got = fops.flash_attention(q, k, v, causal=True, window=window)
+    simple = fops.flash_attention_simple_bf16(q, k, v, causal=True,
+                                              window=window)
+    assert _route_delta(fops, by_route) == {"wgmma": 1, "simple": 1}
+    _assert_kernel_close(got, simple)
 
 
 DECODE_CASES = [(8, 14, 2, 1024, 64), (3, 4, 2, 200, 14), (2, 7, 1, 64, 64)]
