@@ -26,6 +26,9 @@ Phases (any failure raises and the script exits non-zero):
      bf16 prefills (Qwen2-0.5B at 512 and 1024 tokens, Kimi-K2's 64/8 heads
      of 112) with its route, TFLOP/s, share of the bound and the simple
      route (the WMMA routine the wgmma route replaced) at the same shape;
+     the decode pair at 8 slots of 1024 positions (Qwen2-0.5B's 14/2 heads
+     of 64, Kimi-K2's 64/8 of 112) likewise, beside the simple route (the
+     routine the mma route replaced), paged equal to dense bit for bit;
   6. serve: full-width Qwen2-0.5B behind ``Model(use_kernels=True)`` and
      ``InferenceEngine`` (8 slots, 1024 positions), once with the dense KV
      slab and once paged (16-position pages): 16 requests of 17-700 prompt
@@ -34,8 +37,10 @@ Phases (any failure raises and the script exits non-zero):
      to a preempted request's resume, in fp32 entirely); the kernel route
      is held against the plain route (prefill logits and 32 teacher-forced
      decode steps, bf16 and fp32); every flash_attention launch of the bf16
-     prefills on the wgmma route (here and in phase 8); a decode tick by
-     CUDA-graph replay is bit-equal to the eager tick; times and a profile of one decode tick;
+     prefills on the wgmma route and every decode_attention and
+     paged_decode launch of the bf16 decode ticks on the mma route (here and
+     in phase 8); a decode tick by CUDA-graph replay is bit-equal to the
+     eager tick; times and a profile of one decode tick;
   7. moe_gemm (Kimi-K2's 384 experts, d 7168, f 2048, at a decode tick's
      capacity 1 and a 512-token prefill's 13; fp32; off the tile lattice)
      and rwkv6 (RWKV6-1.6B's 32 heads of 64 at a 512-token prefill and an
@@ -214,6 +219,7 @@ def phase_environment() -> dict:
             wgmma = re.search(r"wg\d+gemm_kernelILi(\d+)ELi(\d+)ELb([01])E",
                               line)
             flash = re.search(r"flash_wgmma_kernelILi(\d+)ELi(\d+)E", line)
+            decode = re.search(r"decode_mma_kernelI\w*?(Dense|Paged)KV", line)
             name = ""
             if wgmma:
                 name = (f"{source}:{('branch', 'grouped')[int(wgmma[3])]}"
@@ -221,6 +227,8 @@ def phase_environment() -> dict:
             elif flash:
                 name = (f"{source}:flash_attention wgmma<bf16, DP {flash[1]}, "
                         f"BKV {flash[2]}>")
+            elif decode:
+                name = f"{source}:decode mma<bf16, {decode[1]}KV>"
             note = re.search(r"\((C\d{4})\) ([^']*)", line)
             if note:   # a ptxas remark (e.g. serialised wgmma), any kernel
                 log(f"[build] {name or source}: {note[1]} {note[2][:110]}")
@@ -646,9 +654,9 @@ def phase_attention_kernels(env: dict, gen: torch.Generator) -> dict:
     def measure(name, tag, dtype, err, kernel_fn, plain_fn, library_fn,
                 library_label, n_flops, n_bytes, flops_peak=None,
                 path=None, simple_fn=None):
-        """One [kernel] line; with ``path`` (flash_attention) also the
-        route, achieved TFLOP/s, the share of the bound and, with
-        ``simple_fn``, the simple route's time at the same shape."""
+        """One [kernel] line; with ``path`` (flash_attention and the decode
+        pair) also the route, achieved TFLOP/s, the share of the bound and,
+        with ``simple_fn``, the simple route's time at the same shape."""
         peak = flops_peak or (hw.peak_flops if dtype == torch.bfloat16
                               else FP32_PEAK[hw.name])
         bound, by = gemm_bound_ms(n_flops, n_bytes, peak, hw.hbm_bw)
@@ -759,19 +767,43 @@ def phase_attention_kernels(env: dict, gen: torch.Generator) -> dict:
             q.element_size() * (2 * b * s * h * d + 2 * b * s * kvh * d),
             path=path, simple_fn=simple_fn)
 
-    # -- decode: 8 slots of 1024 positions, attended up to pos ---------------
+    # -- decode: 8 slots of 1024 positions, attended up to pos: Qwen2's 14/2
+    # heads of 64 (bf16 and fp32) and Kimi-K2's 64/8 heads of 112 (bf16);
+    # each bf16 row timed beside the simple route (the routine the mma route
+    # replaced) in the same call, dense and through shuffled 16-position
+    # pages; the paged decode must equal the dense one bit for bit ----------
     rng = np.random.default_rng(1234)
     pos = torch.tensor(rng.integers(17, MAX_LEN - 24, SLOTS), device="cuda")
-    for dtype in (torch.bfloat16, torch.float32):
-        b, t, h, kvh, d = SLOTS, MAX_LEN, HEADS, KV_HEADS, HEAD_DIM
+    for tag, (h, kvh, d), dtype in [
+            ("decode", (HEADS, KV_HEADS, HEAD_DIM), bf16),
+            ("decode", (HEADS, KV_HEADS, HEAD_DIM), fp32),
+            ("kimi decode", kimi_heads, bf16)]:
+        b, t = SLOTS, MAX_LEN
         q = rnd((b, h, d), dtype)
         k, v = rnd((b, t, kvh, d), dtype), rnd((b, t, kvh, d), dtype)
         valid = torch.arange(t, device="cuda")[None] <= pos[:, None]
+        path = dops.route(q, k, v)
+        if path != ("mma" if dtype == bf16 else "fp32"):
+            raise AssertionError(f"decode_attention {tag} {_dt(dtype)} takes "
+                                 f"the {path} route")
+        by_route = dict(dops.launches_by_route)
         got = dops.decode_attention(q, k, v, valid)
         want = decode_attention_ref(q, k, v, valid)
         torch.cuda.synchronize()
-        err = check_close(got, want, "decode_attention")
+        if dops.launches_by_route[path] != by_route[path] + 1:
+            raise AssertionError(f"decode_attention {tag}: no {path} launch")
+        err = check_close(got, want, f"decode_attention {tag}")
         mask = valid[:, None, None, :]
+        simple_fn = simple_p = None
+        if dtype == bf16:
+            simple_err = check_close(
+                dops.decode_attention_simple_bf16(q, k, v, valid), want,
+                f"decode_attention simple {tag}")
+            log(f"[kernel] decode_attention {tag}: the simple route "
+                f"max_abs_err {simple_err:.3g}")
+
+            def simple_fn(q=q, k=k, v=v, valid=valid):
+                return dops.decode_attention_simple_bf16(q, k, v, valid)
 
         def sdpa(q=q, k=k, v=v, mask=mask):
             return F.scaled_dot_product_attention(
@@ -781,14 +813,17 @@ def phase_attention_kernels(env: dict, gen: torch.Generator) -> dict:
         log(f"[kernel] SDPA masked max_abs_err vs plain {lib_err:.3g}")
         n_valid = int(valid.sum())
         size = q.element_size()
-        results[("decode_attention", "decode", dtype)] = measure(
+        results[("decode_attention", tag, dtype)] = measure(
             "decode_attention",
-            f"decode B={b} T={t} H={h}/{kvh} D={d} ({n_valid} positions "
+            f"{tag} B={b} T={t} H={h}/{kvh} D={d} ({n_valid} positions "
             "attended)", dtype, err,
-            lambda: dops.decode_attention(q, k, v, valid),
-            lambda: decode_attention_ref(q, k, v, valid), sdpa,
+            lambda q=q, k=k, v=v, valid=valid: dops.decode_attention(
+                q, k, v, valid),
+            lambda q=q, k=k, v=v, valid=valid: decode_attention_ref(
+                q, k, v, valid), sdpa,
             "SDPA bool mask gqa", 4.0 * h * d * n_valid,
-            size * (2 * n_valid * kvh * d + 2 * b * h * d) + b * t)
+            size * (2 * n_valid * kvh * d + 2 * b * h * d) + b * t,
+            path=path, simple_fn=simple_fn)
 
         # paged: the same positions through shuffled 16-position pages
         maxp = MAX_LEN // PAGE
@@ -801,15 +836,28 @@ def phase_attention_kernels(env: dict, gen: torch.Generator) -> dict:
         kp[bt.long().flatten()] = k.reshape(b * maxp, PAGE, kvh, d)
         vp[bt.long().flatten()] = v.reshape(b * maxp, PAGE, kvh, d)
         lengths = (pos + 1).to(torch.int32)
+        if dops.route(q, kp, vp) != path:
+            raise AssertionError(f"paged_decode {tag}: pages take the "
+                                 f"{dops.route(q, kp, vp)} route, the slab "
+                                 f"{path}")
+        by_route = dict(pops.launches_by_route)
         got_p = pops.paged_decode_attention(q, kp, vp, bt, lengths)
         want_p = paged_decode_attention_ref(q, kp, vp, bt, lengths)
         torch.cuda.synchronize()
-        err_p = check_close(got_p, want_p, "paged_decode")
+        if pops.launches_by_route[path] != by_route[path] + 1:
+            raise AssertionError(f"paged_decode {tag}: no {path} launch")
+        err_p = check_close(got_p, want_p, f"paged_decode {tag}")
         if not torch.equal(got_p, got):
-            raise AssertionError("paged_decode differs from decode_attention "
-                                 "on the same positions")
+            raise AssertionError(f"paged_decode {tag} differs from "
+                                 "decode_attention on the same positions")
+        if dtype == bf16:
+            check_close(pops.paged_decode_simple_bf16(q, kp, vp, bt, lengths),
+                        want_p, f"paged_decode simple {tag}")
 
-        def gather_sdpa(q=q, kp=kp, vp=vp, bt=bt, mask=mask):
+            def simple_p(q=q, kp=kp, vp=vp, bt=bt, lengths=lengths):
+                return pops.paged_decode_simple_bf16(q, kp, vp, bt, lengths)
+
+        def gather_sdpa(q=q, kp=kp, vp=vp, bt=bt, mask=mask, kvh=kvh, d=d):
             idx = bt.long()
             kg = kp[idx].reshape(b, maxp * PAGE, kvh, d)
             vg = vp[idx].reshape(b, maxp * PAGE, kvh, d)
@@ -817,19 +865,21 @@ def phase_attention_kernels(env: dict, gen: torch.Generator) -> dict:
                 q[:, :, None], kg.transpose(1, 2), vg.transpose(1, 2),
                 attn_mask=mask, enable_gqa=True)
         gather_ms = cuda_ms(gather_sdpa, flush=flush)
-        log(f"[kernel] paged_decode two-call reference (page gather + SDPA, "
-            f"not one library call) {_dt(dtype)}: {gather_ms:.4f} ms")
+        log(f"[kernel] paged_decode {tag} two-call reference (page gather + "
+            f"SDPA, not one library call) {_dt(dtype)}: {gather_ms:.4f} ms")
         pages_read = int(((lengths + PAGE - 1) // PAGE).sum())
-        results[("paged_decode", "decode", dtype)] = measure(
+        results[("paged_decode", tag, dtype)] = measure(
             "paged_decode",
-            f"decode B={b} ps={PAGE} MAXP={maxp} H={h}/{kvh} D={d} "
+            f"{tag} B={b} ps={PAGE} MAXP={maxp} H={h}/{kvh} D={d} "
             f"({n_valid} positions attended; equal to decode_attention)",
             dtype, err_p,
-            lambda: pops.paged_decode_attention(q, kp, vp, bt, lengths),
-            lambda: paged_decode_attention_ref(q, kp, vp, bt, lengths), None,
+            lambda q=q, kp=kp, vp=vp, bt=bt, lengths=lengths:
+                pops.paged_decode_attention(q, kp, vp, bt, lengths),
+            lambda q=q, kp=kp, vp=vp, bt=bt, lengths=lengths:
+                paged_decode_attention_ref(q, kp, vp, bt, lengths), None,
             "none", 4.0 * h * d * n_valid,
             size * (2 * n_valid * kvh * d + 2 * b * h * d)
-            + 4 * (pages_read + b))
+            + 4 * (pages_read + b), path=path, simple_fn=simple_p)
 
     # -- decode odd shapes: D = 14, ragged T, null pages, clamped starts ------
     for dtype in (torch.bfloat16, torch.float32):
@@ -1069,12 +1119,15 @@ def _counters(*names: str) -> dict:
 
 def reset_launches() -> None:
     from repro_torch.kernels.branch_gemm import ops as bops
+    from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.grouped_gemm import ops as gops
+    from repro_torch.kernels.paged_decode import ops as pops
     for module, attr in _counters(*KERNELS).values():
         setattr(module, attr, 0)
-    for module in (bops, gops, fops):
+    for module in (bops, gops, fops, dops):
         module.launches_by_route.update(dict.fromkeys(module.ROUTES, 0))
+    pops.launches_by_route.update(dict.fromkeys(dops.ROUTES, 0))
 
 
 def gemm_routes() -> dict:
@@ -1108,6 +1161,21 @@ def check_flash_wgmma_only(tag: str) -> None:
             not routes["wgmma"]:
         raise AssertionError(f"[{tag}] bf16 prefills launched flash_attention "
                              f"off the wgmma route: {routes}")
+
+
+def check_decode_mma_only(tag: str) -> None:
+    """A bf16 serving run's decode_attention and paged_decode launches since
+    the last reset_launches() all took the mma route."""
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.paged_decode import ops as pops
+    routes = {"decode_attention": dict(dops.launches_by_route),
+              "paged_decode": dict(pops.launches_by_route)}
+    log(f"[{tag}] decode launches over the bf16 serving runs, by route "
+        f"{routes}")
+    if any(n for by in routes.values() for r, n in by.items() if r != "mma") \
+            or not all(by["mma"] for by in routes.values()):
+        raise AssertionError(f"[{tag}] bf16 decode ticks launched the decode "
+                             f"pair off the mma route: {routes}")
 
 
 def read_launches(*names: str) -> dict:
@@ -1150,6 +1218,7 @@ def phase_serve(seed: int) -> dict:
     launches = read_launches("rmsnorm", "flash_attention",
                              "decode_attention", "paged_decode")
     check_flash_wgmma_only("serve")
+    check_decode_mma_only("serve")
     # -- end of the main path's run ------------------------------------------
     log(f"[serve] wrapper launches over both runs (eager prefills + graph "
         f"warm-up and recording) {launches}")
@@ -1859,6 +1928,7 @@ def phase_kimi(seed: int) -> dict:
     launches = read_launches("rmsnorm", "flash_attention", "decode_attention",
                              "paged_decode", "moe_gemm")
     check_flash_wgmma_only("kimi")
+    check_decode_mma_only("kimi")
     # -- end of the serving path's run ------------------------------------------
     log(f"[kimi] wrapper launches over both serving runs {launches}")
     for name, n in launches.items():

@@ -77,30 +77,63 @@
 //
 // fp32: the simple route's structure with FMA products on the CUDA cores.
 //
-// decode_attention / paged_decode: one device routine.  At decode B*KVH is
-// small (16 for Qwen2-0.5B at 8 slots), so the KV positions are split into
-// chunks of DEC_CHUNK = 128 positions counted from absolute position 0, one
-// block per (chunk, KV head, batch row) — flash-decoding.  A block serves all
-// query heads of its KV group (7 for Qwen2), so each K/V row is read once per
-// group: thread j scores position j of the chunk against every head, a warp
-// per head takes the chunk's max and sum, and each thread then accumulates one
-// output dimension over the chunk.  Partial (acc, max, sum) go to a scratch
-// buffer and a second kernel combines the chunks in ascending order, skipping
-// those with no valid position (a row with none at all averages V over every
-// position, as the plain versions' softmax of an all-masked row does).  The two entry points differ only in where a
-// position's K/V row is (slab stride, or block-table page + offset) and in the
-// mask (valid[b, t], or starts[b] <= t < lengths[b]); masked positions are
-// never loaded, so trailing table entries may point anywhere.  Because the
-// dense and the paged kernel sum the same positions in the same order, a
-// paged decode equals the dense decode bit for bit.
+// decode_attention / paged_decode: one device routine, so a paged decode
+// equals the dense decode bit for bit (the same positions summed in the same
+// order).  The two entry points differ only in where a position's K/V row is
+// (slab stride, or block-table page + offset) and in the mask (valid[b, t],
+// or starts[b] <= t < lengths[b]); masked positions are never loaded, so
+// trailing table entries may point anywhere.  A row with no attended
+// position averages V over every position (every table entry, null pages
+// included), as the plain versions' softmax of an all-masked row does.  Two
+// routes, picked by the Python wrapper from dtype, head dims, strides and
+// alignment alone (kernels/decode_attention/ops.py route()), the same for
+// the slab and for pages:
+//
+// mma (bf16, Dk and Dv multiples of 8, 16-byte aligned bases and strides).
+// Split KV to fill the card: the wrapper picks the positions per block from
+// (B, KVH, T, SM count) alone, about one block an SM (measured faster than
+// two at both serving shapes), whole 16-position tiles counted from
+// position 0, so a slab and pages of equal T split alike.
+// The n <= 16 splits of one (KV head, batch row) are one thread-block
+// cluster.  A block (4 warps) first loads, in one round, the group's G <= 16
+// query heads (cp.async into a 16-row tile, rows past G zero), the split's
+// slice of valid (dense: a ballot a warp gives two tiles' masks) or its
+// table entries with starts and lengths (paged: one read per page).  A split
+// with nothing attended loads no K or V and contributes l = 0.  Warp w then
+// walks tiles w, w + 4, ... of the split with two in flight: every lane
+// issues 16-byte cp.async copies of the attended K and V rows (masked rows
+// zero-filled, never read).  Per tile, mma.sync.m16n8k16 (bf16 in, fp32
+// accumulate) with the query heads as M: S[16 x 16] = Q K^T (ldmatrix), the
+// online softmax on the accumulator fragments in log2 units (scale * log2 e
+// folded into exp2, a quad shuffle per row), the unnormalised p rounded to
+// bf16 as the A fragment of O += P V with V read by ldmatrix.trans; O stays
+// in registers.  The block merges its warps' (O, m, l) in ascending order
+// into the split's partial in its own shared memory; after a cluster
+// barrier the cluster's threads combine the splits in ascending order
+// through distributed shared memory (no partial goes to device memory, one
+// launch) and write the output.
+//
+// simple (any other bf16 shape, e.g. D = 14; also exposed as
+// decode_attention_simple_bf16 / paged_decode_simple_bf16 so that a
+// measurement can hold the mma route against it) and fp32: chunks of
+// DEC_CHUNK = 128 positions, one block per (chunk, KV head, batch row) serving
+// all heads of the group: thread j scores position j against every head, a
+// warp per head takes the chunk's max and sum, each thread then accumulates
+// one output dimension over the chunk (a chain of dependent loads); partial
+// (acc, max, sum) go to a scratch buffer and a second kernel combines the
+// chunks in ascending order.
 //
 // Bounds at the serving shapes (Qwen2-0.5B: H 14, KVH 2, D 64, bf16; H100 SXM
 // data sheet: 989 TFLOP/s bf16, 3.35 TB/s):
 //   prefill S = T = 512: causal QK^T + PV 0.47 GFLOP -> 0.48 us; q, k, v, out
 //     2.10 MB -> 0.63 us; bound by bytes.
-//   decode 8 slots, T = 1024 fully valid: K + V 4.19 MB -> 1.25 us, bound by
-//     bytes (the kernel reads only the valid positions; chip_smoke.py counts
-//     those of its run).
+//   decode 8 slots, T = 1024: bound by bytes, the attended positions' K and V
+//     rows (the only ones read), q and the output: 4.19 MB -> 1.25 us when
+//     every position is attended; chip_smoke.py counts those of its run
+//     (about half at the serve trace's lengths).  No decode kernel nears
+//     it: a launch that reads ~2 MB spends its time in the chain of
+//     dependent steps (the stage round, the K/V round, the tile products,
+//     the merges), not in moving bytes.
 //   prefill S = T = 1024 (the serve engine's max_len): 1.88 GFLOP -> 1.9 us;
 //     4.19 MB -> 1.25 us; bound by operations.
 //   Kimi-K2 prefill S = T = 512, 64/8 heads of 112: 3.77 GFLOP -> 3.8 us;
@@ -110,10 +143,10 @@
 // with the next tile's Q K^T measured slower at the serving shapes, see
 // PERF.md), each (query tile, head) block re-reads its K/V tiles from L2
 // (Kimi-K2's 8 heads a KV group), and the output is stored from registers
-// in 4-byte pieces.  The decode routine
-// reads K with one thread per position (each a 128-byte row), walks V one
-// position after another per thread (a chain of dependent loads), and leaves
-// half of its threads idle in the P V pass when D = 64.
+// in 4-byte pieces.  The decode mma route pads the group's G query heads to
+// the 16 rows of an mma (7 of 16 used for Qwen2-0.5B, 8 for Kimi-K2) and
+// walks a split's tiles in each warp one after another.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -721,9 +754,12 @@ int launch_flash(const void* q, const void* k, const void* v, void* out,
 // decode: one query token per sequence, dense slab or pages
 // =============================================================================
 
-constexpr int DEC_CHUNK = 128;     // KV positions per block (one per thread)
+constexpr int DEC_CHUNK = 128;     // simple/fp32: KV positions per block
 constexpr int DEC_THREADS = DEC_CHUNK;
 constexpr int MAX_GROUP = 16;      // query heads per KV head
+constexpr int DT = 16;             // mma: KV positions per tile
+constexpr int DM_MAX_SPLITS = 16;  // mma: most splits (a cluster's blocks)
+constexpr unsigned FULL = 0xffffffffu;
 
 struct DecodeArgs {
   const void* q;                   // [B, H, Dk]
@@ -738,14 +774,21 @@ struct DecodeArgs {
   const int* starts;               // paged: [B] or null (= 0)
   const int* lengths;              // paged: [B]
   int maxp, page_size;
-  int H, KVH, T, Dk, Dv, n_chunks;
+  int H, KVH, T, Dk, Dv;
+  int n_chunks;                    // simple/fp32: chunks; mma: splits
+  int split_len, dkp;              // mma: positions per split; Dk padded to 16
   float scale;
-  float* part;                     // [B*H*n_chunks*Dv] acc, then [..*2] m, l
+  float* part;                     // simple/fp32: [B*H*n_chunks*Dv] acc, then
+                                   // [..*2] m, l
   void* out;                       // [B, H, Dv]
   long long o_sb, o_sh;
 };
 
-// Where a position's K/V rows are, and whether it is attended.
+// Where a position's K/V rows are, and whether it is attended.  For the mma
+// route, stage() (called by every thread of a block) puts the split's tile
+// masks (a bit per attended position) into tmask and, paged, the table
+// entries of the pages it spans into pages, and says whether any position is
+// attended; tile_row() then gives an attended position's K and V rows.
 struct DenseKV {
   __device__ static bool ok(const DecodeArgs& a, int b, int t) {
     return a.valid[b * a.valid_sb + t] != 0;
@@ -753,6 +796,31 @@ struct DenseKV {
   __device__ static long long row(const DecodeArgs& a, long long s0,
                                   long long s1, int b, int t) {
     return b * s0 + t * s1;
+  }
+  // the split's slice of valid, a warp per 32 positions (two tiles)
+  __device__ static bool stage(const DecodeArgs& a, int b, int s0, int s1,
+                               int n_tiles, unsigned short* tmask, int*) {
+    const int lane = threadIdx.x % 32;
+    int found = 0;
+    for (int t0 = s0 + threadIdx.x / 32 * 32; t0 < s0 + n_tiles * DT;
+         t0 += blockDim.x) {
+      const int t = t0 + lane;
+      const bool on = t < s1 && ok(a, b, t);
+      const unsigned m = __ballot_sync(FULL, on);
+      const int i = (t0 - s0) / DT;
+      if (lane == 0) {
+        tmask[i] = m & 0xffffu;
+        if (i + 1 < n_tiles) tmask[i + 1] = m >> 16;
+      }
+      found |= on;
+    }
+    return __syncthreads_or(found) != 0;
+  }
+  __device__ static void tile_row(const DecodeArgs& a, int b, int t, int,
+                                  const int*, long long& k_row,
+                                  long long& v_row) {
+    k_row = row(a, a.k_s0, a.k_s1, b, t);
+    v_row = row(a, a.v_s0, a.v_s1, b, t);
   }
 };
 
@@ -765,6 +833,32 @@ struct PagedKV {
                                   long long s1, int b, int t) {
     const long long page = a.bt[b * a.maxp + t / a.page_size];
     return page * s0 + (t % a.page_size) * s1;
+  }
+  // one read per table entry of the split (an int of the table, whatever
+  // page it names), loaded together with starts and lengths
+  __device__ static bool stage(const DecodeArgs& a, int b, int s0, int s1,
+                               int n_tiles, unsigned short* tmask,
+                               int* pages) {
+    const int p0 = s0 / a.page_size, np = (s1 - 1) / a.page_size - p0 + 1;
+    for (int p = threadIdx.x; p < np; p += blockDim.x)
+      pages[p] = a.bt[b * a.maxp + p0 + p];
+    const int lo = max(s0, a.starts != nullptr ? a.starts[b] : 0);
+    const int hi = min(s1, a.lengths[b]);
+    for (int i = threadIdx.x; i < n_tiles; i += blockDim.x) {
+      const int t0 = s0 + i * DT;
+      const int x0 = max(lo, t0) - t0, x1 = min(hi, t0 + DT) - t0;
+      tmask[i] = x1 > x0 ? ((1u << x1) - 1u) & ~((1u << x0) - 1u) : 0u;
+    }
+    __syncthreads();
+    return lo < hi;
+  }
+  __device__ static void tile_row(const DecodeArgs& a, int, int t, int s0,
+                                  const int* pages, long long& k_row,
+                                  long long& v_row) {
+    const long long page = pages[t / a.page_size - s0 / a.page_size];
+    const int off = t % a.page_size;
+    k_row = page * a.k_s0 + off * a.k_s1;
+    v_row = page * a.v_s0 + off * a.v_s1;
   }
 };
 
@@ -941,6 +1035,499 @@ int launch_decode(DecodeArgs& a, int B, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- mma route: split KV over cp.async tiles, tensor-core products ----------
+//
+// A cluster of n <= DM_MAX_SPLITS blocks owns one (KV head, batch row), a
+// block one split of its positions.  A block first stages, with one round of
+// loads, the group's queries (cp.async), the split's masks and (paged) its
+// table entries.  Then warp w takes tiles w, w + DM_WARPS, ... of the split
+// (interleaved, so a split cut short by a row's length still spreads over
+// all warps) and keeps DM_STAGES of them in flight.  Per tile the group's
+// G <= 16 query heads (zero rows past G) are the M of mma.m16n8k16:
+// S[16 x 16] = Q K^T over Dk in k-steps of 16, then O[16 x Dv] += P[16 x 16]
+// V[16 x Dv].  The block merges its warps into the split's partial in its
+// own shared memory, and after a cluster barrier the blocks combine the
+// splits through distributed shared memory: no partial leaves the cluster.
+
+constexpr int DM_WARPS = 4;
+constexpr int DM_STAGES = 2;       // tiles in flight per warp
+constexpr int DM_THREADS = DM_WARPS * 32;
+constexpr int DM_KSTEPS = MAX_D / 16;
+constexpr int DM_NBLOCKS = MAX_D / 8;
+
+// Row stride (elements) of a Q, K or V tile in shared memory: the width in
+// 16-byte chunks made odd, so the eight rows one ldmatrix phase reads fall
+// on eight different bank groups.
+__host__ __device__ inline int dm_ld(int width) {
+  return (cdiv(width, 8) | 1) * 8;
+}
+
+// Dynamic shared memory, in this order: the warps' tile rings (each ring
+// then holds its warp's O [16 x Dv], m [16], l [16] in fp32 for the block's
+// merge: 64 Dv + 128 bytes, less than the ring's 64 (ldk + ldv)); the
+// split's partial (O [16 x Dv], then (m, l) [16]); the Q tile; the tile
+// masks (a u16 each); and (paged) the table entries the split spans.
+struct DmLayout {
+  int ring_elems, part_floats, q_elems, mask_words;
+  __host__ __device__ DmLayout(int dkp, int dv, int n_tiles)
+      : ring_elems(DM_STAGES * DT * (dm_ld(dkp) + dm_ld(dv))),
+        part_floats(16 * dv + 32),
+        q_elems(DT * dm_ld(dkp)),
+        mask_words(cdiv(n_tiles, 2)) {}
+  __host__ __device__ size_t bytes(int n_pages) const {
+    return static_cast<size_t>(DM_WARPS) * ring_elems * 2 +
+           static_cast<size_t>(part_floats) * 4 +
+           static_cast<size_t>(q_elems) * 2 +
+           static_cast<size_t>(mask_words) * 4 +
+           static_cast<size_t>(n_pages) * 4;
+  }
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy; with on = false nothing is read and the 16
+// bytes are zero-filled
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool on) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(on ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2_t(unsigned (&r)[2], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_u32(p)));
+}
+
+// c += a b: a 16 x 16 bf16 (row), b 16 x 8 bf16 (col), c 16 x 8 fp32
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// Put tile i of the split (attended positions in `mask`) in flight into one
+// stage.  Lanes j and j + 16 take position s0 + 16 i + j and copy alternate
+// 16-byte chunks of its K and V rows; masked rows (and K's pad columns past
+// Dk) are zero-filled and never read, so trailing table entries may point
+// anywhere.  A tile with no attended position issues nothing.
+template <typename KV>
+__device__ __forceinline__ void dm_issue(const DecodeArgs& a, int b, int kvh,
+                                         int s0, int i, unsigned mask,
+                                         const int* pages,
+                                         __nv_bfloat16* ks,
+                                         __nv_bfloat16* vs) {
+  if (mask == 0) return;
+  const int lane = threadIdx.x % 32, r = lane % DT;
+  const bool ok = (mask >> r) & 1u;
+  long long k_row = 0, v_row = 0;
+  if (ok) KV::tile_row(a, b, s0 + i * DT + r, s0, pages, k_row, v_row);
+  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(a.k);
+  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(a.v);
+  const __nv_bfloat16* kr = k + k_row + kvh * a.k_sh;
+  const __nv_bfloat16* vr = v + v_row + kvh * a.v_sh;
+  ks += r * dm_ld(a.dkp);
+  vs += r * dm_ld(a.Dv);
+  for (int c = lane / DT * 8; c < a.dkp; c += 16) {
+    const bool on = ok && c < a.Dk;
+    cp_async16(ks + c, on ? kr + c : k, on);
+  }
+  for (int c = lane / DT * 8; c < a.Dv; c += 16)
+    cp_async16(vs + c, ok ? vr + c : v, ok);
+}
+
+// After the cluster barrier: out = sum_s 2^(m_s - M) acc_s / sum_s 2^(m_s -
+// M) l_s over the splits with an attended position, in ascending split
+// order, read from the cluster's blocks through distributed shared memory.
+// The cluster's threads share the output, 4 columns of a head each.  A group
+// with no attended position takes the simple route's second pass: V averaged
+// over all T positions with weights bf16(1/T), as the plain versions'
+// softmax of an all-masked row gives.
+template <typename KV>
+__device__ void dm_combine(const DecodeArgs& a, int b, int kvh,
+                           float* part) {
+  using T = __nv_bfloat16;
+  namespace cg = cooperative_groups;
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int G = a.H / a.KVH, n = a.n_chunks, d4 = a.Dv / 4;
+  const int rank = static_cast<int>(cluster.block_rank());
+  for (int i = rank + n * static_cast<int>(threadIdx.x); i < G * d4;
+       i += n * DM_THREADS) {
+    const int r = i / d4, d = (i % d4) * 4, h = kvh * G + r;
+    float m = -INFINITY, l = 0.0f;
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    float2 st[DM_MAX_SPLITS];
+    float4 x[DM_MAX_SPLITS];
+#pragma unroll
+    for (int s = 0; s < DM_MAX_SPLITS; ++s)
+      if (s < n) {
+        const float* p = cluster.map_shared_rank(part, s);
+        st[s] = *reinterpret_cast<const float2*>(p + 16 * a.Dv + 2 * r);
+        x[s] = *reinterpret_cast<const float4*>(p + r * a.Dv + d);
+      }
+#pragma unroll
+    for (int s = 0; s < DM_MAX_SPLITS; ++s)
+      if (s < n && st[s].y > 0.0f) m = fmaxf(m, st[s].x);
+#pragma unroll
+    for (int s = 0; s < DM_MAX_SPLITS; ++s)
+      if (s < n && st[s].y > 0.0f) {
+        const float f = exp2f(st[s].x - m);
+        acc[0] += f * x[s].x;
+        acc[1] += f * x[s].y;
+        acc[2] += f * x[s].z;
+        acc[3] += f * x[s].w;
+        l += f * st[s].y;
+      }
+    if (l > 0.0f) {
+      for (int e = 0; e < 4; ++e) acc[e] /= fmaxf(l, 1e-30f);
+    } else {
+      const float p = to_f(from_f<T>(1.0f / static_cast<float>(a.T)));
+      const T* vb = static_cast<const T*>(a.v) + kvh * a.v_sh + d;
+      for (int t = 0; t < a.T; ++t) {
+        const T* vr = vb + KV::row(a, a.v_s0, a.v_s1, b, t);
+        for (int e = 0; e < 4; ++e) acc[e] += p * to_f(vr[e]);
+      }
+    }
+    T* out = static_cast<T*>(a.out) + b * a.o_sb + h * a.o_sh + d;
+    for (int e = 0; e < 4; ++e) out[e] = from_f<T>(acc[e]);
+  }
+}
+
+template <typename KV>
+__global__ void __launch_bounds__(DM_THREADS, 3)
+decode_mma_kernel(DecodeArgs a) {
+  using T = __nv_bfloat16;
+  extern __shared__ __align__(128) unsigned char dm_smem[];
+  __shared__ float merge_w[DM_WARPS][MAX_GROUP];
+
+  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int G = a.H / a.KVH;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int s0 = split * a.split_len;
+  const int s1 = min(s0 + a.split_len, a.T);
+  const int n_tiles = cdiv(s1 - s0, DT);
+  const int ldk = dm_ld(a.dkp), ldv = dm_ld(a.Dv);
+  const DmLayout lay(a.dkp, a.Dv, cdiv(a.split_len, DT));
+  T* rings = reinterpret_cast<T*>(dm_smem);
+  float* part = reinterpret_cast<float*>(rings + DM_WARPS * lay.ring_elems);
+  T* qs = reinterpret_cast<T*>(part + lay.part_floats);
+  unsigned short* tmask = reinterpret_cast<unsigned short*>(qs + lay.q_elems);
+  int* pages = reinterpret_cast<int*>(tmask + 2 * lay.mask_words);
+  float* part_ml = part + 16 * a.Dv;         // (m, l) per head
+
+  // one round of loads: the group's queries (rows past G and columns past Dk
+  // zero) by cp.async, with the split's masks and (paged) table entries
+  const T* qb = static_cast<const T*>(a.q) + b * a.q_sb +
+                static_cast<long long>(kvh) * G * a.q_sh;
+  const int cq = a.dkp / 8;
+  for (int c = tid; c < DT * cq; c += DM_THREADS) {
+    const int r = c / cq, col = (c % cq) * 8;
+    const bool on = r < G && col < a.Dk;
+    cp_async16(qs + r * ldk + col, on ? qb + r * a.q_sh + col : qb, on);
+  }
+  cp_async_commit();
+
+  if (!KV::stage(a, b, s0, s1, n_tiles, tmask, pages)) {
+    // nothing attended in the split: an empty partial (l = 0), no K/V load
+    cp_async_wait<0>();
+    if (tid < G) {
+      part_ml[2 * tid] = NEG_INF;
+      part_ml[2 * tid + 1] = 0.0f;
+    }
+  } else {
+    T* ring = rings + warp * lay.ring_elems;
+    const int stage_elems = lay.ring_elems / DM_STAGES;
+#pragma unroll
+    for (int s = 0; s < DM_STAGES; ++s) {
+      const int i = warp + s * DM_WARPS;
+      if (i < n_tiles)
+        dm_issue<KV>(a, b, kvh, s0, i, tmask[i], pages,
+                     ring + s * stage_elems, ring + s * stage_elems + DT * ldk);
+      cp_async_commit();
+    }
+    cp_async_wait<DM_STAGES>();    // the queries have landed
+    __syncthreads();
+
+    // the queries as A fragments of S = Q K^T: lane (g, tq) holds rows g and
+    // g + 8, columns 2tq, 2tq + 1 (+ 8) of each k-step
+    const int nks = a.dkp / 16, nnb = a.Dv / 8;
+    const int mat = lane / 8;
+    unsigned qa[DM_KSTEPS][4];
+    {
+      const T* qbase = qs + ((mat & 1) * 8 + lane % 8) * ldk + (mat >> 1) * 8;
+#pragma unroll
+      for (int ks = 0; ks < DM_KSTEPS; ++ks)
+        if (ks < nks) ldsm_x4(qa[ks], qbase + ks * 16);
+    }
+
+    const float c2 = a.scale * 1.4426950408889634f;   // scale * log2(e)
+    float o[DM_NBLOCKS][4];
+#pragma unroll
+    for (int nb = 0; nb < DM_NBLOCKS; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[nb][e] = 0.0f;
+    float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.0f, 0.0f};
+
+    for (int j = 0; warp + j * DM_WARPS < n_tiles; ++j) {
+      const int stage = j % DM_STAGES;
+      cp_async_wait<DM_STAGES - 1>();
+      __syncwarp();
+      const unsigned mask = tmask[warp + j * DM_WARPS];
+      const T* ks_t = ring + stage * stage_elems;
+      const T* vs_t = ks_t + DT * ldk;
+      if (mask != 0) {
+        // S = Q K^T: one ldmatrix.x4 gives both 8-position halves of a
+        // k-step
+        float s[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+        const T* kbase =
+            ks_t + ((mat >> 1) * 8 + lane % 8) * ldk + (mat & 1) * 8;
+#pragma unroll
+        for (int ks = 0; ks < DM_KSTEPS; ++ks)
+          if (ks < nks) {
+            unsigned kb[4];
+            ldsm_x4(kb, kbase + ks * 16);
+            mma_bf16(s[0], qa[ks], kb[0], kb[1]);
+            mma_bf16(s[1], qa[ks], kb[2], kb[3]);
+          }
+        // online softmax on the fragments, in log2 units; lane (g, tq) holds
+        // positions 8nb + 2tq (+1) of rows g (e = 0, 1) and g + 8 (e = 2, 3)
+        float alpha[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float mx = -INFINITY;
+#pragma unroll
+          for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int pos = nb * 8 + 2 * tq + e;
+              const float x =
+                  (mask >> pos) & 1u ? s[nb][2 * h + e] * c2 : -INFINITY;
+              s[nb][2 * h + e] = x;
+              mx = fmaxf(mx, x);
+            }
+          mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+          // the quad covers all 16 positions, one of them attended: finite
+          const float m_new = fmaxf(m_run[h], mx);
+          alpha[h] = exp2f(m_run[h] - m_new);
+          m_run[h] = m_new;
+          float sum = 0.0f;
+#pragma unroll
+          for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float p = exp2f(s[nb][2 * h + e] - m_new);
+              s[nb][2 * h + e] = p;
+              sum += p;
+            }
+          l_run[h] = l_run[h] * alpha[h] + sum;
+        }
+        // P as the A fragment of O += P V: the unnormalised p rounded to
+        // bf16 (ROADMAP C8)
+        const unsigned pa[4] = {pack_bf16(s[0][0], s[0][1]),
+                                pack_bf16(s[0][2], s[0][3]),
+                                pack_bf16(s[1][0], s[1][1]),
+                                pack_bf16(s[1][2], s[1][3])};
+#pragma unroll
+        for (int nb = 0; nb < DM_NBLOCKS; ++nb)
+          if (nb < nnb) {
+            o[nb][0] *= alpha[0];
+            o[nb][1] *= alpha[0];
+            o[nb][2] *= alpha[1];
+            o[nb][3] *= alpha[1];
+          }
+        // V [16 x Dv] read transposed by ldmatrix: one .x4 for 16 columns,
+        // an .x2 (lanes 0-15 give the rows) for a last 8
+        const T* vbase =
+            vs_t + ((mat & 1) * 8 + lane % 8) * ldv + (mat >> 1) * 8;
+#pragma unroll
+        for (int n2 = 0; n2 < DM_NBLOCKS / 2; ++n2) {
+          if (2 * n2 + 1 < nnb) {
+            unsigned vb[4];
+            ldsm_x4_t(vb, vbase + n2 * 16);
+            mma_bf16(o[2 * n2], pa, vb[0], vb[1]);
+            mma_bf16(o[2 * n2 + 1], pa, vb[2], vb[3]);
+          } else if (2 * n2 < nnb) {
+            unsigned vb[2];
+            ldsm_x2_t(vb, vbase + n2 * 16);
+            mma_bf16(o[2 * n2], pa, vb[0], vb[1]);
+          }
+        }
+      }
+      __syncwarp();                // the stage is read before it is refilled
+      const int i = warp + (j + DM_STAGES) * DM_WARPS;
+      if (i < n_tiles)
+        dm_issue<KV>(a, b, kvh, s0, i, tmask[i], pages,
+                     ring + stage * stage_elems,
+                     ring + stage * stage_elems + DT * ldk);
+      cp_async_commit();
+    }
+    cp_async_wait<0>();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l_run[h] += __shfl_xor_sync(FULL, l_run[h], 1);
+      l_run[h] += __shfl_xor_sync(FULL, l_run[h], 2);
+    }
+    __syncwarp();
+
+    // the warp's (O, m, l) into its own ring, then the block merges its
+    // warps in ascending order into the split's partial: a thread per head
+    // finds its weights, then a thread per 4 columns sums
+    float* wo = reinterpret_cast<float*>(ring);
+#pragma unroll
+    for (int nb = 0; nb < DM_NBLOCKS; ++nb)
+      if (nb < nnb) {
+        const int c = nb * 8 + 2 * tq;
+        wo[g * a.Dv + c] = o[nb][0];
+        wo[g * a.Dv + c + 1] = o[nb][1];
+        wo[(g + 8) * a.Dv + c] = o[nb][2];
+        wo[(g + 8) * a.Dv + c + 1] = o[nb][3];
+      }
+    if (tq == 0) {
+      wo[16 * a.Dv + g] = m_run[0];
+      wo[16 * a.Dv + g + 8] = m_run[1];
+      wo[16 * a.Dv + 16 + g] = l_run[0];
+      wo[16 * a.Dv + 24 + g] = l_run[1];
+    }
+    __syncthreads();
+    const float* wf = reinterpret_cast<const float*>(dm_smem);
+    const int wstride = lay.ring_elems / 2;          // floats a ring
+    if (tid < G) {
+      float m = -INFINITY, l = 0.0f;
+      for (int w = 0; w < DM_WARPS; ++w)
+        if (wf[w * wstride + 16 * a.Dv + 16 + tid] > 0.0f)
+          m = fmaxf(m, wf[w * wstride + 16 * a.Dv + tid]);
+      for (int w = 0; w < DM_WARPS; ++w) {
+        const float lw = wf[w * wstride + 16 * a.Dv + 16 + tid];
+        const float f =
+            lw > 0.0f ? exp2f(wf[w * wstride + 16 * a.Dv + tid] - m) : 0.0f;
+        merge_w[w][tid] = f;
+        l += f * lw;
+      }
+      part_ml[2 * tid] = l > 0.0f ? m : NEG_INF;
+      part_ml[2 * tid + 1] = l;
+    }
+    __syncthreads();
+    const int d4 = a.Dv / 4;
+    for (int i = tid; i < G * d4; i += DM_THREADS) {
+      const int r = i / d4, c = (i % d4) * 4;
+      float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      for (int w = 0; w < DM_WARPS; ++w) {
+        const float f = merge_w[w][r];
+        const float4 x =
+            *reinterpret_cast<const float4*>(wf + w * wstride + r * a.Dv + c);
+        acc.x += f * x.x;
+        acc.y += f * x.y;
+        acc.z += f * x.z;
+        acc.w += f * x.w;
+      }
+      *reinterpret_cast<float4*>(part + r * a.Dv + c) = acc;
+    }
+  }
+
+  // every split's partial is in its block's shared memory: combine them
+  // across the cluster, and keep each block's memory until all have read it
+  cooperative_groups::this_cluster().sync();
+  dm_combine<KV>(a, b, kvh, part);
+  cooperative_groups::this_cluster().sync();
+}
+
+template <typename KV>
+int launch_decode_mma(DecodeArgs& a, int B, int split_len, void* stream) {
+  if (B <= 0 || a.H <= 0) return 0;
+  if (a.KVH <= 0 || a.H % a.KVH != 0 || a.H / a.KVH > MAX_GROUP ||
+      a.Dk <= 0 || a.Dk > MAX_D || a.Dk % 8 != 0 || a.Dv <= 0 ||
+      a.Dv > MAX_D || a.Dv % 8 != 0 || a.T <= 0 || split_len <= 0 ||
+      split_len % DT != 0 || cdiv(a.T, split_len) > DM_MAX_SPLITS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // 16-byte copies: aligned bases and strides
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(a.q) |
+                         reinterpret_cast<uintptr_t>(a.k) |
+                         reinterpret_cast<uintptr_t>(a.v);
+  const long long st[] = {a.q_sb, a.q_sh, a.k_s0, a.k_s1, a.k_sh,
+                          a.v_s0, a.v_s1, a.v_sh};
+  bool aligned = ptrs % 16 == 0;
+  for (long long x : st) aligned = aligned && x % 8 == 0;
+  if (!aligned) return static_cast<int>(cudaErrorInvalidValue);
+  a.split_len = split_len;
+  a.n_chunks = cdiv(a.T, split_len);
+  a.dkp = cdiv(a.Dk, 16) * 16;
+  // paged: the table entries a split spans
+  const int n_pages = a.page_size > 0 ? split_len / a.page_size + 2 : 0;
+  const size_t smem = DmLayout(a.dkp, a.Dv, split_len / DT).bytes(n_pages);
+  // the attributes are set once (the shared-memory limit to the card's
+  // most), so that a launch recorded into a CUDA graph makes none
+  static const cudaError_t configured = [] {
+    int dev = 0, most = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(
+          &most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(decode_mma_kernel<KV>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 most - 1024);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          decode_mma_kernel<KV>,
+          cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    return err;
+  }();
+  if (configured != cudaSuccess) return static_cast<int>(configured);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.n_chunks, a.KVH, B);
+  cfg.blockDim = dim3(DM_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = a.n_chunks;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, decode_mma_kernel<KV>, a);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // strides: q_sb, q_sh, k_s0, k_s1, k_sh, v_s0, v_s1, v_sh, then (dense)
 // valid_sb, or (paged) nothing; then o_sb, o_sh
 DecodeArgs decode_args(const void* q, const void* k, const void* v,
@@ -958,24 +1545,34 @@ DecodeArgs decode_args(const void* q, const void* k, const void* v,
   return a;
 }
 
+// split > 0 takes the mma route (bf16) with `split` positions a block; 0
+// the simple (bf16) or fp32 routine
+template <typename T, typename KV>
+int route_decode(DecodeArgs& a, int B, int split, void* stream) {
+  if constexpr (sizeof(T) == 2)
+    if (split > 0) return launch_decode_mma<KV>(a, B, split, stream);
+  return launch_decode<T, KV>(a, B, stream);
+}
+
 template <typename T>
 int dense_decode(const void* q, const void* k, const void* v,
                  const void* valid, void* part, void* out, int B, int H,
                  int KVH, int T_, int D, const long long* st, float scale,
-                 void* stream) {
+                 int split, void* stream) {
   DecodeArgs a = decode_args(q, k, v, part, out, H, KVH, D, D, st, scale);
   a.valid = static_cast<const unsigned char*>(valid);
   a.valid_sb = st[8];
   a.o_sb = st[9]; a.o_sh = st[10];
   a.T = T_;
-  return launch_decode<T, DenseKV>(a, B, stream);
+  return route_decode<T, DenseKV>(a, B, split, stream);
 }
 
 template <typename T>
 int paged_decode(const void* q, const void* k, const void* v, const void* bt,
                  const void* starts, const void* lengths, void* part,
                  void* out, int B, int H, int KVH, int maxp, int ps, int Dk,
-                 int Dv, const long long* st, float scale, void* stream) {
+                 int Dv, const long long* st, float scale, int split,
+                 void* stream) {
   DecodeArgs a = decode_args(q, k, v, part, out, H, KVH, Dk, Dv, st, scale);
   a.bt = static_cast<const int*>(bt);
   a.starts = static_cast<const int*>(starts);
@@ -984,7 +1581,7 @@ int paged_decode(const void* q, const void* k, const void* v, const void* bt,
   a.o_sb = st[8]; a.o_sh = st[9];
   if (ps <= 0) return static_cast<int>(cudaErrorInvalidValue);
   a.T = maxp * ps;
-  return launch_decode<T, PagedKV>(a, B, stream);
+  return route_decode<T, PagedKV>(a, B, split, stream);
 }
 
 }  // namespace
@@ -992,6 +1589,8 @@ int paged_decode(const void* q, const void* k, const void* v, const void* bt,
 extern "C" {
 
 int decode_chunk_size() { return DEC_CHUNK; }
+int decode_tile_positions() { return DT; }
+int decode_max_splits() { return DM_MAX_SPLITS; }
 
 // strides: (batch, row, head) element strides of q, k, v, out; the D stride
 // is 1
@@ -1020,13 +1619,26 @@ int flash_attention_f32(const void* q, const void* k, const void* v,
                              causal, window, scale, stream);
 }
 
+// the mma route: `split` positions a block, a multiple of
+// decode_tile_positions(), at most decode_max_splits() splits; part unused
 int decode_attention_bf16(const void* q, const void* k, const void* v,
                           const void* valid, void* part, void* out, int B,
                           int H, int KVH, int T, int D,
-                          const long long* strides, float scale,
+                          const long long* strides, float scale, int split,
                           void* stream) {
   return dense_decode<__nv_bfloat16>(q, k, v, valid, part, out, B, H, KVH, T,
-                                     D, strides, scale, stream);
+                                     D, strides, scale, split, stream);
+}
+
+// the simple route (one thread per position of a DEC_CHUNK chunk) at any bf16
+// shape, so that a measurement can hold the mma route against it
+int decode_attention_simple_bf16(const void* q, const void* k, const void* v,
+                                 const void* valid, void* part, void* out,
+                                 int B, int H, int KVH, int T, int D,
+                                 const long long* strides, float scale,
+                                 void* stream) {
+  return dense_decode<__nv_bfloat16>(q, k, v, valid, part, out, B, H, KVH, T,
+                                     D, strides, scale, 0, stream);
 }
 
 int decode_attention_f32(const void* q, const void* k, const void* v,
@@ -1035,17 +1647,28 @@ int decode_attention_f32(const void* q, const void* k, const void* v,
                          const long long* strides, float scale,
                          void* stream) {
   return dense_decode<float>(q, k, v, valid, part, out, B, H, KVH, T, D,
-                             strides, scale, stream);
+                             strides, scale, 0, stream);
 }
 
 int paged_decode_bf16(const void* q, const void* k, const void* v,
                       const void* bt, const void* starts, const void* lengths,
                       void* part, void* out, int B, int H, int KVH, int maxp,
                       int ps, int Dk, int Dv, const long long* strides,
-                      float scale, void* stream) {
+                      float scale, int split, void* stream) {
   return paged_decode<__nv_bfloat16>(q, k, v, bt, starts, lengths, part, out,
                                      B, H, KVH, maxp, ps, Dk, Dv, strides,
-                                     scale, stream);
+                                     scale, split, stream);
+}
+
+int paged_decode_simple_bf16(const void* q, const void* k, const void* v,
+                             const void* bt, const void* starts,
+                             const void* lengths, void* part, void* out,
+                             int B, int H, int KVH, int maxp, int ps, int Dk,
+                             int Dv, const long long* strides, float scale,
+                             void* stream) {
+  return paged_decode<__nv_bfloat16>(q, k, v, bt, starts, lengths, part, out,
+                                     B, H, KVH, maxp, ps, Dk, Dv, strides,
+                                     scale, 0, stream);
 }
 
 int paged_decode_f32(const void* q, const void* k, const void* v,
@@ -1054,7 +1677,8 @@ int paged_decode_f32(const void* q, const void* k, const void* v,
                      int ps, int Dk, int Dv, const long long* strides,
                      float scale, void* stream) {
   return paged_decode<float>(q, k, v, bt, starts, lengths, part, out, B, H,
-                             KVH, maxp, ps, Dk, Dv, strides, scale, stream);
+                             KVH, maxp, ps, Dk, Dv, strides, scale, 0,
+                             stream);
 }
 
 }  // extern "C"

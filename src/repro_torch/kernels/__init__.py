@@ -36,7 +36,15 @@ import torch
 
 TILE_M = 128  # rows of a grouped_gemm row tile; must equal TILE_M in
               # csrc/gemm.cu (checked when the library loads)
-DECODE_CHUNK = 128   # KV positions per decode block; must equal DEC_CHUNK in
+DECODE_TILE = 16     # KV positions per tile of the decode kernels' mma
+                     # route (a split is a whole number of them); must equal
+                     # DT in csrc/attention.cu (checked when the library
+                     # loads)
+DECODE_MAX_SPLITS = 16  # most splits of a (row, KV head) on the mma route
+                        # (a cluster's blocks); must equal DM_MAX_SPLITS in
+                        # csrc/attention.cu (checked when the library loads)
+DECODE_CHUNK = 128   # KV positions per block of the decode kernels' simple
+                     # and fp32 routes; must equal DEC_CHUNK in
                      # csrc/attention.cu (checked when the library loads)
 MLA_TILE = 32        # KV positions per tile of the MLA decode; must equal
                      # CH in csrc/mla_decode.cu (checked when the library

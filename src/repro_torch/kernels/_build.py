@@ -33,6 +33,9 @@ _FLASH = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _F, _P)
 _DECODE = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _F, _P)
 _PAGED = (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
           _F, _P)
+# the mma route takes the positions per block before the stream
+_DECODE_MMA = _DECODE[:-1] + (_I, _P)
+_PAGED_MMA = _PAGED[:-1] + (_I, _P)
 _MLA = (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _F,
         _P)
 _SIGNATURES = {
@@ -50,11 +53,15 @@ _SIGNATURES = {
     "flash_attention_bf16": _FLASH,
     "flash_attention_simple_bf16": _FLASH,
     "flash_attention_f32": _FLASH,
-    "decode_attention_bf16": _DECODE,
+    "decode_attention_bf16": _DECODE_MMA,
+    "decode_attention_simple_bf16": _DECODE,
     "decode_attention_f32": _DECODE,
-    "paged_decode_bf16": _PAGED,
+    "paged_decode_bf16": _PAGED_MMA,
+    "paged_decode_simple_bf16": _PAGED,
     "paged_decode_f32": _PAGED,
     "decode_chunk_size": (),
+    "decode_tile_positions": (),
+    "decode_max_splits": (),
     "mla_decode_bf16": _MLA,
     "mla_decode_f32": _MLA,
     "mla_decode_tile_positions": (),
@@ -169,7 +176,8 @@ def library() -> KernelLibrary:
     with _lock:
         if _lib is None:
             lib = KernelLibrary([ctypes.CDLL(str(p)) for p in build()])
-            from . import DECODE_CHUNK, MLA_TILE, RWKV6_MAX_K, TILE_M
+            from . import (DECODE_CHUNK, DECODE_MAX_SPLITS, DECODE_TILE,
+                           MLA_TILE, RWKV6_MAX_K, TILE_M)
             from .branch_gemm.kernel import WGMMA_TILES
             from .grouped_gemm.kernel import GROUPED_TILES
             if lib.gemm_tile_m() != TILE_M:
@@ -188,6 +196,12 @@ def library() -> KernelLibrary:
             if lib.decode_chunk_size() != DECODE_CHUNK:
                 raise RuntimeError(f"csrc DEC_CHUNK={lib.decode_chunk_size()}"
                                    f" != kernels.DECODE_CHUNK={DECODE_CHUNK}")
+            if (lib.decode_tile_positions(), lib.decode_max_splits()) != (
+                    DECODE_TILE, DECODE_MAX_SPLITS):
+                raise RuntimeError(
+                    f"csrc (DT, DM_MAX_SPLITS)=({lib.decode_tile_positions()}"
+                    f", {lib.decode_max_splits()}) != kernels.(DECODE_TILE, "
+                    f"DECODE_MAX_SPLITS)=({DECODE_TILE}, {DECODE_MAX_SPLITS})")
             if lib.mla_decode_tile_positions() != MLA_TILE:
                 raise RuntimeError(
                     f"csrc mla_decode CH={lib.mla_decode_tile_positions()} "

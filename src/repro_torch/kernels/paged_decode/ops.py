@@ -6,8 +6,11 @@ kernel or raise.  GQA: any page size and table width, any Dk and Dv up to
 128 (Dv may differ from Dk), at most 16 query heads per KV head.  MLA: any
 page size, table width and head count, latent rank up to 512 and rope dims
 up to 64.  The block table, ``lengths`` and ``starts`` are int32 on the
-card.  ``launches`` (GQA) and ``mla_launches`` (MLA) count kernel launches
-(a split pass and its combine count as one).  A row with no attended
+card.  The GQA form takes the dense decode's routes by the same rule
+(``decode_attention.ops.route``), so pages and the slab of one dtype and
+head dims take the same route.  ``launches`` (GQA) and ``mla_launches``
+(MLA) count kernel launches (a split pass and its combine count as one);
+``launches_by_route`` splits the GQA ones by route.  A row with no attended
 position gives what the plain versions and the JAX package give: V
 averaged over every table entry of the row, null pages included.
 """
@@ -16,12 +19,14 @@ from __future__ import annotations
 import torch
 
 from .. import use_kernel
-from ..decode_attention.ops import check_decode_operands
+from ..decode_attention.ops import (DTYPES, ROUTES, check_decode_operands,
+                                    route)
 from .kernel import _MLA_ENTRY, paged_decode_cuda, paged_mla_decode_cuda
 from .ref import (absorb_query, paged_decode_attention_ref,
                   paged_mla_decode_attention_ref)
 
 launches = 0
+launches_by_route = dict.fromkeys(ROUTES, 0)
 mla_launches = 0
 MLA_MAX_RANK = 512      # csrc MAX_R
 MLA_MAX_ROPE = 64       # csrc MAX_P
@@ -34,14 +39,8 @@ def _int32_rows(name: str, t: torch.Tensor, shape: tuple[int, ...]) -> None:
                          f"got {t.dtype} {tuple(t.shape)}")
 
 
-def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
-                           v_pages: torch.Tensor, block_tables: torch.Tensor,
-                           lengths: torch.Tensor,
-                           starts: torch.Tensor | None = None,
-                           scale: float | None = None) -> torch.Tensor:
-    """Engine-layout wrapper: q [B,H,Dk]; pages [P,ps,KVH,Dk|Dv];
-    block_tables [B,MAXP]; lengths/starts [B] → [B,H,Dv]."""
-    global launches
+def _check(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+           block_tables: torch.Tensor) -> None:
     if q.dim() != 3 or k_pages.dim() != 4 or v_pages.dim() != 4:
         raise ValueError(f"paged_decode wants q [B,H,Dk], pages "
                          f"[P,ps,KVH,D], got {tuple(q.shape)}, "
@@ -55,13 +54,16 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                          f"pages {tuple(k_pages.shape)} / "
                          f"{tuple(v_pages.shape)}, block table "
                          f"{tuple(block_tables.shape)}")
-    scale = float(dk ** -0.5 if scale is None else scale)
-    others = (v_pages, block_tables, lengths) + (
-        () if starts is None else (starts,))
-    if not use_kernel(q, k_pages, *others):
-        return paged_decode_attention_ref(q, k_pages, v_pages, block_tables,
-                                          lengths, starts, scale)
-    check_decode_operands("paged_decode", q, k_pages, v_pages)
+
+
+def _launch(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+            block_tables: torch.Tensor, lengths: torch.Tensor,
+            starts: torch.Tensor | None, scale: float,
+            dtypes: tuple[torch.dtype, ...],
+            path: str | None) -> torch.Tensor:
+    global launches
+    b, h = q.shape[:2]
+    check_decode_operands("paged_decode", q, k_pages, v_pages, dtypes)
     _int32_rows("block_tables", block_tables, tuple(block_tables.shape))
     _int32_rows("lengths", lengths, (b,))
     if starts is not None:
@@ -70,10 +72,49 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                       device=q.device)
     if out.numel() == 0 or block_tables.shape[1] * k_pages.shape[1] == 0:
         return out.zero_()
+    path = path or route(q, k_pages, v_pages)
     paged_decode_cuda(q, k_pages, v_pages, block_tables, lengths, starts,
-                      out, scale)
+                      out, scale, path)
     launches += 1
+    launches_by_route[path] += 1
     return out
+
+
+def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, block_tables: torch.Tensor,
+                           lengths: torch.Tensor,
+                           starts: torch.Tensor | None = None,
+                           scale: float | None = None) -> torch.Tensor:
+    """Engine-layout wrapper: q [B,H,Dk]; pages [P,ps,KVH,Dk|Dv];
+    block_tables [B,MAXP]; lengths/starts [B] → [B,H,Dv]."""
+    _check(q, k_pages, v_pages, block_tables)
+    scale = float(q.shape[-1] ** -0.5 if scale is None else scale)
+    others = (v_pages, block_tables, lengths) + (
+        () if starts is None else (starts,))
+    if not use_kernel(q, k_pages, *others):
+        return paged_decode_attention_ref(q, k_pages, v_pages, block_tables,
+                                          lengths, starts, scale)
+    return _launch(q, k_pages, v_pages, block_tables, lengths, starts, scale,
+                   DTYPES, None)
+
+
+def paged_decode_simple_bf16(q: torch.Tensor, k_pages: torch.Tensor,
+                             v_pages: torch.Tensor,
+                             block_tables: torch.Tensor,
+                             lengths: torch.Tensor,
+                             starts: torch.Tensor | None = None,
+                             scale: float | None = None) -> torch.Tensor:
+    """The simple route at any bf16 shape on the card, so that a
+    measurement can hold the mma route against it; counted as a ``simple``
+    launch."""
+    _check(q, k_pages, v_pages, block_tables)
+    scale = float(q.shape[-1] ** -0.5 if scale is None else scale)
+    others = (v_pages, block_tables, lengths) + (
+        () if starts is None else (starts,))
+    if not use_kernel(q, k_pages, *others):
+        raise ValueError("paged_decode_simple_bf16 needs CUDA tensors")
+    return _launch(q, k_pages, v_pages, block_tables, lengths, starts, scale,
+                   (torch.bfloat16,), "simple")
 
 
 def paged_mla_decode_attention(q_nope: torch.Tensor, q_pe: torch.Tensor,

@@ -271,3 +271,129 @@ def test_flash_cpu_wrapper_takes_the_plain_version_and_counts_nothing(dtype,
     assert torch.equal(got, flash_attention_ref(q, k, v, True, 5))
     with pytest.raises(ValueError, match="CUDA"):
         fops.flash_attention_simple_bf16(q, k, v)
+
+
+# ---- the decode pair's route rule and split (what the wrappers pick on the
+# card): pure functions of dtype, shapes, strides, alignment and SM count ---
+
+def _slab_and_pages(d, dtype=torch.bfloat16, dv=None):
+    """q [B,H,D], a slab [B,T,KVH,D] and pages [P,ps,KVH,D] of one dtype."""
+    dv = d if dv is None else dv
+    q = torch.zeros(2, 8, d, dtype=dtype)
+    slab_k, slab_v = (torch.zeros(2, 40, 2, w, dtype=dtype) for w in (d, dv))
+    page_k, page_v = (torch.zeros(7, 16, 2, w, dtype=dtype) for w in (d, dv))
+    return q, (slab_k, slab_v), (page_k, page_v)
+
+
+@pytest.mark.parametrize("d,dv,want", [(64, 64, "mma"), (112, 112, "mma"),
+                                       (128, 128, "mma"), (40, 40, "mma"),
+                                       (8, 8, "mma"), (64, 32, "mma"),
+                                       (14, 14, "simple"), (64, 12, "simple"),
+                                       (20, 20, "simple")])
+def test_decode_route_by_head_dims_is_the_same_for_slab_and_pages(d, dv,
+                                                                  want):
+    q, slab, pages = _slab_and_pages(d, dv=dv)
+    assert dops.route(q, *slab) == want
+    assert dops.route(q, *pages) == want
+    q32, slab32, pages32 = _slab_and_pages(d, torch.float32, dv)
+    assert dops.route(q32, *slab32) == dops.route(q32, *pages32) == "fp32"
+
+
+@pytest.mark.parametrize("case,want", [
+    ("contiguous", "mma"),
+    ("misaligned q base", "simple"),
+    ("misaligned cache base", "simple"),
+    ("D stride 2", "simple"),
+    ("head stride 144 bytes", "mma"),
+    ("head stride 136 bytes", "simple"),
+    ("fused projection views", "mma")])
+def test_decode_route_by_alignment_and_strides(case, want):
+    q, (k, v), (kp, vp) = _slab_and_pages(64)
+    if case == "misaligned q base":
+        q = _bf16(1 + 2 * 8 * 64)[1:].view(2, 8, 64)
+        assert q.data_ptr() % 16 != 0
+    elif case == "misaligned cache base":
+        k = _bf16(4 + 2 * 40 * 2 * 64)[4:].view(2, 40, 2, 64)
+        kp = _bf16(4 + 7 * 16 * 2 * 64)[4:].view(7, 16, 2, 64)
+        assert k.data_ptr() % 16 != 0
+    elif case == "D stride 2":
+        k = _bf16(2, 40, 2, 128)[..., ::2]
+        kp = _bf16(7, 16, 2, 128)[..., ::2]
+    elif case == "head stride 144 bytes":
+        k = _bf16(2, 40, 2, 72)[..., :64]
+        kp = _bf16(7, 16, 2, 72)[..., :64]
+    elif case == "head stride 136 bytes":
+        k = _bf16(2, 40, 2, 68)[..., :64]
+        kp = _bf16(7, 16, 2, 68)[..., :64]
+    elif case == "fused projection views":
+        qkv = _bf16(2, 1, 12, 64)
+        q = qkv[:, 0, :8]
+    assert dops.route(q, k, v) == want
+    assert dops.route(q, kp, vp) == want
+
+
+@pytest.mark.parametrize("sms", [132, 114, 78])
+@pytest.mark.parametrize("b,kvh,t", [(8, 2, 1024), (8, 8, 1024), (1, 1, 1024),
+                                     (3, 2, 200), (2, 1, 5), (64, 8, 4096),
+                                     (1, 2, 32768), (16, 2, 17)])
+def test_decode_split_is_whole_tiles_filling_the_card(sms, b, kvh, t):
+    from repro_torch.kernels import DECODE_MAX_SPLITS, DECODE_TILE
+    from repro_torch.kernels.decode_attention.kernel import split_len
+    split = split_len(b, kvh, t, sms)
+    n = -(-t // split)
+    tiles = -(-t // DECODE_TILE)
+    assert split % DECODE_TILE == 0 and split > 0
+    assert n <= DECODE_MAX_SPLITS
+    # about one block an SM: no more blocks than SMs unless the pairs alone
+    # outnumber them, and fewer only by less than a split a pair, or where
+    # the tiles or the cluster run out
+    pairs = b * kvh
+    assert pairs * n <= max(sms, pairs)
+    assert pairs * n > min(sms - pairs, pairs * min(tiles, DECODE_MAX_SPLITS)
+                           - 1)
+    # no split is empty, and a split never depends on the layout: a table of
+    # MAXP pages of ps positions with MAXP * ps == T splits the same
+    assert (n - 1) * split < t
+    for ps in (1, 5, 16):
+        if t % ps == 0:
+            assert split_len(b, kvh, (t // ps) * ps, sms) == split
+
+
+def test_decode_split_at_the_serving_shapes():
+    """Qwen2-0.5B (8 slots x 2 KV heads) and Kimi-K2 (8 x 8) at 1024
+    positions on an H100's 132 SMs: 8 splits of 128 positions (128 blocks)
+    and 2 of 512 (128 blocks)."""
+    from repro_torch.kernels.decode_attention.kernel import split_len
+    assert split_len(8, 2, 1024, 132) == 128
+    assert split_len(8, 8, 1024, 132) == 512
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64),
+                                     (torch.bfloat16, 14),
+                                     (torch.float32, 64)])
+def test_decode_cpu_wrappers_take_the_plain_version_and_count_nothing(dtype,
+                                                                      d):
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.paged_decode.ref import paged_decode_attention_ref
+    rng = np.random.default_rng(d)
+    q = torch.from_numpy(rng.standard_normal((2, 4, d))).to(dtype)
+    k = torch.from_numpy(rng.standard_normal((2, 32, 2, d))).to(dtype)
+    v = torch.from_numpy(rng.standard_normal((2, 32, 2, d))).to(dtype)
+    valid = torch.arange(32)[None] < torch.tensor([[20], [32]])
+    pages_k, pages_v = k.reshape(4, 16, 2, d), v.reshape(4, 16, 2, d)
+    bt = torch.arange(4, dtype=torch.int32).reshape(2, 2)
+    lengths = torch.tensor([20, 32], dtype=torch.int32)
+    before = (dops.launches, dict(dops.launches_by_route), pops.launches,
+              dict(pops.launches_by_route))
+    got = dops.decode_attention(q, k, v, valid)
+    got_p = pops.paged_decode_attention(q, pages_k, pages_v, bt, lengths)
+    assert (dops.launches, dops.launches_by_route, pops.launches,
+            pops.launches_by_route) == before
+    assert torch.equal(got, decode_attention_ref(q, k, v, valid))
+    assert torch.equal(got_p, paged_decode_attention_ref(
+        q, pages_k, pages_v, bt, lengths))
+    assert torch.equal(got_p, got)
+    with pytest.raises(ValueError, match="CUDA"):
+        dops.decode_attention_simple_bf16(q, k, v, valid)
+    with pytest.raises(ValueError, match="CUDA"):
+        pops.paged_decode_simple_bf16(q, pages_k, pages_v, bt, lengths)

@@ -427,12 +427,21 @@ def test_flash_wgmma_route_agrees_with_the_simple_route(cuda, s, h, kvh, d,
     _assert_kernel_close(got, simple)
 
 
-DECODE_CASES = [(8, 14, 2, 1024, 64), (3, 4, 2, 200, 14), (2, 7, 1, 64, 64)]
+# Qwen2-0.5B's 8-slot tick, D = 14 (the simple route in bf16), one KV head,
+# Kimi-K2's 64/8 heads of 112, D = 40 (K padded to 48 in the mma route, a
+# last 8-column block of V), 16 heads a KV head at D = 128
+DECODE_CASES = [(8, 14, 2, 1024, 64), (3, 4, 2, 200, 14), (2, 7, 1, 64, 64),
+                (8, 64, 8, 1024, 112), (2, 6, 2, 100, 40),
+                (2, 16, 1, 300, 128)]
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("b,h,kvh,t,d", DECODE_CASES)
-def test_decode_attention_kernel_matches_plain(cuda, dtype, b, h, kvh, t, d):
+def _want_decode_route(dtype, d):
+    if dtype == torch.float32:
+        return "fp32"
+    return "mma" if d % 8 == 0 else "simple"
+
+
+def _decode_operands(cuda, dtype, b, h, kvh, t, d):
     q = _randn(cuda, 5, b, h, d, dtype=dtype)
     k = _randn(cuda, 6, b, t, kvh, d, dtype=dtype)
     v = _randn(cuda, 7, b, t, kvh, d, dtype=dtype)
@@ -440,10 +449,78 @@ def test_decode_attention_kernel_matches_plain(cuda, dtype, b, h, kvh, t, d):
     k_pos = torch.arange(t, device=cuda)[None]
     valid = k_pos <= pos[:, None]
     valid[0] &= k_pos[0] > pos[0] - 40            # a windowed row
-    before = dops.launches
+    return q, k, v, valid
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,kvh,t,d", DECODE_CASES)
+def test_decode_attention_kernel_matches_plain(cuda, dtype, b, h, kvh, t, d):
+    q, k, v, valid = _decode_operands(cuda, dtype, b, h, kvh, t, d)
+    before, by_route = dops.launches, dict(dops.launches_by_route)
     got = dops.decode_attention(q, k, v, valid)
     assert dops.launches == before + 1
+    assert _route_delta(dops, by_route) == {_want_decode_route(dtype, d): 1}
     _assert_kernel_close(got, decode_attention_ref(q, k, v, valid))
+
+
+@pytest.mark.parametrize("b,h,kvh,t,d", [c for c in DECODE_CASES
+                                         if c[-1] % 8 == 0])
+def test_decode_mma_route_agrees_with_the_simple_route(cuda, b, h, kvh, t, d):
+    """The mma route against the routine it replaced, in the same call, on
+    the slab and through pages (4 positions a page)."""
+    q, k, v, valid = _decode_operands(cuda, torch.bfloat16, b, h, kvh, t, d)
+    by_route = dict(dops.launches_by_route)
+    got = dops.decode_attention(q, k, v, valid)
+    simple = dops.decode_attention_simple_bf16(q, k, v, valid)
+    assert _route_delta(dops, by_route) == {"mma": 1, "simple": 1}
+    _assert_kernel_close(got, simple)
+    ps = 4
+    maxp = -(-t // ps)
+    pad = maxp * ps - t
+    kp = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad)).reshape(
+        b * maxp, ps, kvh, d)
+    vp = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad)).reshape(
+        b * maxp, ps, kvh, d)
+    bt = torch.arange(b * maxp, dtype=torch.int32, device=cuda).reshape(
+        b, maxp)
+    starts = torch.argmax(valid.int(), dim=1).to(torch.int32)
+    lengths = (valid.sum(1) + starts).to(torch.int32)
+    by_route = dict(pops.launches_by_route)
+    got_p = pops.paged_decode_attention(q, kp, vp, bt, lengths, starts)
+    simple_p = pops.paged_decode_simple_bf16(q, kp, vp, bt, lengths, starts)
+    assert _route_delta(pops, by_route) == {"mma": 1, "simple": 1}
+    _assert_kernel_close(got_p, simple_p)
+    if pad == 0:
+        assert torch.equal(got_p, got)
+
+
+@pytest.mark.parametrize("d", [64, 112])
+def test_decode_mma_reads_no_masked_row_neighbour_head_or_batch_row(cuda, d):
+    """The slab is a view with inf in the KV heads and batch rows beside it
+    and in every masked position: a copy that read any of them would make
+    the output non-finite."""
+    b, h, kvh, t = 3, 8, 2, 150
+    inf = float("inf")
+    big = torch.full((b + 2, t, kvh + 2, d), inf, dtype=torch.bfloat16,
+                     device=cuda)
+    big_v = torch.full_like(big, inf)
+    k, v = big[1:b + 1, :, 1:kvh + 1], big_v[1:b + 1, :, 1:kvh + 1]
+    valid = torch.arange(t, device=cuda)[None] < torch.tensor(
+        [[37], [150], [90]], device=cuda)
+    valid[2, :20] = False                          # a windowed row
+    keep = valid[:, :, None, None].expand_as(k)
+    k.copy_(torch.where(keep, _randn(cuda, 23, b, t, kvh, d,
+                                     dtype=torch.bfloat16), k))
+    v.copy_(torch.where(keep, _randn(cuda, 24, b, t, kvh, d,
+                                     dtype=torch.bfloat16), v))
+    q = _randn(cuda, 25, b, h, d, dtype=torch.bfloat16)
+    assert dops.route(q, k, v) == "mma"
+    got = dops.decode_attention(q, k, v, valid)
+    assert bool(torch.isfinite(got).all())
+    clean_k = torch.where(keep, k, torch.zeros_like(k))
+    clean_v = torch.where(keep, v, torch.zeros_like(v))
+    _assert_kernel_close(got, decode_attention_ref(q, clean_k, clean_v,
+                                                   valid))
 
 
 def _paged_case(cuda, dtype, d=64, ps=16):
@@ -472,10 +549,13 @@ def _paged_case(cuda, dtype, d=64, ps=16):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("d,ps", [(64, 16), (14, 16), (64, 5)])
 def test_paged_decode_kernel_matches_plain_and_dense(cuda, dtype, d, ps):
+    """Paged and dense on one route: with ps = 5 a split (a whole number of
+    16-position tiles) is not a whole number of pages."""
     q, kp, vp, bt, lengths, starts = _paged_case(cuda, dtype, d, ps)
-    before = pops.launches
+    before, by_route = pops.launches, dict(pops.launches_by_route)
     got = pops.paged_decode_attention(q, kp, vp, bt, lengths, starts)
     assert pops.launches == before + 1
+    assert _route_delta(pops, by_route) == {_want_decode_route(dtype, d): 1}
     _assert_kernel_close(got, paged_decode_attention_ref(q, kp, vp, bt,
                                                          lengths, starts))
     # the dense kernel on the gathered slab sums the same positions in the
@@ -485,7 +565,9 @@ def test_paged_decode_kernel_matches_plain_and_dense(cuda, dtype, d, ps):
     vd = vp[bt.long()].reshape(b, maxp * ps, *vp.shape[2:])
     posn = torch.arange(maxp * ps, device=cuda)[None]
     valid = (posn < lengths[:, None]) & (posn >= starts[:, None])
+    by_route = dict(dops.launches_by_route)
     assert torch.equal(got, dops.decode_attention(q, kd, vd, valid))
+    assert _route_delta(dops, by_route) == {_want_decode_route(dtype, d): 1}
 
 
 def test_attention_wrappers_raise_on_device_dtype_and_layout(cuda):
@@ -611,7 +693,10 @@ def test_decode_kernels_average_v_on_a_row_with_no_attended_position(cuda):
         v = _randn(cuda, 22, 3, 200, 2, 64, dtype=dtype)
         valid = torch.arange(200, device=cuda)[None] < torch.tensor(
             [[0], [37], [0]], device=cuda)
+        by_route = dict(dops.launches_by_route)
         got = dops.decode_attention(q, k, v, valid)
+        assert _route_delta(dops, by_route) == {
+            _want_decode_route(dtype, 64): 1}
         want = decode_attention_ref(q, k, v, valid)
         _assert_kernel_close(got, want)
         mean = v[0].float().mean(0)                       # [KVH, D]
@@ -620,7 +705,10 @@ def test_decode_kernels_average_v_on_a_row_with_no_attended_position(cuda):
         qp, kp, vp, bt, lengths, starts = _paged_case(cuda, dtype)
         lengths[1] = 0                     # row 1: nothing attended
         starts[2] = lengths[2]             # row 2: an empty window
+        by_route = dict(pops.launches_by_route)
         got = pops.paged_decode_attention(qp, kp, vp, bt, lengths, starts)
+        assert _route_delta(pops, by_route) == {
+            _want_decode_route(dtype, 64): 1}
         _assert_kernel_close(got, paged_decode_attention_ref(
             qp, kp, vp, bt, lengths, starts))
 
