@@ -5,8 +5,8 @@ them against their plain versions, then drive the main path end to end.
 
 Phases (any failure raises and the script exits non-zero):
   1. environment: card name and power limit, torch/CUDA versions, kernel
-     build time, ptxas registers and remarks (a remark on the flash kernel,
-     e.g. serialised wgmma, fails the run);
+     build time, ptxas registers and remarks (a remark on the flash or the
+     moe_gemm wgmma kernels, e.g. serialised wgmma, fails the run);
   2. kernels vs plain at the main path's shapes (plus an off-lattice shape
      and fp32): route, error, kernel / plain / library times, bound,
      TFLOP/s and share of the bound; for bf16 also the simple route (the
@@ -22,7 +22,10 @@ Phases (any failure raises and the script exits non-zero):
   5. attention kernels: rmsnorm, flash_attention, decode_attention and
      paged_decode vs their plain versions at the serving shapes and at odd
      ones (D = 14, ragged T, null pages, clamped window starts), bf16 and
-     fp32: error, kernel / plain / library times, bound; flash_attention's
+     fp32: error, kernel / plain / library times, bound; rmsnorm's onepass
+     route at every width the registered models normalise (896, 2048, 7168,
+     1536, 512) at 512 and 8 rows, beside the simple route (the routine it
+     replaced) and F.rms_norm in the same call; flash_attention's
      bf16 prefills (Qwen2-0.5B at 512 and 1024 tokens, Kimi-K2's 64/8 heads
      of 112) with its route, TFLOP/s, share of the bound and the simple
      route (the WMMA routine the wgmma route replaced) at the same shape;
@@ -41,11 +44,16 @@ Phases (any failure raises and the script exits non-zero):
      paged_decode launch of the bf16 decode ticks on the mma route (here and
      in phase 8); a decode tick by CUDA-graph replay is bit-equal to the
      eager tick; times and a profile of one decode tick;
-  7. moe_gemm (Kimi-K2's 384 experts, d 7168, f 2048, at a decode tick's
-     capacity 1 and a 512-token prefill's 13; fp32; off the tile lattice)
-     and rwkv6 (RWKV6-1.6B's 32 heads of 64 at a 512-token prefill and an
-     8-slot decode tick; odd T; nonzero state) vs their plain versions;
-     decode rows with no attended position, dense and paged;
+  7. moe_gemm (Kimi-K2's 384 experts, d 7168, f 2048: a decode tick's
+     occupancy, 8 tokens' top-8 at capacity 1 with every other expert's row
+     zero, whose bound counts the routed experts' weights only; every expert
+     full at capacity 1 and at a 512-token prefill's 13, each beside the
+     simple route, the routine the wgmma route replaced, in the same call;
+     every expert empty; only the last expert with a row; fp32; off the
+     tile lattice; empty experts' rows exactly +0) and rwkv6 (RWKV6-1.6B's
+     32 heads of 64 at a 512-token prefill and an 8-slot decode tick; odd
+     T; nonzero state) vs their plain versions; decode rows with no
+     attended position, dense and paged;
   8. Kimi-K2 at full width, 2 of 61 layers (dense prefix + one MoE layer):
      the routed op graph (16 expert branches, batch 1, seq 512) through
      Session.compile into one CUDA graph with grouped_gemm on the fan-out,
@@ -54,7 +62,8 @@ Phases (any failure raises and the script exits non-zero):
      experts), the kernel route held against the plain route (the MoE layer
      on identical inputs; whole-model logits over the positions whose
      expert choice agrees in bf16, over all of them in fp32), paged against
-     dense streams, decode ticks graph vs eager;
+     dense streams, decode ticks graph vs eager; every bf16 moe_gemm
+     launch of the serve runs on the wgmma route (here and in phase 9);
   9. DeepSeek-V3 at full width, 4 of 61 layers (3 dense-prefix + 1 MoE,
      MLA attention, the MTP head built): the MLA form of paged decode vs
      plain at the serving shapes (8 slots, 128 heads, Dk 576, Dv 512, 16-
@@ -220,8 +229,17 @@ def phase_environment() -> dict:
                               line)
             flash = re.search(r"flash_wgmma_kernelILi(\d+)ELi(\d+)E", line)
             decode = re.search(r"decode_mma_kernelI\w*?(Dense|Paged)KV", line)
+            moe = re.search(r"expert_wgmma_kernelILb([01])ELi(\d+)E", line)
+            norm = re.search(r"rmsnorm_rows_kernelI(f|13__nv_bfloat16)Li(\d+)E",
+                             line)
             name = ""
-            if wgmma:
+            if moe:
+                name = (f"{source}:moe_gemm wgmma<bf16, stage "
+                        f"{2 - int(moe[1])}, NT {moe[2]}>")
+            elif norm:
+                dt = "fp32" if norm[1] == "f" else "bf16"
+                name = f"{source}:rmsnorm onepass<{dt}, VPT {norm[2]}>"
+            elif wgmma:
                 name = (f"{source}:{('branch', 'grouped')[int(wgmma[3])]}"
                         f"_gemm wgmma<bf16, BM {wgmma[1]}, BN {wgmma[2]}>")
             elif flash:
@@ -243,15 +261,16 @@ def phase_environment() -> dict:
             elif "registers" in line or "spill" in line:
                 log(f"[build] {kernel}: "
                     f"{line.replace('ptxas info    :', '').strip()}")
-    # a ptxas remark (serialised wgmma, C7515/C7517/C7518) on the flash
-    # kernel fails the run: the remark names its function in quotes
-    flash_remarks = [
-        m[1] for text in _build.build_log.values()
+    # a ptxas remark (serialised wgmma, C7515/C7517/C7518) on the flash or
+    # the moe_gemm wgmma kernels fails the run: the remark names its
+    # function in quotes
+    remarks = [
+        (m[1], m[2]) for text in _build.build_log.values()
         for m in re.finditer(r"\((C\d{4})\)[^']*'([^']*)'", text)
-        if "flash" in m[2]]
-    if flash_remarks:
-        raise AssertionError(f"ptxas remarks on the flash_attention kernels: "
-                             f"{flash_remarks}")
+        if "flash" in m[2] or "expert_wgmma" in m[2]]
+    if remarks:
+        raise AssertionError(f"ptxas remarks on the flash_attention or "
+                             f"moe_gemm wgmma kernels: {remarks}")
     if not _build.build_log:
         log("[build] libraries reused: no ptxas output to check")
     hw = detect_hardware()
@@ -538,6 +557,36 @@ def profile_replay(replay, n: int = 3, what: str = "forward",
         log(f"[{tag}] {ms:8.3f} ms {count:5d}x  {key[:90]}")
 
 
+def device_us_by_kernel(calls: dict, n: int = 50) -> dict:
+    """Device time per call in us of each function of ``calls`` (label ->
+    (fn, kernel-name substring or None for "every other kernel")), from one
+    torch.profiler window over ``n`` calls of each, warm L2: the kernels'
+    own durations, without the launch and event overhead that cuda_ms
+    counts."""
+    from torch.profiler import ProfilerActivity, profile
+    for fn, _ in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for fn, _ in calls.values():
+            for _ in range(n):
+                fn()
+        torch.cuda.synchronize()
+    totals = dict.fromkeys(calls, 0.0)
+    for e in prof.key_averages():
+        dev_us = getattr(e, "device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "cuda_time_total", 0.0)
+        if not dev_us or "cuda" not in str(
+                getattr(e, "device_type", "")).lower():
+            continue
+        label = next((k for k, (_, sub) in calls.items()
+                      if sub is not None and sub in e.key),
+                     next(k for k, (_, sub) in calls.items() if sub is None))
+        totals[label] += dev_us / n
+    return totals
+
+
 # =============================================================================
 # 4. ragged capture
 # =============================================================================
@@ -682,30 +731,56 @@ def phase_attention_kernels(env: dict, gen: torch.Generator) -> dict:
         return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
                     bound_ms=bound, bound_by=by, library_ms=library_ms)
 
-    # -- rmsnorm: a prefill's rows and a decode tick's rows ------------------
-    for tag, (n, d), dtype, timed in [
-            ("prefill", (512, 896), torch.bfloat16, True),
-            ("decode", (SLOTS, 896), torch.bfloat16, True),
-            ("prefill", (512, 896), torch.float32, True),
-            ("odd", (3, 14), torch.bfloat16, False),
-            ("odd", (5, 100), torch.float32, False)]:
+    # -- rmsnorm: every width the registered models normalise (Qwen2-0.5B
+    # 896, RWKV6-1.6B 2048, Kimi-K2 and DeepSeek-V3 7168, DeepSeek-V3's
+    # q_norm 1536 and kv_norm 512) at a prefill's 512 rows and a decode
+    # tick's 8, each beside the simple route (the routine the onepass route
+    # replaced) and F.rms_norm in the same call; fp32; odd shapes ----------
+    bf16, fp32 = torch.bfloat16, torch.float32
+    norm_cases = [(f"{tag} d={d}", (n, d), bf16, True)
+                  for d in (896, 2048, 7168, 1536, 512)
+                  for tag, n in (("prefill", 512), ("decode", SLOTS))]
+    norm_cases += [("prefill d=896", (512, 896), fp32, True),
+                   ("odd", (3, 14), bf16, False),
+                   ("odd", (5, 100), fp32, False)]
+    for tag, (n, d), dtype, timed in norm_cases:
         x, scale = rnd((n, d), dtype), rnd((d,), dtype)
+        path = rops.route(x, scale)
+        before = rops.launches_by_route[path]
         got, want = rops.rmsnorm(x, scale), rmsnorm_ref(x, scale)
         torch.cuda.synchronize()
+        if rops.launches_by_route[path] != before + 1:
+            raise AssertionError(f"rmsnorm {tag} did not count a {path} "
+                                 f"launch")
         err = check_close(got, want, f"rmsnorm {tag} [{n},{d}]")
         if not timed:
-            log(f"[kernel] rmsnorm {tag} [{n},{d}] {_dt(dtype)}: max_abs_err "
-                f"{err:.3g}")
+            log(f"[kernel] rmsnorm {tag} [{n},{d}] {_dt(dtype)}: route {path} "
+                f"max_abs_err {err:.3g}")
             continue
+        if path != "onepass":
+            raise AssertionError(f"rmsnorm {tag} [{n},{d}] took the {path} "
+                                 f"route")
+        simple_err = check_close(rops.rmsnorm_simple(x, scale), want,
+                                 f"rmsnorm simple route {tag} [{n},{d}]")
         lib_err = float((F.rms_norm(x, (d,), scale, 1e-6).float()
                          - want.float()).abs().max())
-        log(f"[kernel] F.rms_norm max_abs_err vs plain {lib_err:.3g}")
+        log(f"[kernel] rmsnorm {tag}: simple route max_abs_err vs plain "
+            f"{simple_err:.3g}, F.rms_norm vs plain {lib_err:.3g}")
         results[("rmsnorm", tag, dtype)] = measure(
             "rmsnorm", f"{tag} [{n},{d}]", dtype, err,
             lambda: rops.rmsnorm(x, scale), lambda: rmsnorm_ref(x, scale),
             lambda: F.rms_norm(x, (d,), scale, 1e-6), "F.rms_norm",
             4.0 * n * d, x.element_size() * (2 * n * d + d),
-            flops_peak=FP32_PEAK[hw.name])
+            flops_peak=FP32_PEAK[hw.name], path=path,
+            simple_fn=lambda: rops.rmsnorm_simple(x, scale))
+        dev = device_us_by_kernel({
+            "onepass": (lambda: rops.rmsnorm(x, scale), "rmsnorm_rows_kernel"),
+            "simple": (lambda: rops.rmsnorm_simple(x, scale),
+                       "simple::rmsnorm_kernel"),
+            "F.rms_norm": (lambda: F.rms_norm(x, (d,), scale, 1e-6), None)})
+        log(f"[kernel] rmsnorm {tag} [{n},{d}] {_dt(dtype)}: device time per "
+            f"call (torch.profiler, warm L2, 50 calls): " + ", ".join(
+                f"{k} {v:.2f} us" for k, v in dev.items()))
 
     # -- flash attention: the bf16 prefills of the serving paths (Qwen2-0.5B
     # at 512 tokens and at the engine's max_len, Kimi-K2's 64/8 heads of 112),
@@ -714,7 +789,6 @@ def phase_attention_kernels(env: dict, gen: torch.Generator) -> dict:
     from repro_torch.configs import get_config
     kimi = get_config("kimi-k2-1t-a32b")
     kimi_heads = (kimi.n_heads, kimi.n_kv_heads, kimi.head_dim)
-    bf16, fp32 = torch.bfloat16, torch.float32
     for tag, (b, s, h, kvh, d, window), dtype, timed in [
             ("prefill", (1, 512, HEADS, KV_HEADS, HEAD_DIM, 0), bf16, True),
             ("prefill S=1024", (1, MAX_LEN, HEADS, KV_HEADS, HEAD_DIM, 0),
@@ -1122,10 +1196,12 @@ def reset_launches() -> None:
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.grouped_gemm import ops as gops
+    from repro_torch.kernels.moe_gemm import ops as mops
     from repro_torch.kernels.paged_decode import ops as pops
+    from repro_torch.kernels.rmsnorm import ops as rops
     for module, attr in _counters(*KERNELS).values():
         setattr(module, attr, 0)
-    for module in (bops, gops, fops, dops):
+    for module in (bops, gops, fops, dops, mops, rops):
         module.launches_by_route.update(dict.fromkeys(module.ROUTES, 0))
     pops.launches_by_route.update(dict.fromkeys(dops.ROUTES, 0))
 
@@ -1176,6 +1252,19 @@ def check_decode_mma_only(tag: str) -> None:
             or not all(by["mma"] for by in routes.values()):
         raise AssertionError(f"[{tag}] bf16 decode ticks launched the decode "
                              f"pair off the mma route: {routes}")
+
+
+def check_moe_wgmma_only(tag: str) -> None:
+    """A bf16 serving run's moe_gemm launches since the last
+    reset_launches() all took the wgmma route."""
+    from repro_torch.kernels.moe_gemm import ops as mops
+    routes = dict(mops.launches_by_route)
+    log(f"[{tag}] moe_gemm launches over the bf16 serving runs, by route "
+        f"{routes}")
+    if any(n for r, n in routes.items() if r != "wgmma") or \
+            not routes["wgmma"]:
+        raise AssertionError(f"[{tag}] bf16 serving launched moe_gemm off "
+                             f"the wgmma route: {routes}")
 
 
 def read_launches(*names: str) -> dict:
@@ -1466,58 +1555,105 @@ def phase_moe_rwkv_kernels(env: dict, gen: torch.Generator) -> dict:
     def peak(dtype):
         return hw.peak_flops if dtype == torch.bfloat16 else FP32_PEAK[hw.name]
 
-    # -- moe_gemm: full width (C = 1 a decode tick's, C = 13 a 512-token
-    # prefill's capacity), fp32 at 16 experts, off the tile lattice
-    full = None
-    for tag, (e, c, d, f), dtype, timed in [
-            ("decode C=1", (KIMI_E, 1, KIMI_D, KIMI_F), torch.bfloat16, True),
-            ("prefill C=13", (KIMI_E, 13, KIMI_D, KIMI_F), torch.bfloat16,
+    # -- moe_gemm at Kimi-K2's full width: a decode tick's real occupancy (8
+    # tokens' top-8 over the 384 experts at C = 1, every other expert's row
+    # zero), every expert full at C = 1 and at a 512-token prefill's C = 13,
+    # each beside the simple route (the routine the wgmma route replaced) in
+    # the same call; every expert empty; only the last expert with a row;
+    # fp32 at 16 experts, some empty; off the TMA rule (the simple route)
+    full = [_expert_stack(gen, (KIMI_E, KIMI_D, KIMI_F), KIMI_D ** -0.5,
+                          torch.bfloat16),
+            _expert_stack(gen, (KIMI_E, KIMI_D, KIMI_F), KIMI_D ** -0.5,
+                          torch.bfloat16),
+            _expert_stack(gen, (KIMI_E, KIMI_F, KIMI_D), KIMI_F ** -0.5,
+                          torch.bfloat16)]
+    picks = torch.rand((SLOTS, KIMI_E), generator=gen, device="cuda").topk(
+        8, dim=-1).indices
+    tick_experts = torch.unique(picks)
+    for tag, (e, c, d, f), dtype, rows, timed in [
+            ("tick C=1", (KIMI_E, 1, KIMI_D, KIMI_F), torch.bfloat16,
+             tick_experts, True),
+            ("full C=1", (KIMI_E, 1, KIMI_D, KIMI_F), torch.bfloat16, None,
              True),
-            ("fp32 E=16 C=13", (16, 13, KIMI_D, KIMI_F), torch.float32,
+            ("full C=13", (KIMI_E, 13, KIMI_D, KIMI_F), torch.bfloat16, None,
+             True),
+            ("all empty C=1", (KIMI_E, 1, KIMI_D, KIMI_F), torch.bfloat16,
+             tick_experts[:0], False),
+            ("last expert, one row, C=13", (KIMI_E, 13, KIMI_D, KIMI_F),
+             torch.bfloat16, torch.tensor([KIMI_E - 1], device="cuda"), False),
+            ("fp32 E=16 C=13, 11 empty", (16, 13, KIMI_D, KIMI_F),
+             torch.float32, torch.tensor([0, 3, 7, 12, 15], device="cuda"),
              False),
-            ("odd C=5 d=200 f=136", (3, 5, 200, 136), torch.bfloat16, False),
-            ("odd C=5 d=200 f=136", (3, 5, 200, 136), torch.float32, False)]:
+            ("odd C=5 d=200 f=136", (3, 5, 200, 136), torch.bfloat16, None,
+             False),
+            ("odd C=5 d=200 f=136", (3, 5, 200, 136), torch.float32, None,
+             False)]:
         if e == KIMI_E:
-            if full is None:
-                full = [_expert_stack(gen, (e, d, f), d ** -0.5, dtype),
-                        _expert_stack(gen, (e, d, f), d ** -0.5, dtype),
-                        _expert_stack(gen, (e, f, d), f ** -0.5, dtype)]
             gate, up, down = full
         else:
             gate, up, down = (_expert_stack(gen, (e, d, f), d ** -0.5, dtype),
                               _expert_stack(gen, (e, d, f), d ** -0.5, dtype),
                               _expert_stack(gen, (e, f, d), f ** -0.5, dtype))
-        buf = (torch.randn((e, c, d), generator=gen, device="cuda")
-               ).to(dtype)
-        launches0 = mops.launches
+        buf = torch.randn((e, c, d), generator=gen, device="cuda").to(dtype)
+        active = e
+        if rows is not None:
+            # the capacity rows the dispatch fills: row 0 of the routed
+            # experts (C = 1), or the last row of the one expert
+            keep = torch.zeros((e, c, 1), dtype=dtype, device="cuda")
+            keep[rows, c - 1 if len(rows) == 1 else 0] = 1
+            buf = buf * keep
+            active = len(rows)
+        path = mops.route(buf, gate, up, down)
+        before = dict(mops.launches_by_route)
         got = mops.moe_mlp(buf, gate, up, down)
         want = moe_mlp_ref(buf, gate, up, down)
         torch.cuda.synchronize()
         err = check_close(got, want, f"moe_gemm {tag}")
-        if mops.launches != launches0 + 1:
-            raise AssertionError("moe_gemm did not count its launch")
+        if {r: n - before[r] for r, n in mops.launches_by_route.items()
+                if n != before[r]} != {path: 1}:
+            raise AssertionError(f"moe_gemm {tag} did not count one {path} "
+                                 f"launch")
+        if path != {torch.float32: "fp32"}.get(
+                dtype, "wgmma" if d % 8 == 0 and f % 8 == 0 else "simple"):
+            raise AssertionError(f"moe_gemm {tag} took the {path} route")
+        empty = (buf == 0).flatten(1).all(dim=1)
+        zero_rows = got[empty]
+        if bool((zero_rows != 0).any()) or bool(
+                torch.signbit(zero_rows).any()):
+            raise AssertionError(f"moe_gemm {tag}: an empty expert's rows "
+                                 f"are not +0")
         if not timed:
             log(f"[kernel] moe_gemm {tag} [{e},{c},{d}] f={f} {_dt(dtype)}: "
-                f"max_abs_err {err:.3g}")
+                f"route {path}, {active} of {e} experts with a row, "
+                f"max_abs_err {err:.3g}, empty experts' rows +0")
             continue
         size = buf.element_size()
-        n_flops = 2.0 * 3 * e * c * d * f
-        n_bytes = size * (3 * e * d * f + 2 * e * c * d)
+        # the function reads every row of buf (to find the empty experts),
+        # the active experts' weights, and writes every row of out
+        n_flops = 2.0 * 3 * active * c * d * f
+        n_bytes = size * (3 * active * d * f + 2 * e * c * d)
         bound, by = gemm_bound_ms(n_flops, n_bytes, peak(dtype), hw.hbm_bw)
         kernel_ms = cuda_ms(lambda: mops.moe_mlp(buf, gate, up, down),
                             flush=flush)
+        simple_ms = cuda_ms(
+            lambda: mops.moe_mlp_simple_bf16(buf, gate, up, down),
+            flush=flush)
         plain_ms = cuda_ms(lambda: moe_mlp_ref(buf, gate, up, down),
                            flush=flush)
         chain_ms = cuda_ms(lambda: _moe_chain(buf, gate, up, down),
                            flush=flush)
         log(f"[kernel] moe_gemm {tag} [{e},{c},{d}] f={f} {_dt(dtype)}: "
-            f"max_abs_err {err:.3g} kernel_ms {kernel_ms:.4f} plain_ms "
-            f"{plain_ms:.4f} library none (bmm/silu/bmm/bmm chain of four "
-            f"calls: {chain_ms:.4f} ms) bound_us {bound * 1e3:.2f} ({by}; "
-            f"{n_flops / 1e9:.2f} GFLOP, {n_bytes / 1e9:.3f} GB)")
+            f"route {path}, {active} of {e} experts with a row: max_abs_err "
+            f"{err:.3g} kernel_ms {kernel_ms:.4f} ({bound / kernel_ms:.3f} of "
+            f"the bound) simple_ms {simple_ms:.4f} "
+            f"({simple_ms / kernel_ms:.2f}x) plain_ms {plain_ms:.4f} library "
+            f"none (bmm/silu/bmm/bmm chain of four calls: {chain_ms:.4f} ms) "
+            f"bound_us {bound * 1e3:.2f} ({by}; {n_flops / 1e9:.2f} GFLOP, "
+            f"{n_bytes / 1e9:.3f} GB)")
         results[("moe_gemm", tag)] = dict(
             max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
-            bound_ms=bound, bound_by=by, library_ms=None, chain_ms=chain_ms)
+            bound_ms=bound, bound_by=by, library_ms=None, chain_ms=chain_ms,
+            simple_ms=simple_ms)
         del buf, got, want
     del full, gate, up, down
     free_card()
@@ -1929,6 +2065,7 @@ def phase_kimi(seed: int) -> dict:
                              "paged_decode", "moe_gemm")
     check_flash_wgmma_only("kimi")
     check_decode_mma_only("kimi")
+    check_moe_wgmma_only("kimi")
     # -- end of the serving path's run ------------------------------------------
     log(f"[kimi] wrapper launches over both serving runs {launches}")
     for name, n in launches.items():
@@ -2232,6 +2369,7 @@ def phase_deepseek(env: dict, gen: torch.Generator, seed: int) -> dict:
     reset_launches()
     runs = serve_both(engine(cfg, params), specs, cfg.dtype)
     launches = read_launches("rmsnorm", "paged_decode_mla", "moe_gemm")
+    check_moe_wgmma_only("deepseek")
     # -- end of the serving path's run ------------------------------------------
     log(f"[deepseek] wrapper launches over both serving runs {launches}; "
         f"the GQA attention kernels (MLA prefill and dense decode are plain, "
@@ -2553,7 +2691,7 @@ def main() -> int:
              source="src/repro_torch/csrc/norm.cu",
              replaces="src/repro/kernels/rmsnorm/kernel.py:29",
              launches=serve["launches"]["rmsnorm"],
-             **attention[("rmsnorm", "prefill", bf16)]),
+             **attention[("rmsnorm", "prefill d=896", bf16)]),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/csrc/attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:72",
@@ -2578,7 +2716,7 @@ def main() -> int:
              source="src/repro_torch/csrc/moe.cu",
              replaces="src/repro/kernels/moe_gemm/kernel.py:51",
              launches=kimi["launches"]["moe_gemm"],
-             **_json_row(families[("moe_gemm", "decode C=1")])),
+             **_json_row(families[("moe_gemm", "tick C=1")])),
         dict(name="rwkv6", route="cuda",
              source="src/repro_torch/csrc/rwkv6.cu",
              replaces="src/repro/kernels/rwkv6/kernel.py:60",

@@ -1,10 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels (gemm.cu's
-// branch_gemm / grouped_gemm route and attention.cu's flash_attention route):
-// mbarriers, TMA tile loads, shared-memory matrix descriptors under the
-// 128-byte swizzle, the wgmma instructions and the host-side tensor-map
-// encoder.  Device code only for sm_90a (wgmma and setmaxnreg exist only
-// there); every function is inline, so each source that includes this
-// header builds its own copy.
+// branch_gemm / grouped_gemm route, attention.cu's flash_attention route and
+// moe.cu's moe_gemm route): mbarriers, TMA tile loads, shared-memory matrix
+// descriptors under the 128-byte swizzle, the wgmma instructions and the
+// host-side tensor-map encoder.  Device code only for sm_90a (wgmma and
+// setmaxnreg exist only there); every function is inline, so each source
+// that includes this header builds its own copy.
 #pragma once
 
 #include <cuda.h>
@@ -291,6 +291,77 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
+
+// wgmma_ss_at: D[64 x N] = A[64 x 16] * B[16 x N] with A read MN-major
+// (transpose-a: a [16, 64] tile, M contiguous, e.g. 64 columns of a row-major
+// weight [K, M]) and B K-major (an [N, 16] tile, K contiguous), both from
+// shared memory; N = 2 * the accumulator count (8, 16, 32, 64).  moe.cu puts
+// the weights on the M side this way ("swap AB") when the activation rows
+// are few.
+
+__device__ __forceinline__ void wgmma_ss_at(float (&d)[4], uint64_t a,
+                                            uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3"
+      "}, %4, %5, p, 1, 1, 1, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_ss_at(float (&d)[8], uint64_t a,
+                                            uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 1, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_ss_at(float (&d)[16], uint64_t a,
+                                            uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 1, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_ss_at(float (&d)[32], uint64_t a,
+                                            uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 1, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 
 // ---- host: tensor maps -------------------------------------------------------
 constexpr int ENCODE_ERROR = 1000;   // a failed encode returns this + CUresult

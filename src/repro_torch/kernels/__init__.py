@@ -49,6 +49,10 @@ DECODE_CHUNK = 128   # KV positions per block of the decode kernels' simple
 MLA_TILE = 32        # KV positions per tile of the MLA decode; must equal
                      # CH in csrc/mla_decode.cu (checked when the library
                      # loads)
+MOE_MAX_EXPERTS = 4096  # most experts of moe_gemm's wgmma route (its list of
+                       # active experts lives in shared memory); must equal
+                       # MAX_EXPERTS in csrc/moe.cu (checked when the library
+                       # loads)
 RWKV6_MAX_K = 64     # largest head size of the rwkv6 kernel; must equal KMAX
                      # in csrc/rwkv6.cu (checked when the library loads)
 

@@ -10,6 +10,7 @@ import: the first CUDA launch calls :func:`library`.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -38,6 +39,12 @@ _DECODE_MMA = _DECODE[:-1] + (_I, _P)
 _PAGED_MMA = _PAGED[:-1] + (_I, _P)
 _MLA = (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _F,
         _P)
+# the onepass route takes (threads a row, vectors a thread, SMs)
+_NORM_SIMPLE = (_P, _P, _P, _I, _I, _F, _P)
+_NORM = _NORM_SIMPLE[:-1] + (_I, _I, _I, _P)
+# buf, gate, up, down, h, flags, out, E, C, d, f, stream; the wgmma route
+# takes the SM count before the stream, the simple route has no flags
+_MOE = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
 _SIGNATURES = {
     "branch_gemm_bf16": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "branch_gemm_simple_bf16": (_P, _P, _P, _I, _I, _I, _I, _P),
@@ -48,8 +55,10 @@ _SIGNATURES = {
     "gemm_tile_m": (),
     "gemm_has_wgmma_tiles": (_I, _I, _I),
     "gemm_init": (),
-    "rmsnorm_bf16": (_P, _P, _P, _I, _I, _F, _P),
-    "rmsnorm_f32": (_P, _P, _P, _I, _I, _F, _P),
+    "rmsnorm_bf16": _NORM,
+    "rmsnorm_f32": _NORM,
+    "rmsnorm_simple_bf16": _NORM_SIMPLE,
+    "rmsnorm_simple_f32": _NORM_SIMPLE,
     "flash_attention_bf16": _FLASH,
     "flash_attention_simple_bf16": _FLASH,
     "flash_attention_f32": _FLASH,
@@ -65,8 +74,11 @@ _SIGNATURES = {
     "mla_decode_bf16": _MLA,
     "mla_decode_f32": _MLA,
     "mla_decode_tile_positions": (),
-    "moe_mlp_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "moe_mlp_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "moe_mlp_bf16": _MOE[:-1] + (_I, _P),
+    "moe_mlp_simple_bf16": _MOE[:5] + _MOE[6:],
+    "moe_mlp_f32": _MOE,
+    "moe_init": (),
+    "moe_max_experts": (),
     "rwkv6_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "rwkv6_head_max": (),
 }
@@ -177,7 +189,7 @@ def library() -> KernelLibrary:
         if _lib is None:
             lib = KernelLibrary([ctypes.CDLL(str(p)) for p in build()])
             from . import (DECODE_CHUNK, DECODE_MAX_SPLITS, DECODE_TILE,
-                           MLA_TILE, RWKV6_MAX_K, TILE_M)
+                           MLA_TILE, MOE_MAX_EXPERTS, RWKV6_MAX_K, TILE_M)
             from .branch_gemm.kernel import WGMMA_TILES
             from .grouped_gemm.kernel import GROUPED_TILES
             if lib.gemm_tile_m() != TILE_M:
@@ -206,6 +218,13 @@ def library() -> KernelLibrary:
                 raise RuntimeError(
                     f"csrc mla_decode CH={lib.mla_decode_tile_positions()} "
                     f"!= kernels.MLA_TILE={MLA_TILE}")
+            if lib.moe_max_experts() != MOE_MAX_EXPERTS:
+                raise RuntimeError(
+                    f"csrc moe MAX_EXPERTS={lib.moe_max_experts()} != "
+                    f"kernels.MOE_MAX_EXPERTS={MOE_MAX_EXPERTS}")
+            err = lib.moe_init()
+            if err != 0:
+                raise RuntimeError(f"moe_init failed: CUDA error {err}")
             if lib.rwkv6_head_max() != RWKV6_MAX_K:
                 raise RuntimeError(f"csrc rwkv6 KMAX={lib.rwkv6_head_max()} "
                                    f"!= kernels.RWKV6_MAX_K={RWKV6_MAX_K}")
@@ -218,6 +237,14 @@ def stream_of(t) -> int:
     launch there, so a launch inside ``torch.cuda.graph`` is recorded."""
     import torch
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@functools.cache
+def sm_count(device) -> int:
+    """Streaming multiprocessors of ``device``'s card: the persistent and
+    split launches size their grids by it."""
+    import torch
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def strides(*values: int) -> ctypes.Array:

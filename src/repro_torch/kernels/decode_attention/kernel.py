@@ -14,12 +14,10 @@ fp32).  Bound and design notes are in the CUDA source.
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from .. import DECODE_CHUNK, DECODE_MAX_SPLITS, DECODE_TILE
-from .._build import library, stream_of, strides
+from .._build import library, sm_count, stream_of, strides
 
 _ENTRY = {"mma": "decode_attention_bf16",
           "simple": "decode_attention_simple_bf16",
@@ -37,11 +35,6 @@ def split_len(b: int, kvh: int, t: int, sms: int) -> int:
     pairs = max(1, b * kvh)
     n = max(1, min(sms // pairs, -(-t // DECODE_TILE), DECODE_MAX_SPLITS))
     return -(-(-(-t // n)) // DECODE_TILE) * DECODE_TILE
-
-
-@functools.cache
-def sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def scratch(route: str, b: int, h: int, kvh: int, t: int, dv: int,

@@ -2,28 +2,42 @@
 
 Replaces ``src/repro/kernels/moe_gemm/kernel.py:moe_mlp_pallas``: stage 1
 writes ``h = silu(buf @ gate) * (buf @ up)`` per expert, rounded to the
-dtype, to a scratch ``[E, C, f]``; stage 2 computes ``h @ down``.  Bound and
-design notes are in the CUDA source.
+dtype, to a scratch ``[E, C, f]``; stage 2 computes ``h @ down``.  Three
+routes, one entry point each: ``wgmma`` (bf16: a scan for the experts with a
+nonzero row, then two persistent TMA + wgmma launches over those experts
+alone), ``simple`` (bf16 FMA tiles over every expert) and ``fp32`` (the scan,
+then the FMA tiles over the experts with a row).  Bound and design notes are
+in the CUDA source.
 """
 from __future__ import annotations
 
 import torch
 
-from .._build import library, stream_of
+from .._build import library, sm_count, stream_of
 
-_ENTRY = {torch.bfloat16: "moe_mlp_bf16", torch.float32: "moe_mlp_f32"}
+_ENTRY = {"wgmma": "moe_mlp_bf16", "simple": "moe_mlp_simple_bf16",
+          "fp32": "moe_mlp_f32"}
 
 
 def moe_mlp_cuda(buf: torch.Tensor, gate: torch.Tensor, up: torch.Tensor,
-                 down: torch.Tensor, out: torch.Tensor) -> None:
-    """Launch both stages on the current stream; the wrapper has checked the
-    operands.  The scratch comes from ``torch.empty``, so a launch inside a
+                 down: torch.Tensor, out: torch.Tensor, route: str) -> None:
+    """Launch ``route`` on the current stream; the wrapper has checked the
+    operands.  The scratch (h, and the per-expert flags of the routes that
+    skip empty experts) comes from ``torch.empty``, so a launch inside a
     CUDA graph records it from the graph's pool."""
     e, c, d = buf.shape
     f = gate.shape[-1]
     h = torch.empty((e, c, f), dtype=buf.dtype, device=buf.device)
-    fn = getattr(library(), _ENTRY[buf.dtype])
-    err = fn(buf.data_ptr(), gate.data_ptr(), up.data_ptr(), down.data_ptr(),
-             h.data_ptr(), out.data_ptr(), e, c, d, f, stream_of(buf))
+    ptrs = [buf.data_ptr(), gate.data_ptr(), up.data_ptr(), down.data_ptr(),
+            h.data_ptr()]
+    if route != "simple":
+        flags = torch.empty(e, dtype=torch.int32, device=buf.device)
+        ptrs.append(flags.data_ptr())
+    shape = [e, c, d, f]
+    if route == "wgmma":
+        shape.append(sm_count(buf.device))
+    fn = getattr(library(), _ENTRY[route])
+    err = fn(*ptrs, out.data_ptr(), *shape, stream_of(buf))
     if err != 0:
-        raise RuntimeError(f"moe_gemm launch failed: CUDA error {err}")
+        raise RuntimeError(f"moe_gemm {route} launch failed: CUDA error "
+                           f"{err}")

@@ -1,26 +1,44 @@
 """Public wrapper of the grouped expert SwiGLU MLP.
 
 CPU tensors take the plain version (``ref.py``).  CUDA tensors launch the
-kernel or raise: any E, C >= 0, d and f are taken (the kernel masks every
-edge).  ``launches`` counts wrapper calls that launched the kernel (its two
-stages count as one).
+kernel or raise: any E, C >= 0, d and f are taken.  :func:`route` picks the
+kernel's route from dtype, shape and alignment alone; ``launches`` counts
+wrapper calls that launched the kernel (its launches count as one) and
+``launches_by_route`` splits them by route.
 """
 from __future__ import annotations
 
 import torch
 
-from .. import use_kernel
-from .kernel import _ENTRY, moe_mlp_cuda
+from .. import MOE_MAX_EXPERTS, use_kernel
+from .kernel import moe_mlp_cuda
 from .ref import moe_mlp_ref
 
+ROUTES = ("wgmma", "simple", "fp32")
 launches = 0
-_GRID_LIMIT = 65535     # blockIdx.y (experts)
+launches_by_route = dict.fromkeys(ROUTES, 0)
+_GRID_LIMIT = 65535     # blockIdx.y (experts) of the simple and fp32 routes
 
 
-def moe_mlp(buf: torch.Tensor, gate: torch.Tensor, up: torch.Tensor,
-            down: torch.Tensor) -> torch.Tensor:
-    """buf: [E,C,d]; gate/up: [E,d,f]; down: [E,f,d] → [E,C,d]."""
-    global launches
+def route(buf: torch.Tensor, gate: torch.Tensor, up: torch.Tensor,
+          down: torch.Tensor) -> str:
+    """The kernel route for ``buf [E,C,d]`` and the expert weights:
+    ``"fp32"`` for fp32; for bf16 ``"wgmma"`` when TMA can read every
+    operand (d and f multiples of 8, so every row stride is a multiple of 16
+    bytes, and 16-byte aligned bases) and the experts fit the route's list
+    (E <= MOE_MAX_EXPERTS), else ``"simple"``."""
+    if buf.dtype == torch.float32:
+        return "fp32"
+    e, _, d = buf.shape
+    f = gate.shape[-1]
+    if (d % 8 == 0 and f % 8 == 0 and e <= MOE_MAX_EXPERTS
+            and all(t.data_ptr() % 16 == 0 for t in (buf, gate, up, down))):
+        return "wgmma"
+    return "simple"
+
+
+def _check(buf: torch.Tensor, gate: torch.Tensor, up: torch.Tensor,
+           down: torch.Tensor) -> None:
     if buf.dim() != 3 or gate.dim() != 3:
         raise ValueError(f"moe_mlp wants buf [E,C,d] and weights [E,d,f], "
                          f"got {tuple(buf.shape)}, {tuple(gate.shape)}")
@@ -31,20 +49,46 @@ def moe_mlp(buf: torch.Tensor, gate: torch.Tensor, up: torch.Tensor,
         raise ValueError(f"moe_mlp shape mismatch: buf {tuple(buf.shape)}, "
                          f"gate {tuple(gate.shape)}, up {tuple(up.shape)}, "
                          f"down {tuple(down.shape)}")
-    if not use_kernel(buf, gate, up, down):
-        return moe_mlp_ref(buf, gate, up, down)
+
+
+def _launch(buf: torch.Tensor, gate: torch.Tensor, up: torch.Tensor,
+            down: torch.Tensor, path: str) -> torch.Tensor:
+    global launches
     if not (buf.dtype == gate.dtype == up.dtype == down.dtype) \
-            or buf.dtype not in _ENTRY:
+            or buf.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"moe_mlp takes bf16 or fp32 operands of one dtype, "
                         f"got {buf.dtype}, {gate.dtype}, {up.dtype}, "
                         f"{down.dtype}")
     if not all(t.is_contiguous() for t in (buf, gate, up, down)):
         raise ValueError("moe_mlp needs contiguous operands")
-    if e > _GRID_LIMIT:
-        raise ValueError(f"moe_mlp grid too large: {e} experts")
+    if buf.shape[0] > _GRID_LIMIT:
+        raise ValueError(f"moe_mlp grid too large: {buf.shape[0]} experts")
     out = torch.empty_like(buf)
     if out.numel() == 0:
         return out
-    moe_mlp_cuda(buf, gate, up, down, out)
+    moe_mlp_cuda(buf, gate, up, down, out, path)
     launches += 1
+    launches_by_route[path] += 1
     return out
+
+
+def moe_mlp(buf: torch.Tensor, gate: torch.Tensor, up: torch.Tensor,
+            down: torch.Tensor) -> torch.Tensor:
+    """buf: [E,C,d]; gate/up: [E,d,f]; down: [E,f,d] → [E,C,d]."""
+    _check(buf, gate, up, down)
+    if not use_kernel(buf, gate, up, down):
+        return moe_mlp_ref(buf, gate, up, down)
+    return _launch(buf, gate, up, down, route(buf, gate, up, down))
+
+
+def moe_mlp_simple_bf16(buf: torch.Tensor, gate: torch.Tensor,
+                        up: torch.Tensor, down: torch.Tensor) -> torch.Tensor:
+    """The simple route (the first port's FMA tiles over every expert) at
+    any bf16 shape on the card, so that a measurement can hold the wgmma
+    route against it; counted as a ``simple`` launch."""
+    _check(buf, gate, up, down)
+    if not use_kernel(buf, gate, up, down):
+        raise ValueError("moe_mlp_simple_bf16 needs CUDA tensors")
+    if buf.dtype != torch.bfloat16:
+        raise TypeError(f"moe_mlp_simple_bf16 takes bf16, got {buf.dtype}")
+    return _launch(buf, gate, up, down, "simple")

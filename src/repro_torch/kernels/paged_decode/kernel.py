@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from .. import MLA_TILE
-from .._build import library, stream_of, strides
+from .._build import library, sm_count, stream_of, strides
 from ..decode_attention.kernel import scratch
 
 _ENTRY = {"mma": "paged_decode_bf16", "simple": "paged_decode_simple_bf16",
@@ -64,7 +64,7 @@ def mla_split_len(b: int, h: int, t: int, device: torch.device) -> int:
     """Positions each block walks: enough splits of the ``t`` table
     positions for about two blocks per SM over the ``b × ⌈h/16⌉`` (row,
     head group) pairs, each a whole number of ``MLA_TILE``-position tiles."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    sms = sm_count(device)
     pairs = b * -(-h // _MLA_HEADS)
     n = max(1, min(-(-2 * sms // pairs), -(-t // MLA_TILE)))
     return -(-(-(-t // n)) // MLA_TILE) * MLA_TILE

@@ -74,6 +74,50 @@ def test_rmsnorm_plain_matches_jax_ref_and_pallas(dtype, n, d, lattice):
                                    bn=8, interpret=True), tol)
 
 
+def _norm_operands(d, dtype=torch.bfloat16, offset=0):
+    x = torch.zeros(1 + 4 * d, dtype=dtype)[offset:offset + 4 * d].view(4, d)
+    return x, torch.zeros(d, dtype=dtype)
+
+
+@pytest.mark.parametrize("d,dtype,offset,want", [
+    (896, torch.bfloat16, 0, "onepass"),     # Qwen2-0.5B
+    (2048, torch.bfloat16, 0, "onepass"),    # RWKV6-1.6B
+    (7168, torch.bfloat16, 0, "onepass"),    # Kimi-K2, DeepSeek-V3
+    (1536, torch.bfloat16, 0, "onepass"),    # DeepSeek-V3 q_norm
+    (512, torch.bfloat16, 0, "onepass"),     # DeepSeek-V3 kv_norm
+    (896, torch.float32, 0, "onepass"),
+    (100, torch.float32, 0, "onepass"),      # 25 vectors
+    (16384, torch.bfloat16, 0, "onepass"),   # the widest row it holds
+    (16392, torch.bfloat16, 0, "simple"),    # one vector past it
+    (14, torch.bfloat16, 0, "simple"),       # not a whole vector
+    (100, torch.bfloat16, 0, "simple"),
+    (896, torch.bfloat16, 1, "simple"),      # x base 2 bytes off
+])
+def test_rmsnorm_route_rule(d, dtype, offset, want):
+    assert rops.route(*_norm_operands(d, dtype, offset)) == want
+
+
+@pytest.mark.parametrize("d,want", [(896, (32, 4)), (2048, (64, 4)),
+                                    (7168, (256, 4)), (1536, (64, 3)),
+                                    (512, (32, 2)), (8, (32, 1)),
+                                    (16384, (512, 4))])
+def test_rmsnorm_layout_is_the_narrowest_team_that_holds_the_row(d, want):
+    """The onepass layout at the widths the registered models normalise
+    (bf16): the team's registers hold the row at <= 4 vectors a thread, and
+    a team of half the threads would not."""
+    from repro_torch.kernels.rmsnorm.kernel import select_layout
+    nvec = d * 2 // 16
+    tpr, vpt = select_layout(nvec)
+    assert (tpr, vpt) == want
+    assert tpr * vpt >= nvec and vpt <= 4
+    assert tpr == 32 or (tpr // 2) * 4 < nvec
+
+
+def test_rmsnorm_forced_simple_route_needs_cuda_tensors():
+    with pytest.raises(ValueError, match="CUDA"):
+        rops.rmsnorm_simple(torch.zeros(2, 8), torch.ones(8))
+
+
 @pytest.mark.parametrize("dtype", sorted(NP))
 @pytest.mark.parametrize("b,s,h,kvh,d,window,lattice", [
     (1, 128, 2, 1, 16, 0, True), (1, 128, 2, 2, 16, 32, True),

@@ -339,15 +339,44 @@ def _randn(cuda, seed, *shape, dtype=torch.float32, scale=1.0):
     return (torch.randn(*shape, generator=g, device=cuda) * scale).to(dtype)
 
 
+# every width the registered models normalise (Qwen2-0.5B 896, RWKV6-1.6B
+# 2048, Kimi-K2 and DeepSeek-V3 7168, DeepSeek-V3's q_norm 1536 and kv_norm
+# 512) at a prefill's 512 rows and a decode tick's 8; odd widths (the simple
+# route in bf16); more rows than one resident wave (teams stride over rows)
+NORM_CASES = [(n, d) for d in (896, 2048, 7168, 1536, 512) for n in (512, 8)]
+NORM_CASES += [(3, 14), (5, 100), (40000, 64)]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("n,d", [(512, 896), (8, 896), (3, 14), (5, 100)])
+@pytest.mark.parametrize("n,d", NORM_CASES)
 def test_rmsnorm_kernel_matches_plain(cuda, dtype, n, d):
     x = _randn(cuda, n, n, d, dtype=dtype)
     scale = _randn(cuda, d, d, dtype=dtype)
-    before = rops.launches
+    before, by_route = rops.launches, dict(rops.launches_by_route)
     got = rops.rmsnorm(x, scale)
     assert rops.launches == before + 1
+    want = "onepass" if d * x.element_size() % 16 == 0 else "simple"
+    assert _route_delta(rops, by_route) == {want: 1}
     _assert_kernel_close(got, rmsnorm_ref(x, scale))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,d", [(512, 896), (8, 7168)])
+def test_rmsnorm_simple_route_matches_plain_and_the_onepass_route(cuda,
+                                                                  dtype, n,
+                                                                  d):
+    x = _randn(cuda, n, n, d, dtype=dtype)
+    scale = _randn(cuda, d, d, dtype=dtype)
+    by_route = dict(rops.launches_by_route)
+    got = rops.rmsnorm_simple(x, scale)
+    assert _route_delta(rops, by_route) == {"simple": 1}
+    _assert_kernel_close(got, rmsnorm_ref(x, scale))
+    _assert_kernel_close(got, rops.rmsnorm(x, scale))
+    # a view one element past an aligned base takes the simple route
+    xv = _randn(cuda, 9, 1 + n * d, dtype=dtype)[1:].view(n, d)
+    by_route = dict(rops.launches_by_route)
+    _assert_kernel_close(rops.rmsnorm(xv, scale), rmsnorm_ref(xv, scale))
+    assert _route_delta(rops, by_route) == {"simple": 1}
 
 
 # Qwen2-0.5B's 512-token prefill, D = 14 (simple route in bf16), a window
@@ -735,6 +764,119 @@ def test_moe_gemm_kernel_matches_plain(cuda, dtype, e, c, d, f):
     assert mops.launches == before + (1 if c else 0)
     assert got.shape == buf.shape and got.dtype == dtype
     _assert_kernel_close(got, moe_mlp_ref(buf, gate, up, down))
+
+
+def _moe_case(cuda, e, c, d, f, rows=None, dtype=torch.bfloat16, seed=0):
+    """Expert operands; with ``rows`` (expert indices) only row 0 of those
+    experts (the last row for one expert) is nonzero, as the dispatch
+    leaves the capacity buffers."""
+    buf = _randn(cuda, 50 + seed, e, c, d, dtype=dtype, scale=0.5)
+    if rows is not None:
+        keep = torch.zeros(e, c, 1, dtype=dtype, device=cuda)
+        keep[torch.as_tensor(rows, device=cuda).long(),
+             c - 1 if len(rows) == 1 else 0] = 1
+        buf = buf * keep
+    gate = _randn(cuda, 51 + seed, e, d, f, dtype=dtype, scale=d ** -0.5)
+    up = _randn(cuda, 52 + seed, e, d, f, dtype=dtype, scale=d ** -0.5)
+    down = _randn(cuda, 53 + seed, e, f, d, dtype=dtype, scale=f ** -0.5)
+    return buf, gate, up, down
+
+
+def _tick_rows(cuda, e, tokens=8, top_k=8):
+    """The experts a decode tick's tokens route to (random top-k)."""
+    g = torch.Generator(device=cuda).manual_seed(e)
+    return torch.unique(torch.rand(tokens, e, generator=g, device=cuda)
+                        .topk(top_k, dim=-1).indices).tolist()
+
+
+def _assert_empty_rows_are_positive_zero(buf, got):
+    empty = (buf == 0).flatten(1).all(dim=1)
+    rows = got[empty]
+    assert bool((rows == 0).all()) and not bool(torch.signbit(rows).any())
+
+
+# the tick's occupancy (8 tokens' top-8 over 384 experts at C = 1) at reduced
+# widths, a prefill's C = 13 with some experts empty, every expert empty,
+# only the last expert with one row, C past one row tile (40) and past 64
+# (row chunks), K and M off the 64-wide tiles
+MOE_WGMMA_CASES = [
+    ("tick", (384, 1, 256, 128), "tick"),
+    ("prefill C=13", (16, 13, 512, 256), [0, 3, 4, 9, 15]),
+    ("all empty", (32, 1, 256, 128), []),
+    ("last expert one row", (32, 13, 256, 128), [31]),
+    ("C=40", (4, 40, 128, 64), None),
+    ("C=70", (3, 70, 128, 64), [0, 2]),
+    ("off the tiles", (3, 13, 200, 136), None),
+]
+
+
+@pytest.mark.parametrize("tag,shape,rows", MOE_WGMMA_CASES,
+                         ids=[c[0] for c in MOE_WGMMA_CASES])
+def test_moe_gemm_wgmma_route_matches_plain_and_skips_empty_experts(
+        cuda, tag, shape, rows):
+    e, c, d, f = shape
+    if rows == "tick":
+        rows = _tick_rows(cuda, e)
+    buf, gate, up, down = _moe_case(cuda, e, c, d, f, rows)
+    before, by_route = mops.launches, dict(mops.launches_by_route)
+    got = mops.moe_mlp(buf, gate, up, down)
+    assert mops.launches == before + 1
+    assert _route_delta(mops, by_route) == {"wgmma": 1}
+    _assert_kernel_close(got, moe_mlp_ref(buf, gate, up, down))
+    _assert_empty_rows_are_positive_zero(buf, got)
+
+
+def test_moe_gemm_counts_no_launch_at_zero_capacity(cuda):
+    buf, gate, up, down = _moe_case(cuda, 4, 0, 64, 32)
+    before, by_route = mops.launches, dict(mops.launches_by_route)
+    got = mops.moe_mlp(buf, gate, up, down)
+    assert got.shape == (4, 0, 64)
+    assert mops.launches == before and mops.launches_by_route == by_route
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_moe_gemm_routes_off_the_tma_rule_and_fp32(cuda, dtype):
+    """d % 8 != 0 takes the simple route in bf16; fp32 takes the fp32 route
+    and skips its empty experts too; the forced simple route computes every
+    expert and agrees."""
+    buf, gate, up, down = _moe_case(cuda, 3, 5, 100, 36, dtype=dtype)
+    by_route = dict(mops.launches_by_route)
+    _assert_kernel_close(mops.moe_mlp(buf, gate, up, down),
+                         moe_mlp_ref(buf, gate, up, down))
+    want = "simple" if dtype == torch.bfloat16 else "fp32"
+    assert _route_delta(mops, by_route) == {want: 1}
+    buf, gate, up, down = _moe_case(cuda, 8, 3, 128, 64, [1, 6], dtype=dtype)
+    got = mops.moe_mlp(buf, gate, up, down)
+    _assert_kernel_close(got, moe_mlp_ref(buf, gate, up, down))
+    _assert_empty_rows_are_positive_zero(buf, got)
+    if dtype == torch.bfloat16:
+        by_route = dict(mops.launches_by_route)
+        simple = mops.moe_mlp_simple_bf16(buf, gate, up, down)
+        assert _route_delta(mops, by_route) == {"simple": 1}
+        _assert_kernel_close(simple, moe_mlp_ref(buf, gate, up, down))
+
+
+def test_moe_gemm_wgmma_in_a_cuda_graph_follows_the_occupancy(cuda):
+    """One recorded launch replayed on buffers whose set of nonempty experts
+    changes between replays (as from tick to tick): each replay equals the
+    plain version, and empty experts' rows are +0."""
+    e, c, d, f = 64, 2, 256, 128
+    buf, gate, up, down = _moe_case(cuda, e, c, d, f, _tick_rows(cuda, e, 4,
+                                                                 4))
+    static = buf.clone()
+    mops.moe_mlp(static, gate, up, down)             # warm-up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = mops.moe_mlp(static, gate, up, down)
+    for seed, rows in ((1, [5]), (2, list(range(0, e, 3))), (3, []),
+                       (4, list(range(e)))):
+        new, _, _, _ = _moe_case(cuda, e, c, d, f, rows, seed=seed)
+        static.copy_(new)
+        graph.replay()
+        torch.cuda.synchronize()
+        _assert_kernel_close(out, moe_mlp_ref(static, gate, up, down))
+        _assert_empty_rows_are_positive_zero(static, out)
 
 
 @pytest.mark.parametrize("b,h,t,k", [(1, 32, 64, 64), (8, 32, 1, 64),

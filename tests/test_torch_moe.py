@@ -119,6 +119,76 @@ def test_moe_mlp_checks_shapes_before_routing():
         mops.moe_mlp(x[0], w, w, w.transpose(1, 2))
 
 
+# -- empty experts: the property the kernel's expert skip rests on ------------
+
+@pytest.mark.parametrize("dtype", sorted(NP))
+@pytest.mark.parametrize("empty", [(1,), (0, 2), (0, 1, 2, 3)],
+                         ids=["one", "some", "all"])
+def test_empty_experts_give_exact_positive_zero_rows(dtype, empty):
+    """An expert whose capacity rows are all zero gets rows of +0 from the
+    port's plain version, the JAX package's ``moe_mlp_ref`` and its Pallas
+    kernel (interpret mode): the kernel may skip its weights and write +0.
+    The other experts still agree as before."""
+    e, c, d, f = 4, 8, 128, 128
+    rng = np.random.default_rng(len(empty))
+    arrs = [(rng.standard_normal(s) * sc).astype(NP[dtype]) for s, sc in (
+        ((e, c, d), 0.1), ((e, d, f), 0.05), ((e, d, f), 0.05),
+        ((e, f, d), 0.05))]
+    arrs[0][list(empty)] = 0
+    got = mops.moe_mlp(*[bridge.array_to_tensor(a, "cpu") for a in arrs])
+    jarrs = [jnp.asarray(a) for a in arrs]
+    outs = {"port": got, "jax ref": jax_moe_ref(*jarrs),
+            "pallas": moe_mlp_pallas(*jarrs, bc=8, bf=128, interpret=True)}
+    for name, out in outs.items():
+        rows = _np(out)[list(empty)]
+        assert (rows == 0).all(), name
+        assert not np.signbit(rows).any(), name
+    _close(got, outs["jax ref"], DTYPES[dtype][2])
+    _close(got, outs["pallas"], DTYPES[dtype][2])
+
+
+def _operand(shape, dtype=torch.bfloat16, offset=0):
+    """A tensor of ``shape`` over two elements of storage, its base
+    ``offset`` elements in: the route reads dtype, shape and base only."""
+    return torch.zeros(2, dtype=dtype).as_strided(shape, [0] * len(shape),
+                                                  offset)
+
+
+def _expert_operands(e, c, d, f, dtype=torch.bfloat16, offsets=(0,) * 4):
+    shapes = ((e, c, d), (e, d, f), (e, d, f), (e, f, d))
+    return [_operand(s, dtype, o) for s, o in zip(shapes, offsets)]
+
+
+@pytest.mark.parametrize("shape,dtype,offsets,want", [
+    ((384, 1, 7168, 2048), torch.bfloat16, None, "wgmma"),  # Kimi-K2 tick
+    ((384, 13, 7168, 2048), torch.bfloat16, None, "wgmma"),  # 512 tokens
+    ((384, 18, 7168, 2048), torch.bfloat16, None, "wgmma"),  # 700 tokens
+    ((256, 27, 7168, 2048), torch.bfloat16, None, "wgmma"),  # DeepSeek-V3
+    ((8, 3, 64, 32), torch.bfloat16, None, "wgmma"),         # smoke widths
+    ((3, 5, 200, 136), torch.bfloat16, None, "wgmma"),       # off the tiles
+    ((4096, 1, 64, 32), torch.bfloat16, None, "wgmma"),      # the most experts
+    ((3, 5, 100, 136), torch.bfloat16, None, "simple"),      # d % 8 != 0
+    ((3, 5, 200, 36), torch.bfloat16, None, "simple"),       # f % 8 != 0
+    ((4097, 1, 64, 32), torch.bfloat16, None, "simple"),     # list too long
+    ((3, 5, 64, 32), torch.bfloat16, (1, 0, 0, 0), "simple"),  # buf base
+    ((3, 5, 64, 32), torch.bfloat16, (0, 0, 0, 1), "simple"),  # down base
+    ((64, 1, 7168, 2048), torch.float32, None, "fp32"),
+    ((3, 5, 100, 36), torch.float32, None, "fp32"),
+])
+def test_route_rule_sends_only_tma_readable_bf16_to_wgmma(shape, dtype,
+                                                          offsets, want):
+    ops = _expert_operands(*shape, dtype=dtype,
+                           offsets=offsets or (0,) * 4)
+    assert mops.route(*ops) == want
+
+
+def test_forced_simple_route_needs_cuda_tensors():
+    ops = [torch.zeros(s, dtype=torch.bfloat16) for s in
+           ((2, 3, 8), (2, 8, 8), (2, 8, 8), (2, 8, 8))]
+    with pytest.raises(ValueError, match="CUDA"):
+        mops.moe_mlp_simple_bf16(*ops)
+
+
 # -- routing and dispatch ------------------------------------------------------
 
 def _cfgs(n_experts=8, top_k=2, cf=2.0, aux_free=False):
