@@ -5,8 +5,9 @@ them against their plain versions, then drive the main path end to end.
 
 Phases (any failure raises and the script exits non-zero):
   1. environment: card name and power limit, torch/CUDA versions, kernel
-     build time, ptxas registers and remarks (a remark on the flash or the
-     moe_gemm wgmma kernels, e.g. serialised wgmma, fails the run);
+     build time, ptxas registers and remarks (a remark on the flash, the
+     moe_gemm or the MLA wgmma kernels, e.g. serialised wgmma, fails the
+     run);
   2. kernels vs plain at the main path's shapes (plus an off-lattice shape
      and fp32): route, error, kernel / plain / library times, bound,
      TFLOP/s and share of the bound; for bf16 also the simple route (the
@@ -51,9 +52,12 @@ Phases (any failure raises and the script exits non-zero):
      simple route, the routine the wgmma route replaced, in the same call;
      every expert empty; only the last expert with a row; fp32; off the
      tile lattice; empty experts' rows exactly +0) and rwkv6 (RWKV6-1.6B's
-     32 heads of 64 at a 512-token prefill and an 8-slot decode tick; odd
-     T; nonzero state) vs their plain versions; decode rows with no
-     attended position, dense and paged;
+     32 heads of 64 at a 512-token prefill and an 8-slot decode tick, each
+     with its route and beside the step route, the routine the chunked
+     route replaced, in the same call; strong decays with exact zeros at
+     512 and 700 positions; odd T; the model layout read in place; nonzero
+     state) vs their plain versions; decode rows with no attended position,
+     dense and paged;
   8. Kimi-K2 at full width, 2 of 61 layers (dense prefix + one MoE layer):
      the routed op graph (16 expert branches, batch 1, seq 512) through
      Session.compile into one CUDA graph with grouped_gemm on the fan-out,
@@ -67,17 +71,23 @@ Phases (any failure raises and the script exits non-zero):
   9. DeepSeek-V3 at full width, 4 of 61 layers (3 dense-prefix + 1 MoE,
      MLA attention, the MTP head built): the MLA form of paged decode vs
      plain at the serving shapes (8 slots, 128 heads, Dk 576, Dv 512, 16-
-     and 128-position pages, full and ragged lengths, bf16 and fp32) and
-     on rows with no attended position; the routed op graph through
+     and 128-position pages, full and ragged lengths, bf16 and fp32; the
+     route, its share of the bound and, in bf16, the simple route, the
+     routine the wgmma route replaced, in the same call), on rows with no
+     attended position and with table entries past each length on a page
+     of inf; the routed op graph through
      Session.compile (branch_gemm and grouped_gemm); the serve trace dense
      and paged (bf16, then fp32 at 64 of the 256 experts) with the MLA
      kernel on the paged engine; the kernel route vs the plain route (the
      MLA and MoE layers on identical inputs, whole-model logits, fp32
-     teacher-forced decode); decode ticks graph vs eager;
+     teacher-forced decode); every bf16 MLA launch of the serve runs on
+     the wgmma route; decode ticks graph vs eager;
  10. RWKV6-1.6B at full width and depth (24 layers): the op graph (seq 512,
-     the wkv_scan nodes launch rwkv6) through Session.compile, held against
-     eager per-op execution; the serve trace on the dense-slab engine in
-     bf16 and fp32 with phase 6's gates; a decode tick graph vs eager.
+     the wkv_scan nodes launch rwkv6, every launch on the chunked route)
+     through Session.compile, held against eager per-op execution; the
+     serve trace on the dense-slab engine in bf16 and fp32 with phase 6's
+     gates; a decode tick graph vs eager; the longest prompt's prefill with
+     every rwkv6 launch on the chunked route.
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
 package; needs the repository's ``src/`` next to this file and a CUDA card.
@@ -232,8 +242,15 @@ def phase_environment() -> dict:
             moe = re.search(r"expert_wgmma_kernelILb([01])ELi(\d+)E", line)
             norm = re.search(r"rmsnorm_rows_kernelI(f|13__nv_bfloat16)Li(\d+)E",
                              line)
+            mla = re.search(r"mla_wgmma_kernel", line)
+            rwkv = re.search(r"rwkv6_(chunk_(state|carry|out)_)?kernel", line)
             name = ""
-            if moe:
+            if mla:
+                name = f"{source}:paged_decode_mla wgmma<bf16, R 512, P 64>"
+            elif rwkv:
+                name = (f"{source}:rwkv6 chunked<{rwkv[2]}>" if rwkv[1]
+                        else f"{source}:rwkv6 step")
+            elif moe:
                 name = (f"{source}:moe_gemm wgmma<bf16, stage "
                         f"{2 - int(moe[1])}, NT {moe[2]}>")
             elif norm:
@@ -261,16 +278,17 @@ def phase_environment() -> dict:
             elif "registers" in line or "spill" in line:
                 log(f"[build] {kernel}: "
                     f"{line.replace('ptxas info    :', '').strip()}")
-    # a ptxas remark (serialised wgmma, C7515/C7517/C7518) on the flash or
-    # the moe_gemm wgmma kernels fails the run: the remark names its
-    # function in quotes
+    # a ptxas remark (serialised wgmma, C7512/C7515/C7517/C7518) on the
+    # flash, the moe_gemm or the MLA wgmma kernels fails the run: the remark
+    # names its function in quotes
     remarks = [
         (m[1], m[2]) for text in _build.build_log.values()
         for m in re.finditer(r"\((C\d{4})\)[^']*'([^']*)'", text)
-        if "flash" in m[2] or "expert_wgmma" in m[2]]
+        if "flash" in m[2] or "expert_wgmma" in m[2]
+        or "mla_wgmma" in m[2]]
     if remarks:
-        raise AssertionError(f"ptxas remarks on the flash_attention or "
-                             f"moe_gemm wgmma kernels: {remarks}")
+        raise AssertionError(f"ptxas remarks on the flash_attention, "
+                             f"moe_gemm or MLA wgmma kernels: {remarks}")
     if not _build.build_log:
         log("[build] libraries reused: no ptxas output to check")
     hw = detect_hardware()
@@ -1201,9 +1219,11 @@ def reset_launches() -> None:
     from repro_torch.kernels.rmsnorm import ops as rops
     for module, attr in _counters(*KERNELS).values():
         setattr(module, attr, 0)
-    for module in (bops, gops, fops, dops, mops, rops):
+    from repro_torch.kernels.rwkv6 import ops as wops
+    for module in (bops, gops, fops, dops, mops, rops, wops):
         module.launches_by_route.update(dict.fromkeys(module.ROUTES, 0))
     pops.launches_by_route.update(dict.fromkeys(dops.ROUTES, 0))
+    pops.mla_launches_by_route.update(dict.fromkeys(pops.MLA_ROUTES, 0))
 
 
 def gemm_routes() -> dict:
@@ -1265,6 +1285,32 @@ def check_moe_wgmma_only(tag: str) -> None:
             not routes["wgmma"]:
         raise AssertionError(f"[{tag}] bf16 serving launched moe_gemm off "
                              f"the wgmma route: {routes}")
+
+
+def check_rwkv_chunked_only(tag: str) -> None:
+    """A run's rwkv6 launches since the last reset_launches() (an op-graph
+    forward at 512 positions, or a prefill of at least CHUNKED_MIN_T
+    tokens) all took the chunked route."""
+    from repro_torch.kernels.rwkv6 import ops as wops
+    routes = dict(wops.launches_by_route)
+    log(f"[{tag}] rwkv6 launches by route {routes}")
+    if any(n for r, n in routes.items() if r != "chunked") or \
+            not routes["chunked"]:
+        raise AssertionError(f"[{tag}] rwkv6 launched off the chunked "
+                             f"route: {routes}")
+
+
+def check_mla_wgmma_only(tag: str) -> None:
+    """A bf16 serving run's MLA paged-decode launches since the last
+    reset_launches() all took the wgmma route."""
+    from repro_torch.kernels.paged_decode import ops as pops
+    routes = dict(pops.mla_launches_by_route)
+    log(f"[{tag}] MLA paged-decode launches over the bf16 serving runs, by "
+        f"route {routes}")
+    if any(n for r, n in routes.items() if r != "wgmma") or \
+            not routes["wgmma"]:
+        raise AssertionError(f"[{tag}] bf16 serving launched the MLA decode "
+                             f"off the wgmma route: {routes}")
 
 
 def read_launches(*names: str) -> dict:
@@ -1658,45 +1704,99 @@ def phase_moe_rwkv_kernels(env: dict, gen: torch.Generator) -> dict:
     del full, gate, up, down
     free_card()
 
-    # -- rwkv6: a 512-token prefill, a decode tick of 8 slots, odd T ---------
-    for tag, (b, t), timed in [("prefill T=512", (1, 512), True),
-                               ("decode B=8 T=1", (8, 1), True),
-                               ("odd T=17", (1, 17), False),
-                               ("T=700", (1, 700), False)]:
-        h, k = RWKV_H, RWKV_K
+    # -- rwkv6: a 512-token prefill, a decode tick of 8 slots, odd T, the
+    # model layout; the route each takes, and the step route (the routine
+    # the chunked route replaced) in the same call ---------------------------
+    h, k = RWKV_H, RWKV_K
+
+    def wkv_operands(b, t, decays):
         r, kk, v = (torch.randn((b, h, t, k), generator=gen, device="cuda")
                     for _ in range(3))
-        w = torch.exp(-torch.exp(torch.randn((b, h, t, k), generator=gen,
-                                             device="cuda") * 0.5 - 6.0))
+        if decays == "strong":
+            # uniform over (0, 1) with a sixth exact zeros and a sixth
+            # 1 - 1e-7 (trained checkpoints' fast and slow channels)
+            w = torch.rand((b, h, t, k), generator=gen, device="cuda")
+            pick = torch.rand((b, h, t, k), generator=gen, device="cuda")
+            w = torch.where(pick < 1 / 6, torch.zeros_like(w), w)
+            w = torch.where(pick > 5 / 6, torch.full_like(w, 1 - 1e-7), w)
+        else:   # the random-init model's decays, w_base = -6
+            w = torch.exp(-torch.exp(torch.randn(
+                (b, h, t, k), generator=gen, device="cuda") * 0.5 - 6.0))
         u = torch.randn((h, k), generator=gen, device="cuda") * 0.1
         s0 = torch.randn((b, h, k, k), generator=gen, device="cuda")
-        launches0 = wops.launches
-        out, s_final = wops.rwkv6(r, kk, v, w, u, s0)
-        want_out, want_s = rwkv6_ref(r, kk, v, w, u, s0)
+        return r, kk, v, w, u, s0
+
+    for tag, (b, t), decays, layout, timed in [
+            ("prefill T=512", (1, 512), "model", "kernel", True),
+            ("decode B=8 T=1", (8, 1), "model", "kernel", True),
+            ("strong decays T=512", (1, 512), "strong", "kernel", False),
+            ("strong decays T=700", (1, 700), "strong", "kernel", False),
+            ("odd T=17", (1, 17), "model", "kernel", False),
+            ("T=700", (1, 700), "model", "kernel", False),
+            ("model layout T=700", (1, 700), "model", "model", False)]:
+        args = wkv_operands(b, t, decays)
+        r, kk, v, w, u, s0 = args
+        before = dict(wops.launches_by_route)
+        if layout == "model":
+            # [B,T,H,K] columns of one wider projection, as the model's
+            # r, k, v, w views: read in place, y written in that layout
+            wide = torch.stack([x.transpose(1, 2) for x in args[:4]], dim=2)
+            out_m, s_final = wops.rwkv6_model(*wide.unbind(2), u, s0)
+            if not out_m.is_contiguous():
+                raise AssertionError("rwkv6_model did not write [B,T,H,K] "
+                                     "contiguous")
+            out = out_m.transpose(1, 2)
+        else:
+            out, s_final = wops.rwkv6(*args)
+        path = {rt: n - before[rt] for rt, n in
+                wops.launches_by_route.items() if n != before[rt]}
+        want_out, want_s = rwkv6_ref(*args)
+        step_out, step_s = wops.rwkv6_step(*args)
         torch.cuda.synchronize()
         err = max(check_close(out, want_out, f"rwkv6 {tag} out"),
                   check_close(s_final, want_s, f"rwkv6 {tag} state"))
-        if wops.launches != launches0 + 1:
-            raise AssertionError("rwkv6 did not count its launch")
+        step_err = max(check_close(step_out, want_out, f"rwkv6 step {tag}"),
+                       check_close(step_s, want_s, f"rwkv6 step {tag} state"))
+        if not all(bool(torch.isfinite(x).all()) for x in (out, s_final)):
+            raise AssertionError(f"rwkv6 {tag}: NaN or inf")
+        want_route = "chunked" if t >= wops.CHUNKED_MIN_T else "step"
+        if path != {want_route: 1}:
+            raise AssertionError(f"rwkv6 {tag}: launches {path}, want one "
+                                 f"{want_route}")
         if not timed:
-            log(f"[kernel] rwkv6 {tag} B={b} H={h} K={k} (nonzero s0): "
-                f"max_abs_err {err:.3g}")
+            log(f"[kernel] rwkv6 {tag} B={b} H={h} K={k} ({decays} decays, "
+                f"{layout} layout, nonzero s0): route {want_route} "
+                f"max_abs_err {err:.3g} (step route {step_err:.3g})")
             continue
         n_flops = 6.0 * b * h * t * k * k
         n_bytes = 4 * (5 * b * h * t * k + 2 * b * h * k * k + h * k)
         bound, by = gemm_bound_ms(n_flops, n_bytes, FP32_PEAK[hw.name],
                                   hw.hbm_bw)
-        kernel_ms = cuda_ms(lambda: wops.rwkv6(r, kk, v, w, u, s0),
-                            flush=flush)
-        plain_ms = cuda_ms(lambda: rwkv6_ref(r, kk, v, w, u, s0),
-                           flush=flush, iters=5)
-        log(f"[kernel] rwkv6 {tag} B={b} H={h} K={k} fp32: max_abs_err "
-            f"{err:.3g} kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} "
-            f"library none bound_us {bound * 1e3:.3f} ({by}; "
-            f"{n_flops / 1e6:.2f} MFLOP, {n_bytes / 1e6:.3f} MB)")
+        kernel_ms = cuda_ms(lambda: wops.rwkv6(*args), flush=flush)
+        step_ms = cuda_ms(lambda: wops.rwkv6_step(*args), flush=flush)
+        plain_ms = cuda_ms(lambda: rwkv6_ref(*args), flush=flush, iters=5)
+        log(f"[kernel] rwkv6 {tag} B={b} H={h} K={k} fp32: route "
+            f"{want_route} max_abs_err {err:.3g} kernel_ms {kernel_ms:.4f} "
+            f"({bound / kernel_ms:.3f} of the bound) step_ms {step_ms:.4f} "
+            f"({step_ms / kernel_ms:.2f}x) plain_ms {plain_ms:.4f} library "
+            f"none bound_us {bound * 1e3:.3f} ({by}; {n_flops / 1e6:.2f} "
+            f"MFLOP, {n_bytes / 1e6:.3f} MB)")
         results[("rwkv6", tag)] = dict(
             max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
-            bound_ms=bound, bound_by=by, library_ms=None)
+            bound_ms=bound, bound_by=by, library_ms=None, step_ms=step_ms)
+    # where the route rule switches: both routes around CHUNKED_MIN_T
+    from repro_torch.kernels.rwkv6.kernel import rwkv6_cuda
+    crossover = []
+    for t in (32, 48, 64):
+        args = wkv_operands(1, t, "model")
+        out, s_final = torch.empty_like(args[0]), torch.empty_like(args[5])
+        ms = {route: cuda_ms(lambda route=route: rwkv6_cuda(
+            *args, out, s_final, route), flush=flush)
+            for route in ("chunked", "step")}
+        crossover.append(f"T={t} chunked {ms['chunked']:.4f} step "
+                         f"{ms['step']:.4f}")
+    log(f"[kernel] rwkv6 B=1 H={h} K={k} routes around CHUNKED_MIN_T="
+        f"{wops.CHUNKED_MIN_T} (ms): {'; '.join(crossover)}")
     del flush
     return results
 
@@ -2175,7 +2275,8 @@ def mla_kernel_checks(env: dict, gen: torch.Generator) -> dict:
     attention after the absorption, which both sides share."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.paged_decode import ops as pops
-    from repro_torch.kernels.paged_decode.kernel import paged_mla_decode_cuda
+    from repro_torch.kernels.paged_decode.kernel import (
+        mla_wgmma_split_len, paged_mla_decode_cuda)
     from repro_torch.kernels.paged_decode.ref import (
         absorb_query, paged_decode_attention_ref,
         paged_mla_decode_attention_ref)
@@ -2194,23 +2295,36 @@ def mla_kernel_checks(env: dict, gen: torch.Generator) -> dict:
             for dtype in (torch.bfloat16, torch.float32):
                 args = _mla_operands(gen, dtype, lengths, ps, cfg)
                 q_nope, q_pe, ckv, kpe, wk_b, bt, lens, scale = args
+                path = pops.mla_route(q_pe, ckv, kpe)
+                before = dict(pops.mla_launches_by_route)
                 got = pops.paged_mla_decode_attention(*args)
                 want = paged_mla_decode_attention_ref(*args)
                 torch.cuda.synchronize()
                 what = f"ps={ps} {tag} lengths"
                 err = check_close(got, want, f"paged_decode_mla {what}")
+                if {r: n - before[r] for r, n in
+                        pops.mla_launches_by_route.items()
+                        if n != before[r]} != {path: 1} or path != (
+                            "wgmma" if dtype == torch.bfloat16 else "fp32"):
+                    raise AssertionError(f"paged_decode_mla {what}: not one "
+                                         f"launch on the {path} route")
                 if dtype == torch.float32 and (ps, tag) != (PAGE, "full"):
                     log(f"[kernel] paged_decode_mla {what} {_dt(dtype)}: "
-                        f"max_abs_err {err:.3g}")
+                        f"route {path} max_abs_err {err:.3g}")
                     continue
+                simple_err = None
+                if dtype == torch.bfloat16:
+                    simple = pops.paged_mla_decode_simple_bf16(*args)
+                    simple_err = check_close(simple, want, f"paged_decode_mla "
+                                             f"simple route {what}")
                 q_lat = absorb_query(q_nope, wk_b)
                 out = torch.empty_like(got)
                 q_cat = torch.cat([q_lat, q_pe], dim=-1)
 
                 def kernel(q_lat=q_lat, q_pe=q_pe, ckv=ckv, kpe=kpe, bt=bt,
-                           lens=lens, out=out, scale=scale):
+                           lens=lens, out=out, scale=scale, route=path):
                     paged_mla_decode_cuda(q_lat, q_pe, ckv, kpe, bt, lens,
-                                          out, scale)
+                                          out, scale, route)
 
                 def plain(q_cat=q_cat, ckv=ckv, kpe=kpe, bt=bt, lens=lens,
                           scale=scale):
@@ -2257,16 +2371,37 @@ def mla_kernel_checks(env: dict, gen: torch.Generator) -> dict:
                                                                    + rope))
                     + 4 * (pages_read + SLOTS), peak, hw.hbm_bw)
                 kernel_ms = cuda_ms(kernel, flush=flush)
+                simple_ms = None
+                if dtype == torch.bfloat16:
+                    simple_ms = cuda_ms(
+                        lambda: kernel(route="simple"), flush=flush)
+                if path == "wgmma" and tag == "full":
+                    # the split rule's alternative: 8 splits, clusters of 8
+                    eight = cuda_ms(lambda: paged_mla_decode_cuda(
+                        q_lat, q_pe, ckv, kpe, bt, lens, out, scale, path,
+                        split_len=MAX_LEN // 8), flush=flush)
+                    rule = mla_wgmma_split_len(
+                        SLOTS, h, MAX_LEN,
+                        torch.cuda.get_device_properties(0)
+                        .multi_processor_count)
+                    log(f"[kernel] paged_decode_mla ps={ps} {tag}: wgmma at "
+                        f"{-(-MAX_LEN // rule)} splits (the rule) "
+                        f"{kernel_ms:.4f} ms, at 8 splits {eight:.4f} ms")
                 plain_ms = cuda_ms(plain, flush=flush)
                 library_ms = (cuda_ms(sdpa, flush=flush)
                               if sdpa is not None else None)
                 lib = "none" if library_ms is None else f"{library_ms:.4f}"
+                same_call = "" if simple_ms is None else (
+                    f" simple_ms {simple_ms:.4f} "
+                    f"({simple_ms / kernel_ms:.2f}x; max_abs_err "
+                    f"{simple_err:.3g})")
                 log(f"[kernel] paged_decode_mla {what} B={SLOTS} H={h} "
                     f"Dk={rank + rope} Dv={rank} {_dt(dtype)} ({n_valid} "
-                    f"positions attended): max_abs_err {err:.3g} kernel_ms "
-                    f"{kernel_ms:.4f} plain_ms {plain_ms:.4f} "
-                    f"library_ms(SDPA on the gathered slab) {lib} bound_us "
-                    f"{bound * 1e3:.3f} ({by})")
+                    f"positions attended): route {path} max_abs_err "
+                    f"{err:.3g} kernel_ms {kernel_ms:.4f} "
+                    f"({bound / kernel_ms:.3f} of the bound){same_call} "
+                    f"plain_ms {plain_ms:.4f} library_ms(SDPA on the "
+                    f"gathered slab) {lib} bound_us {bound * 1e3:.3f} ({by})")
                 results[("paged_decode_mla", f"ps{ps} {tag}", dtype)] = dict(
                     max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
                     bound_ms=bound, bound_by=by, library_ms=library_ms)
@@ -2282,9 +2417,28 @@ def mla_kernel_checks(env: dict, gen: torch.Generator) -> dict:
         torch.cuda.synchronize()
         err = check_close(got, want, "paged_decode_mla all-masked rows")
         mean = args[2][args[5][0].long()].float().reshape(-1, rank).mean(0)
-        log(f"[kernel] paged_decode_mla all-masked rows {_dt(dtype)}: "
-            f"max_abs_err vs plain {err:.3g} (vs the mean of ckv over the "
-            f"table: {float((got[0].float() - mean).abs().max()):.3g})")
+        log(f"[kernel] paged_decode_mla all-masked rows {_dt(dtype)}: route "
+            f"{pops.mla_route(*args[1:4])} max_abs_err vs plain {err:.3g} "
+            f"(vs the mean of ckv over the table: "
+            f"{float((got[0].float() - mean).abs().max()):.3g})")
+    # table entries past each row's length pointing at pages of inf: never
+    # read (the plain version, which gathers every entry, gets a clean copy
+    # of the table)
+    args = list(_mla_operands(gen, torch.bfloat16, ragged, PAGE, cfg))
+    pages = args[2].shape[0]
+    inf = float("inf")
+    args[2] = torch.cat([args[2], torch.full_like(args[2][:1], inf)])
+    args[3] = torch.cat([args[3], torch.full_like(args[3][:1], inf)])
+    clean = args[5].clone()
+    for row in range(SLOTS):
+        args[5][row, -(-int(ragged[row]) // PAGE):] = pages
+    got = pops.paged_mla_decode_attention(*args)
+    want = paged_mla_decode_attention_ref(*args[:5], clean, *args[6:])
+    torch.cuda.synchronize()
+    err = check_close(got, want, "paged_decode_mla poisoned table entries")
+    log(f"[kernel] paged_decode_mla ragged rows with the entries past each "
+        f"length on a page of inf: route {pops.mla_route(*args[1:4])} "
+        f"max_abs_err vs plain on a clean table {err:.3g}")
     del flush
     return results
 
@@ -2370,6 +2524,7 @@ def phase_deepseek(env: dict, gen: torch.Generator, seed: int) -> dict:
     runs = serve_both(engine(cfg, params), specs, cfg.dtype)
     launches = read_launches("rmsnorm", "paged_decode_mla", "moe_gemm")
     check_moe_wgmma_only("deepseek")
+    check_mla_wgmma_only("deepseek")
     # -- end of the serving path's run ------------------------------------------
     log(f"[deepseek] wrapper launches over both serving runs {launches}; "
         f"the GQA attention kernels (MLA prefill and dense decode are plain, "
@@ -2477,6 +2632,7 @@ def rwkv_graph(cfg, params, seed: int) -> dict:
         f"forward) {recorded}; wrapper launches over the run {launches}, by "
         f"route {routes}")
     check_wgmma_only("rwkv", routes)
+    check_rwkv_chunked_only("rwkv")
     if recorded["rwkv6"] != n_scan:
         raise AssertionError(f"{recorded['rwkv6']} rwkv6 launches recorded "
                              f"for {n_scan} wkv_scan nodes")
@@ -2623,6 +2779,12 @@ def phase_rwkv(seed: int) -> dict:
         rwkv_forward_gate(cfg, params, cfg32, params32, s["prompt"], failures)
     del params32
     tick = _decode_tick("dense", engine(cfg, params)(False), specs, "rwkv")
+    # the longest prompt's prefill: every rwkv6 launch on the chunked route
+    tokens = torch.tensor([by_len[-1]["prompt"]], device="cuda")
+    reset_launches()
+    Model(cfg, use_kernels=True).prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    check_rwkv_chunked_only(f"rwkv prefill {tokens.shape[1]} tokens")
     for s in (by_len[0], by_len[-1]):
         tokens = torch.tensor([s["prompt"]], device="cuda")
         model = Model(cfg, use_kernels=True)
@@ -2721,7 +2883,7 @@ def main() -> int:
              source="src/repro_torch/csrc/rwkv6.cu",
              replaces="src/repro/kernels/rwkv6/kernel.py:60",
              launches=rwkv["launches"]["rwkv6"],
-             **families[("rwkv6", "prefill T=512")]),
+             **_json_row(families[("rwkv6", "prefill T=512")])),
     ]}
     if [k["name"] for k in summary["kernels"]] != list(KERNELS):
         raise AssertionError("the kernels line must list every kernel")

@@ -49,10 +49,14 @@
 // buffer (a tile's cp.async copies are all in flight together, but they do
 // not overlap the block's products; a TMA ring would), and O is rescaled in
 // shared memory.
+#include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -473,11 +477,447 @@ int launch_mla(const void* q_lat, const void* q_pe, const void* ckv,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- wgmma route ---------------------------------------------------------------
+// DeepSeek-V3's shape (rank 512, rope 64, bf16) on Hopper's tensor memory
+// accelerator and warpgroup MMA.  A block takes 64 heads of one batch row
+// (wgmma's M; at H = 128 each K tile leaves L2 twice, not H / 16 = 8 times)
+// and one split of the table's positions:
+//   - Q [64 x 576] stays in shared memory (72 KB, nine 64-column boxes under
+//     the 128-byte swizzle: eight of q_lat, one of q_pe);
+//   - one producer thread gathers K tiles of 64 positions into a 2-stage TMA
+//     ring (72 KB a stage) page segment by page segment through the table,
+//     the ckv and kpe pages through their own tensor maps (no [ckv | kpe]
+//     copy); a segment past the split's last attended position is loaded
+//     from page coordinate `pages` (out of bounds: zeros), so its table
+//     entry is never read;
+//   - two consumer warpgroups each compute S = Q K^T (wgmma m64n64k16 over
+//     the 576 columns; both hold the same S, so neither waits on the other),
+//     run the online softmax on the accumulator registers in log2 units,
+//     round the unnormalised p to bf16 (as the other routes) and add P V to
+//     their half of O [64 x 512] fp32 in registers (256 columns each, two
+//     m64n128k16 accumulators), V being the tile's ckv columns read MN-major
+//     through the transpose bit;
+//   - the splits of a (row, head group), at most 8, are one thread-block
+//     cluster: each block leaves its partial (O, max, sum) in its own shared
+//     memory (the ring, free by then) and the cluster combines them through
+//     distributed shared memory, so no partial goes through device memory
+//     (a 64 x 512 fp32 partial per block, 8 splits: 16 MB at the serving
+//     shape against 9.4 MB of pages).
+// Bound at the serving shape as above: 2.8 us of pages (bytes).  What it
+// leaves on the table: both warpgroups compute S (the tensor cores do twice
+// the QK^T work, off the critical path of the bytes at 2 tiles a block), the
+// producer reads the table entry of each segment on its critical path, and
+// Q is read by every split (from L2 after the first).
+namespace mla_wg {
+
+using namespace hopper;
+namespace cg = cooperative_groups;
+
+constexpr int R = 512, P = 64, DK = R + P;
+constexpr int HB = 64;                      // heads a block: wgmma's M
+constexpr int BKV = 64;                     // positions a K tile
+constexpr int BOX = 64;                     // bf16 in a 128-byte box row
+constexpr int NB = DK / BOX;                // boxes a row: 8 latent + 1 rope
+constexpr int BOX_BYTES = BKV * 128;        // one box of a tile (or of Q)
+constexpr int TILE_BYTES = NB * BOX_BYTES;  // 72 KB: a K tile, or Q
+constexpr int STAGES = 2;
+constexpr int THREADS = 384;                // 2 consumer + 1 producer warpgroups
+constexpr int CONSUMER_THREADS = 256;
+// registers a thread after setmaxnreg: O [64 x 256] fp32 a consumer thread
+// takes 128; 40 x 128 + 232 x 256 <= 65536
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+constexpr int MAX_SPLITS = 8;               // a cluster's blocks (portable)
+constexpr int PART_LD = R + 8;              // fp32 partial row stride
+constexpr float LOG2E = 1.4426950408889634f;
+// Q, the ring, 1024 bytes of slack to align them (the 128-byte swizzle
+// repeats every 1024 bytes), then the barriers: Q full, full and empty per
+// stage
+constexpr int SMEM = TILE_BYTES * (1 + STAGES) + 1024 + 8 * (1 + 2 * STAGES);
+static_assert(HB == BKV, "Q and a K tile share the box layout");
+static_assert(HB * PART_LD * 4 + HB * 2 * 4 <= STAGES * TILE_BYTES,
+              "the partials fit the ring");
+
+struct Args {
+  const int* bt;                 // [B, maxp]
+  const int* lengths;            // [B]
+  const __nv_bfloat16* ckv;      // the all-masked rows' average
+  __nv_bfloat16* out;            // [B, H, R]
+  long long c_s0, c_s1;          // ckv page and offset strides (elements)
+  long long o_sb, o_sh;
+  int H, maxp, ps, seg, pages, T, split_len;
+  float scale_log2;              // scale * log2(e)
+};
+
+// Every split's partial is in its block: the cluster's consumer threads
+// combine them through distributed shared memory, 4 columns of a head
+// each.  out = sum_s 2^(m_s - M) O_s / sum_s 2^(m_s - M) l_s over the splits
+// with an attended position, in ascending split order; a row with none takes
+// the simple route's average of V over every table entry with weights
+// bf16(1/T), as the plain version's softmax of an all-masked row gives.
+__device__ void combine(const Args& a, const cg::cluster_group& cluster,
+                        float* part, float* ml, int h0, int b, int tid) {
+  const int nsplit = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  for (int i = rank + nsplit * tid; i < HB * (R / 4);
+       i += nsplit * CONSUMER_THREADS) {
+    const int hh = i / (R / 4), c = (i % (R / 4)) * 4;
+    if (h0 + hh >= a.H) continue;
+    float2 st[MAX_SPLITS];
+    float M = -INFINITY;
+#pragma unroll
+    for (int s = 0; s < MAX_SPLITS; ++s)
+      if (s < nsplit) {
+        st[s] = *reinterpret_cast<const float2*>(
+            cluster.map_shared_rank(ml, s) + 2 * hh);
+        if (st[s].y > 0.0f) M = fmaxf(M, st[s].x);
+      }
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    float den = 0.0f;
+#pragma unroll
+    for (int s = 0; s < MAX_SPLITS; ++s)
+      if (s < nsplit && st[s].y > 0.0f) {
+        const float f = exp2f(st[s].x - M);
+        const float4 x = *reinterpret_cast<const float4*>(
+            cluster.map_shared_rank(part, s) + hh * PART_LD + c);
+        acc[0] += f * x.x;
+        acc[1] += f * x.y;
+        acc[2] += f * x.z;
+        acc[3] += f * x.w;
+        den += f * st[s].y;
+      }
+    if (den > 0.0f) {
+      for (int e = 0; e < 4; ++e) acc[e] /= den;
+    } else {
+      const float w = __bfloat162float(
+          __float2bfloat16(1.0f / static_cast<float>(a.T)));
+      for (int t = 0; t < a.T; ++t) {
+        const long long pg = a.bt[b * a.maxp + t / a.ps];
+        const __nv_bfloat16* v = a.ckv + pg * a.c_s0 + (t % a.ps) * a.c_s1 + c;
+        for (int e = 0; e < 4; ++e) acc[e] += w * __bfloat162float(v[e]);
+      }
+    }
+    __nv_bfloat16* out = a.out + b * a.o_sb + (h0 + hh) * a.o_sh + c;
+    *reinterpret_cast<__nv_bfloat162*>(out) =
+        __floats2bfloat162_rn(acc[0], acc[1]);
+    *reinterpret_cast<__nv_bfloat162*>(out + 2) =
+        __floats2bfloat162_rn(acc[2], acc[3]);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+mla_wgmma_kernel(const __grid_constant__ CUtensorMap qlmap,
+                 const __grid_constant__ CUtensorMap qpmap,
+                 const __grid_constant__ CUtensorMap cmap,
+                 const __grid_constant__ CUtensorMap kmap, const Args a) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* ring = qs + TILE_BYTES;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(ring + STAGES * TILE_BYTES);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + STAGES;
+  float* part = reinterpret_cast<float*>(ring);    // after the main loop
+  float* ml = part + HB * PART_LD;                 // (max, sum) per head
+
+  const int split = blockIdx.x, h0 = blockIdx.y * HB, b = blockIdx.z;
+  const int len = min(a.lengths[b], a.T);          // attended: [0, len)
+  const int t_lo = split * a.split_len;
+  const int t_hi = min(t_lo + a.split_len, len);
+  const int n_tiles = t_hi > t_lo ? cdiv(t_hi - t_lo, BKV) : 0;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(smem_u32(q_full), 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(smem_u32(&full[s]), 1);    // the producer's arrive
+      mbar_init(smem_u32(&empty[s]), 8);   // one per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // the role through a shuffle: a value the compiler knows to be
+  // warp-uniform, so it does not take the wgmma path for a divergent one
+  const int role = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const cg::cluster_group cluster = cg::this_cluster();
+  if (role == 2) {
+    // ---- producer warpgroup: one thread issues every TMA load ---------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (tid == 256 && n_tiles > 0) {
+      const uint32_t qbar = smem_u32(q_full);
+      mbar_expect_tx(qbar, TILE_BYTES);
+#pragma unroll
+      for (int j = 0; j < R / BOX; ++j)
+        tma_load_3d(smem_u32(qs + j * BOX_BYTES), &qlmap, qbar, j * BOX, h0,
+                    b);
+      tma_load_3d(smem_u32(qs + (R / BOX) * BOX_BYTES), &qpmap, qbar, 0, h0,
+                  b);
+      for (int n = 0; n < n_tiles; ++n) {
+        const int s = n % STAGES;
+        const int k0 = t_lo + n * BKV;
+        mbar_wait(smem_u32(&empty[s]), ((n / STAGES) & 1) ^ 1);
+        const uint32_t stage = smem_u32(ring + s * TILE_BYTES);
+        const uint32_t bar = smem_u32(&full[s]);
+        mbar_expect_tx(bar, TILE_BYTES);
+        for (int g = 0; g < BKV / a.seg; ++g) {
+          const int pos = k0 + g * a.seg;
+          int page = a.pages, off = 0;           // past t_hi: zeros
+          if (pos < t_hi) {
+            page = a.bt[b * a.maxp + pos / a.ps];
+            off = pos % a.ps;
+          }
+          const uint32_t row = g * a.seg * 128;
+#pragma unroll
+          for (int j = 0; j < R / BOX; ++j)
+            tma_load_3d(stage + j * BOX_BYTES + row, &cmap, bar, j * BOX, off,
+                        page);
+          tma_load_3d(stage + (R / BOX) * BOX_BYTES + row, &kmap, bar, 0, off,
+                      page);
+        }
+      }
+    }
+    __syncwarp();
+    cluster.sync();   // the cluster's partials are written
+    cluster.sync();   // and combined
+  } else {
+    // ---- consumer warpgroup `role`: O columns [256 role, 256 role + 256) ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    // Thread l of warp w holds rows r = 16w + l/4 and r + 8 of the tile, and
+    // for each 8-column group j the columns 8j + 2(l%4) and +1: accumulator
+    // 4j + e is (row r + 8 (e / 2), column 8j + 2(l%4) + e % 2).
+    const int lane = tid % 32, warp = (tid / 32) % 4;
+    const int r0 = warp * 16 + lane / 4;
+    const int c0 = 2 * (lane % 4);
+    float m[2] = {-INFINITY, -INFINITY};   // running max of the raw scores
+    float l[2] = {0.0f, 0.0f};             // this thread's share of the sum
+    float o0[64], o1[64];                  // defined by the first P V wgmma
+    const uint32_t q_addr = smem_u32(qs);
+    if (n_tiles > 0) mbar_wait(smem_u32(q_full), 0);
+
+    for (int n = 0; n < n_tiles; ++n) {
+      const int s = n % STAGES;
+      const uint32_t phase = (n / STAGES) & 1;
+      const int k0 = t_lo + n * BKV;
+      const uint32_t k_addr = smem_u32(ring + s * TILE_BYTES);
+
+      // S = Q K^T: a k16 step is 32 bytes along a 128-byte box row
+      float sc[32];
+      mbar_wait(smem_u32(&full[s]), phase);
+      fence_operands(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DK / 16; ++kk) {
+        const uint32_t off = (kk / 4) * BOX_BYTES + (kk % 4) * 32;
+        wgmma_ss<0>(sc, smem_desc(q_addr + off, 16, 1024),
+                    smem_desc(k_addr + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(sc);
+
+      // the mask, only on a tile that crosses the split's attended end
+      const bool edge = __shfl_sync(0xffffffffu, k0 + BKV > t_hi, 0);
+      if (edge) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          if (k0 + 8 * (i / 4) + c0 + i % 2 >= t_hi) sc[i] = -INFINITY;
+      }
+
+      // online softmax in registers: a row's four threads share its max
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        mx[0] = fmaxf(mx[0], fmaxf(sc[4 * j], sc[4 * j + 1]));
+        mx[1] = fmaxf(mx[1], fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+      }
+      float alpha[2], msc[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 1));
+        mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 2));
+        msc[e] = mx[e] == -INFINITY ? 0.0f : mx[e] * a.scale_log2;
+        alpha[e] = exp2f(m[e] * a.scale_log2 - msc[e]);
+        m[e] = mx[e];
+        l[e] *= alpha[e];
+      }
+      // p = exp2(s * scale * log2 e - max), summed in fp32 and rounded to
+      // bf16 pairs: slice kk of P is registers 4kk .. 4kk+3, the A fragment
+      // of a m64k16 wgmma
+      uint32_t p[16];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p0 =
+              exp2f(fmaf(sc[4 * j + 2 * e], a.scale_log2, -msc[e]));
+          const float p1 =
+              exp2f(fmaf(sc[4 * j + 2 * e + 1], a.scale_log2, -msc[e]));
+          l[e] += p0 + p1;
+          __nv_bfloat162 pair = __floats2bfloat162_rn(p0, p1);
+          p[2 * j + e] = *reinterpret_cast<uint32_t*>(&pair);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        o0[4 * j] *= alpha[0];
+        o0[4 * j + 1] *= alpha[0];
+        o0[4 * j + 2] *= alpha[1];
+        o0[4 * j + 3] *= alpha[1];
+        o1[4 * j] *= alpha[0];
+        o1[4 * j + 1] *= alpha[0];
+        o1[4 * j + 2] *= alpha[1];
+        o1[4 * j + 3] *= alpha[1];
+      }
+
+      // O += P V, V the tile's latent boxes 4 role .. 4 role + 3 read
+      // MN-major: a k16 step is 16 rows (2 KB) down the tile; an N = 128
+      // accumulator spans two boxes, BOX_BYTES apart
+      fence_operands(o0);
+      fence_operands(o1);
+      wgmma_fence();
+      const uint32_t v_addr = k_addr + 4 * role * BOX_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk) {
+        const uint32_t pa[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+                                p[4 * kk + 3]};
+        wgmma_rs(o0, pa, smem_desc(v_addr + kk * 2048, BOX_BYTES, 1024),
+                 n > 0 || kk > 0);
+        wgmma_rs(o1, pa,
+                 smem_desc(v_addr + 2 * BOX_BYTES + kk * 2048, BOX_BYTES,
+                           1024),
+                 n > 0 || kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(o0);
+      fence_operands(o1);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(smem_u32(&empty[s]));
+    }
+
+    // ---- the partial (O, max, sum) into the ring, once both warpgroups are
+    // done with it
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      l[e] += __shfl_xor_sync(0xffffffffu, l[e], 1);
+      l[e] += __shfl_xor_sync(0xffffffffu, l[e], 2);
+    }
+    asm volatile("bar.sync 1, 256;" ::: "memory");
+    if (n_tiles > 0) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = 256 * role + 8 * j + c0;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float* row = part + (r0 + 8 * e) * PART_LD + col;
+          *reinterpret_cast<float2*>(row) =
+              make_float2(o0[4 * j + 2 * e], o0[4 * j + 2 * e + 1]);
+          *reinterpret_cast<float2*>(row + 128) =
+              make_float2(o1[4 * j + 2 * e], o1[4 * j + 2 * e + 1]);
+        }
+      }
+    }
+    if (role == 0 && lane % 4 == 0) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool any = n_tiles > 0 && l[e] > 0.0f;
+        ml[2 * (r0 + 8 * e)] = any ? m[e] * a.scale_log2 : -INFINITY;
+        ml[2 * (r0 + 8 * e) + 1] = any ? l[e] : 0.0f;
+      }
+    }
+    cluster.sync();
+    combine(a, cluster, part, ml, h0, b, tid);
+    cluster.sync();   // keep each block's memory until all have read it
+  }
+}
+
+// a bf16 [d2, d1, d0] tensor (d0 contiguous) as a 3-D map with boxes of
+// 64 x box1 x 1; element strides of d1 and d2
+int encode_3d(CUtensorMap* map, const void* ptr, long long d0, long long d1,
+              long long d2, long long s1, long long s2, int box1) {
+  const cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2};
+  const cuuint64_t strides[2] = {(cuuint64_t)s1 * 2, (cuuint64_t)s2 * 2};
+  const cuuint32_t box[3] = {BOX, (cuuint32_t)box1, 1};
+  return encode(map, ptr, 3, dims, strides, box);
+}
+
+// strides as launch_mla's; pages: the page count of the pool
+int launch(const void* q_lat, const void* q_pe, const void* ckv,
+           const void* kpe, const void* bt, const void* lengths, void* out,
+           int B, int H, int Rk, int Pk, int maxp, int ps, int pages,
+           int split_len, const long long* st, float scale, void* stream) {
+  if (B <= 0 || H <= 0) return 0;
+  const int seg = ps < BKV ? ps : BKV;
+  if (Rk != R || Pk != P || maxp <= 0 || pages <= 0 || B > 65535 ||
+      cdiv(H, HB) > 65535 || (ps < BKV ? BKV % ps != 0 || ps < 8
+                                       : ps % BKV != 0) ||
+      split_len <= 0 || split_len % BKV != 0 ||
+      cdiv(maxp * ps, split_len) > MAX_SPLITS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap qlmap, qpmap, cmap, kmap;
+  if (int err = encode_3d(&qlmap, q_lat, R, H, B, st[1], st[0], HB))
+    return err;
+  if (int err = encode_3d(&qpmap, q_pe, P, H, B, st[3], st[2], HB))
+    return err;
+  if (int err = encode_3d(&cmap, ckv, R, ps, pages, st[5], st[4], seg))
+    return err;
+  if (int err = encode_3d(&kmap, kpe, P, ps, pages, st[7], st[6], seg))
+    return err;
+  Args a;
+  a.bt = static_cast<const int*>(bt);
+  a.lengths = static_cast<const int*>(lengths);
+  a.ckv = static_cast<const __nv_bfloat16*>(ckv);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.c_s0 = st[4]; a.c_s1 = st[5];
+  a.o_sb = st[8]; a.o_sh = st[9];
+  a.H = H; a.maxp = maxp; a.ps = ps; a.seg = seg; a.pages = pages;
+  a.T = maxp * ps;
+  a.split_len = split_len;
+  a.scale_log2 = scale * LOG2E;
+  // the shared-memory limit is raised once, so that a launch recorded into
+  // a CUDA graph makes no attribute call
+  static const cudaError_t configured = cudaFuncSetAttribute(
+      mla_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (configured != cudaSuccess) return static_cast<int>(configured);
+  const int n_split = cdiv(a.T, split_len);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_split, cdiv(H, HB), B);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = SMEM;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = n_split;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, mla_wgmma_kernel, qlmap,
+                                             qpmap, cmap, kmap, a);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace mla_wg
+
 }  // namespace
 
 extern "C" {
 
 int mla_decode_tile_positions() { return CH; }
+int mla_decode_wgmma_tile_positions() { return mla_wg::BKV; }
+int mla_decode_wgmma_max_splits() { return mla_wg::MAX_SPLITS; }
+
+// the wgmma route: rank 512, rope 64, bf16; 16-byte bases and strides; page
+// sizes 8, 16, 32 or a multiple of 64; `pages` the pool's page count
+int mla_decode_wgmma_bf16(const void* q_lat, const void* q_pe,
+                          const void* ckv, const void* kpe, const void* bt,
+                          const void* lengths, void* out, int B, int H, int R,
+                          int P, int maxp, int ps, int pages, int split_len,
+                          const long long* strides, float scale,
+                          void* stream) {
+  return mla_wg::launch(q_lat, q_pe, ckv, kpe, bt, lengths, out, B, H, R, P,
+                        maxp, ps, pages, split_len, strides, scale, stream);
+}
 
 int mla_decode_bf16(const void* q_lat, const void* q_pe, const void* ckv,
                     const void* kpe, const void* bt, const void* lengths,

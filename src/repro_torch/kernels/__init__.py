@@ -22,8 +22,8 @@ Kernels:
                    (``csrc/mla_decode.cu``)
     moe_gemm       grouped expert SwiGLU MLP over the MoE capacity buffers
                    (``csrc/moe.cu``)
-    rwkv6          the WKV6 recurrence of RWKV-6's time mix, state on chip
-                   (``csrc/rwkv6.cu``)
+    rwkv6          the WKV6 recurrence of RWKV-6's time mix: step by step with
+                   the state on chip, or in parallel chunks (``csrc/rwkv6.cu``)
 
 Backend rule (:func:`use_kernel`): tensors on the CPU take the plain
 version; tensors on one CUDA device of compute capability 9.0 (Hopper)
@@ -46,15 +46,26 @@ DECODE_MAX_SPLITS = 16  # most splits of a (row, KV head) on the mma route
 DECODE_CHUNK = 128   # KV positions per block of the decode kernels' simple
                      # and fp32 routes; must equal DEC_CHUNK in
                      # csrc/attention.cu (checked when the library loads)
-MLA_TILE = 32        # KV positions per tile of the MLA decode; must equal
-                     # CH in csrc/mla_decode.cu (checked when the library
-                     # loads)
+MLA_TILE = 32        # KV positions per tile of the MLA decode's simple and
+                     # fp32 routes; must equal CH in csrc/mla_decode.cu
+                     # (checked when the library loads)
+MLA_WGMMA_TILE = 64  # KV positions per tile of the MLA decode's wgmma route
+                     # (a split is a whole number of them); must equal
+                     # mla_wg::BKV in csrc/mla_decode.cu (checked when the
+                     # library loads)
+MLA_MAX_SPLITS = 8   # most splits of a (row, head group) on the MLA wgmma
+                     # route (a cluster's blocks); must equal
+                     # mla_wg::MAX_SPLITS in csrc/mla_decode.cu (checked
+                     # when the library loads)
 MOE_MAX_EXPERTS = 4096  # most experts of moe_gemm's wgmma route (its list of
                        # active experts lives in shared memory); must equal
                        # MAX_EXPERTS in csrc/moe.cu (checked when the library
                        # loads)
 RWKV6_MAX_K = 64     # largest head size of the rwkv6 kernel; must equal KMAX
                      # in csrc/rwkv6.cu (checked when the library loads)
+RWKV6_CHUNK = 64     # positions per chunk of rwkv6's chunked route; must
+                     # equal L in csrc/rwkv6.cu (checked when the library
+                     # loads)
 
 
 def use_kernel(*tensors: torch.Tensor) -> bool:

@@ -74,13 +74,19 @@ _SIGNATURES = {
     "mla_decode_bf16": _MLA,
     "mla_decode_f32": _MLA,
     "mla_decode_tile_positions": (),
+    # the wgmma route also takes the pool's page count after the page size
+    "mla_decode_wgmma_bf16": (_P,) * 7 + (_I,) * 8 + (_P, _F, _P),
+    "mla_decode_wgmma_tile_positions": (),
+    "mla_decode_wgmma_max_splits": (),
     "moe_mlp_bf16": _MOE[:-1] + (_I, _P),
     "moe_mlp_simple_bf16": _MOE[:5] + _MOE[6:],
     "moe_mlp_f32": _MOE,
     "moe_init": (),
     "moe_max_experts": (),
-    "rwkv6_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "rwkv6_f32": (_P,) * 8 + (_I, _I, _I, _I, _P, _P),
+    "rwkv6_chunked_f32": (_P,) * 9 + (_I, _I, _I, _I, _P, _P),
     "rwkv6_head_max": (),
+    "rwkv6_chunk_len": (),
 }
 
 _lock = threading.Lock()
@@ -189,7 +195,8 @@ def library() -> KernelLibrary:
         if _lib is None:
             lib = KernelLibrary([ctypes.CDLL(str(p)) for p in build()])
             from . import (DECODE_CHUNK, DECODE_MAX_SPLITS, DECODE_TILE,
-                           MLA_TILE, MOE_MAX_EXPERTS, RWKV6_MAX_K, TILE_M)
+                           MLA_MAX_SPLITS, MLA_TILE, MLA_WGMMA_TILE,
+                           MOE_MAX_EXPERTS, RWKV6_CHUNK, RWKV6_MAX_K, TILE_M)
             from .branch_gemm.kernel import WGMMA_TILES
             from .grouped_gemm.kernel import GROUPED_TILES
             if lib.gemm_tile_m() != TILE_M:
@@ -218,6 +225,13 @@ def library() -> KernelLibrary:
                 raise RuntimeError(
                     f"csrc mla_decode CH={lib.mla_decode_tile_positions()} "
                     f"!= kernels.MLA_TILE={MLA_TILE}")
+            wg = (lib.mla_decode_wgmma_tile_positions(),
+                  lib.mla_decode_wgmma_max_splits())
+            if wg != (MLA_WGMMA_TILE, MLA_MAX_SPLITS):
+                raise RuntimeError(
+                    f"csrc mla_decode (BKV, MAX_SPLITS)={wg} != kernels."
+                    f"(MLA_WGMMA_TILE, MLA_MAX_SPLITS)="
+                    f"{(MLA_WGMMA_TILE, MLA_MAX_SPLITS)}")
             if lib.moe_max_experts() != MOE_MAX_EXPERTS:
                 raise RuntimeError(
                     f"csrc moe MAX_EXPERTS={lib.moe_max_experts()} != "
@@ -225,9 +239,12 @@ def library() -> KernelLibrary:
             err = lib.moe_init()
             if err != 0:
                 raise RuntimeError(f"moe_init failed: CUDA error {err}")
-            if lib.rwkv6_head_max() != RWKV6_MAX_K:
-                raise RuntimeError(f"csrc rwkv6 KMAX={lib.rwkv6_head_max()} "
-                                   f"!= kernels.RWKV6_MAX_K={RWKV6_MAX_K}")
+            if (lib.rwkv6_head_max(), lib.rwkv6_chunk_len()) != (
+                    RWKV6_MAX_K, RWKV6_CHUNK):
+                raise RuntimeError(
+                    f"csrc rwkv6 (KMAX, L)=({lib.rwkv6_head_max()}, "
+                    f"{lib.rwkv6_chunk_len()}) != kernels.(RWKV6_MAX_K, "
+                    f"RWKV6_CHUNK)=({RWKV6_MAX_K}, {RWKV6_CHUNK})")
             _lib = lib
     return _lib
 

@@ -30,7 +30,7 @@ _GRID_LIMIT = 65535     # blockIdx.y (KV heads) and blockIdx.z (batch)
 DTYPES = (torch.bfloat16, torch.float32)
 
 
-def _copyable(t: torch.Tensor) -> bool:
+def copyable(t: torch.Tensor) -> bool:
     """16-byte copies read ``t``: the last stride 1, every other stride a
     multiple of 16 bytes, the base 16-byte aligned."""
     return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
@@ -46,7 +46,7 @@ def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     if q.dtype == torch.float32:
         return "fp32"
     if (q.shape[-1] % 8 == 0 and v.shape[-1] % 8 == 0
-            and all(map(_copyable, (q, k, v)))):
+            and all(map(copyable, (q, k, v)))):
         return "mma"
     return "simple"
 

@@ -5,12 +5,14 @@ CPU tensors take the plain versions (``ref.py``).  CUDA tensors launch the
 kernel or raise.  GQA: any page size and table width, any Dk and Dv up to
 128 (Dv may differ from Dk), at most 16 query heads per KV head.  MLA: any
 page size, table width and head count, latent rank up to 512 and rope dims
-up to 64.  The block table, ``lengths`` and ``starts`` are int32 on the
-card.  The GQA form takes the dense decode's routes by the same rule
-(``decode_attention.ops.route``), so pages and the slab of one dtype and
-head dims take the same route.  ``launches`` (GQA) and ``mla_launches``
-(MLA) count kernel launches (a split pass and its combine count as one);
-``launches_by_route`` splits the GQA ones by route.  A row with no attended
+up to 64; :func:`mla_route` picks the MLA kernel's route from dtype,
+widths, page size, strides and alignment alone.  The block table,
+``lengths`` and ``starts`` are int32 on the card.  The GQA form takes the
+dense decode's routes by the same rule (``decode_attention.ops.route``),
+so pages and the slab of one dtype and head dims take the same route.
+``launches`` (GQA) and ``mla_launches`` (MLA) count kernel launches (a
+split pass and its combine count as one); ``launches_by_route`` and
+``mla_launches_by_route`` split them by route.  A row with no attended
 position gives what the plain versions and the JAX package give: V
 averaged over every table entry of the row, null pages included.
 """
@@ -19,17 +21,22 @@ from __future__ import annotations
 import torch
 
 from .. import use_kernel
-from ..decode_attention.ops import (DTYPES, ROUTES, check_decode_operands,
-                                    route)
-from .kernel import _MLA_ENTRY, paged_decode_cuda, paged_mla_decode_cuda
+from ..decode_attention.ops import (DTYPES, ROUTES, copyable,
+                                    check_decode_operands, route)
+from .kernel import paged_decode_cuda, paged_mla_decode_cuda
 from .ref import (absorb_query, paged_decode_attention_ref,
                   paged_mla_decode_attention_ref)
 
 launches = 0
 launches_by_route = dict.fromkeys(ROUTES, 0)
+MLA_ROUTES = ("wgmma", "simple", "fp32")
 mla_launches = 0
+mla_launches_by_route = dict.fromkeys(MLA_ROUTES, 0)
 MLA_MAX_RANK = 512      # csrc MAX_R
 MLA_MAX_ROPE = 64       # csrc MAX_P
+MLA_WGMMA_RANK = 512    # csrc mla_wg::R
+MLA_WGMMA_ROPE = 64     # csrc mla_wg::P
+_MLA_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def _int32_rows(name: str, t: torch.Tensor, shape: tuple[int, ...]) -> None:
@@ -117,21 +124,25 @@ def paged_decode_simple_bf16(q: torch.Tensor, k_pages: torch.Tensor,
                    (torch.bfloat16,), "simple")
 
 
-def paged_mla_decode_attention(q_nope: torch.Tensor, q_pe: torch.Tensor,
-                               ckv_pages: torch.Tensor,
-                               kpe_pages: torch.Tensor, wk_b: torch.Tensor,
-                               block_tables: torch.Tensor,
-                               lengths: torch.Tensor,
-                               scale: float) -> torch.Tensor:
-    """MLA over compressed latent pages: q_nope ``[B,H,D_nope]``, q_pe
-    ``[B,H,D_pe]``, ckv_pages ``[P,ps,rank]``, kpe_pages ``[P,ps,D_pe]``,
-    wk_b ``[rank,H,D_nope]``; block_tables ``[B,MAXP]``, lengths ``[B]``
-    (positions ``[0, lengths)`` are attended) → the latent output
-    ``[B,H,rank]`` (the caller applies ``W_vb``).  ``q_nope`` is absorbed
-    through ``wk_b`` here, outside the kernel, as in the JAX package; the
-    kernel then attends ``[q_lat ‖ q_pe]`` against the two page arrays
-    without concatenating them."""
-    global mla_launches
+def mla_route(q_pe: torch.Tensor, ckv_pages: torch.Tensor,
+              kpe_pages: torch.Tensor) -> str:
+    """The MLA kernel's route: ``"fp32"`` for fp32; for bf16 ``"wgmma"`` at
+    DeepSeek-V3's latent rank 512 and 64 rope dims with pages of 8, 16, 32
+    or a multiple of 64 positions when 16-byte copies can read q_pe and both
+    page arrays (a view may start anywhere and have any strides), else
+    ``"simple"``."""
+    if ckv_pages.dtype == torch.float32:
+        return "fp32"
+    ps = ckv_pages.shape[1]
+    if (ckv_pages.shape[-1] == MLA_WGMMA_RANK
+            and kpe_pages.shape[-1] == MLA_WGMMA_ROPE
+            and (ps in (8, 16, 32) or ps % 64 == 0)
+            and all(map(copyable, (q_pe, ckv_pages, kpe_pages)))):
+        return "wgmma"
+    return "simple"
+
+
+def _mla_check(q_nope, q_pe, ckv_pages, kpe_pages, wk_b, block_tables):
     if (q_nope.dim() != 3 or q_pe.dim() != 3 or ckv_pages.dim() != 3
             or kpe_pages.dim() != 3 or wk_b.dim() != 3
             or block_tables.dim() != 2):
@@ -152,14 +163,16 @@ def paged_mla_decode_attention(q_nope: torch.Tensor, q_pe: torch.Tensor,
             f"q_pe {tuple(q_pe.shape)}, ckv {tuple(ckv_pages.shape)}, kpe "
             f"{tuple(kpe_pages.shape)}, wk_b {tuple(wk_b.shape)}, table "
             f"{tuple(block_tables.shape)}")
-    scale = float(scale)
-    operands = (q_nope, q_pe, ckv_pages, kpe_pages, wk_b, block_tables,
-                lengths)
-    if not use_kernel(*operands):
-        return paged_mla_decode_attention_ref(*operands, scale)
+
+
+def _mla_launch(q_nope, q_pe, ckv_pages, kpe_pages, wk_b, block_tables,
+                lengths, scale: float, path: str | None) -> torch.Tensor:
+    global mla_launches
+    b, h, _ = q_nope.shape
+    rank, rope = ckv_pages.shape[-1], kpe_pages.shape[-1]
     dtypes = {q_nope.dtype, q_pe.dtype, ckv_pages.dtype, kpe_pages.dtype,
               wk_b.dtype}
-    if len(dtypes) != 1 or q_nope.dtype not in _MLA_ENTRY:
+    if len(dtypes) != 1 or q_nope.dtype not in _MLA_DTYPES:
         raise TypeError(f"paged_mla_decode takes bf16 or fp32 operands of "
                         f"one dtype, got {sorted(map(str, dtypes))}")
     if rank > MLA_MAX_RANK or rope > MLA_MAX_ROPE or rank == 0:
@@ -175,7 +188,50 @@ def paged_mla_decode_attention(q_nope: torch.Tensor, q_pe: torch.Tensor,
     out = torch.empty((b, h, rank), dtype=q_nope.dtype, device=q_nope.device)
     if out.numel() == 0 or block_tables.shape[1] * ckv_pages.shape[1] == 0:
         return out.zero_()
+    path = path or mla_route(q_pe, ckv_pages, kpe_pages)
     paged_mla_decode_cuda(absorb_query(q_nope, wk_b), q_pe, ckv_pages,
-                          kpe_pages, block_tables, lengths, out, scale)
+                          kpe_pages, block_tables, lengths, out, scale, path)
     mla_launches += 1
+    mla_launches_by_route[path] += 1
     return out
+
+
+def paged_mla_decode_attention(q_nope: torch.Tensor, q_pe: torch.Tensor,
+                               ckv_pages: torch.Tensor,
+                               kpe_pages: torch.Tensor, wk_b: torch.Tensor,
+                               block_tables: torch.Tensor,
+                               lengths: torch.Tensor,
+                               scale: float) -> torch.Tensor:
+    """MLA over compressed latent pages: q_nope ``[B,H,D_nope]``, q_pe
+    ``[B,H,D_pe]``, ckv_pages ``[P,ps,rank]``, kpe_pages ``[P,ps,D_pe]``,
+    wk_b ``[rank,H,D_nope]``; block_tables ``[B,MAXP]``, lengths ``[B]``
+    (positions ``[0, lengths)`` are attended) → the latent output
+    ``[B,H,rank]`` (the caller applies ``W_vb``).  ``q_nope`` is absorbed
+    through ``wk_b`` here, outside the kernel, as in the JAX package; the
+    kernel then attends ``[q_lat ‖ q_pe]`` against the two page arrays
+    without concatenating them."""
+    _mla_check(q_nope, q_pe, ckv_pages, kpe_pages, wk_b, block_tables)
+    operands = (q_nope, q_pe, ckv_pages, kpe_pages, wk_b, block_tables,
+                lengths)
+    if not use_kernel(*operands):
+        return paged_mla_decode_attention_ref(*operands, float(scale))
+    return _mla_launch(*operands, float(scale), None)
+
+
+def paged_mla_decode_simple_bf16(q_nope: torch.Tensor, q_pe: torch.Tensor,
+                                 ckv_pages: torch.Tensor,
+                                 kpe_pages: torch.Tensor, wk_b: torch.Tensor,
+                                 block_tables: torch.Tensor,
+                                 lengths: torch.Tensor,
+                                 scale: float) -> torch.Tensor:
+    """The simple route (the first port's WMMA routine) at any bf16 shape on
+    the card, so that a measurement can hold the wgmma route against it;
+    counted as a ``simple`` MLA launch."""
+    _mla_check(q_nope, q_pe, ckv_pages, kpe_pages, wk_b, block_tables)
+    operands = (q_nope, q_pe, ckv_pages, kpe_pages, wk_b, block_tables,
+                lengths)
+    if not use_kernel(*operands):
+        raise ValueError("paged_mla_decode_simple_bf16 needs CUDA tensors")
+    if q_nope.dtype != torch.bfloat16:
+        raise TypeError("paged_mla_decode_simple_bf16 takes bf16 operands")
+    return _mla_launch(*operands, float(scale), "simple")

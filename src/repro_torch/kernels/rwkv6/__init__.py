@@ -1,3 +1,3 @@
-from .ops import rwkv6, rwkv6_model
+from .ops import rwkv6, rwkv6_model, rwkv6_step
 
-__all__ = ["rwkv6", "rwkv6_model"]
+__all__ = ["rwkv6", "rwkv6_model", "rwkv6_step"]

@@ -895,6 +895,108 @@ def test_rwkv6_kernel_matches_plain(cuda, b, h, t, k):
     _assert_kernel_close(s_final, want_s)
 
 
+def _wkv_case(cuda, b, h, t, k, decays, seed=60):
+    """r, k, v, u, s0 normal; w strong (uniform over (0, 1) with a sixth
+    exact zeros and a sixth 1 - 1e-7) or near 1 (within 2e-3)."""
+    r, kk, v = (_randn(cuda, seed + i, b, h, t, k) for i in range(3))
+    g = torch.Generator(device=cuda).manual_seed(seed + 3)
+    if decays == "strong":
+        w = torch.rand(b, h, t, k, generator=g, device=cuda)
+        pick = torch.rand(b, h, t, k, generator=g, device=cuda)
+        w = torch.where(pick < 1 / 6, torch.zeros_like(w), w)
+        w = torch.where(pick > 5 / 6, torch.full_like(w, 1 - 1e-7), w)
+    else:
+        w = 1 - 2e-3 * torch.rand(b, h, t, k, generator=g, device=cuda)
+    return r, kk, v, w, _randn(cuda, seed + 4, h, k), _randn(
+        cuda, seed + 5, b, h, k, k)
+
+
+def _launch_rwkv6(route, r, k, v, w, u, s0):
+    from repro_torch.kernels.rwkv6.kernel import rwkv6_cuda
+    out = torch.empty_like(r)
+    s_final = torch.empty_like(s0)
+    rwkv6_cuda(r, k, v, w, u, s0, out, s_final, route)
+    return out, s_final
+
+
+def _assert_finite_close(got, want):
+    assert bool(torch.isfinite(got).all())
+    _assert_kernel_close(got, want)
+
+
+@pytest.mark.parametrize("decays", ["strong", "near one"])
+@pytest.mark.parametrize("b,h,t,k", [(1, 32, 512, 64), (1, 32, 700, 64),
+                                     (2, 3, 17, 64), (2, 2, 33, 16)])
+def test_rwkv6_chunked_route_matches_plain(cuda, b, h, t, k, decays):
+    """The chunked route (forced below CHUNKED_MIN_T) at 1e-5 of
+    max|plain| on out and s_final, with exact-zero decays and decays near
+    1: no NaN or inf."""
+    args = _wkv_case(cuda, b, h, t, k, decays)
+    out, s_final = _launch_rwkv6("chunked", *args)
+    want_out, want_s = rwkv6_ref(*args)
+    _assert_finite_close(out, want_out)
+    _assert_finite_close(s_final, want_s)
+
+
+def test_rwkv6_routes_by_t_and_agrees_with_the_step_route(cuda):
+    args = _wkv_case(cuda, 1, 32, 512, 64, "strong")
+    by_route = dict(wops.launches_by_route)
+    out, s_final = wops.rwkv6(*args)
+    step_out, step_s = wops.rwkv6_step(*args)
+    assert _route_delta(wops, by_route) == {"chunked": 1, "step": 1}
+    _assert_finite_close(out, step_out)
+    _assert_finite_close(s_final, step_s)
+    short = _wkv_case(cuda, 8, 32, 1, 64, "strong")
+    by_route = dict(wops.launches_by_route)
+    wops.rwkv6(*short)
+    assert _route_delta(wops, by_route) == {"step": 1}
+
+
+@pytest.mark.parametrize("t", [1, 700])
+def test_rwkv6_model_reads_the_model_layout_in_place(cuda, t):
+    """Strided [B,T,H,K] views (columns of one wider projection) give the
+    kernel layout's result; y comes back contiguous."""
+    b, h, k = 2, 4, 64
+    wide = _randn(cuda, 70, b, t, 4, h, k + 8)
+    views = [wide[:, :, i, :, :k] for i in range(4)]
+    views[3] = torch.sigmoid(wide[:, :, 3, :, :k])
+    u, s0 = _randn(cuda, 71, h, k), _randn(cuda, 72, b, h, k, k)
+    by_route = dict(wops.launches_by_route)
+    y, s_final = wops.rwkv6_model(*views, u, s0)
+    assert _route_delta(wops, by_route) == {
+        "chunked" if t >= wops.CHUNKED_MIN_T else "step": 1}
+    assert y.shape == (b, t, h, k) and y.is_contiguous()
+    want_y, want_s = rwkv6_ref(*[x.transpose(1, 2) for x in views], u, s0)
+    _assert_finite_close(y, want_y.transpose(1, 2))
+    _assert_finite_close(s_final, want_s)
+
+
+def test_rwkv6_chunked_launch_in_a_cuda_graph_follows_new_inputs(cuda):
+    """One chunked launch recorded into a CUDA graph (its scratch from the
+    graph's pool), replayed after the inputs are overwritten in place."""
+    static = list(_wkv_case(cuda, 1, 8, 200, 64, "strong"))
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        wops.rwkv6(*static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    by_route = dict(wops.launches_by_route)
+    with torch.cuda.graph(graph):
+        out, s_final = wops.rwkv6(*static)
+    assert _route_delta(wops, by_route) == {"chunked": 1}
+    for seed in (80, 90):
+        for x, y in zip(static, _wkv_case(cuda, 1, 8, 200, 64, "near one",
+                                          seed)):
+            x.copy_(y)
+        graph.replay()
+        torch.cuda.synchronize()
+        want_out, want_s = rwkv6_ref(*static)
+        _assert_finite_close(out, want_out)
+        _assert_finite_close(s_final, want_s)
+
+
 def test_moe_and_rwkv_wrappers_raise_on_device_dtype_and_layout(cuda):
     buf = torch.zeros(2, 3, 64, device=cuda)
     w = torch.zeros(2, 64, 32, device=cuda)
@@ -1021,6 +1123,80 @@ def test_paged_mla_wrapper_raises_on_device_dtype_and_width(cuda):
     wide = list(_mla_case(cuda, torch.float32, 2, 4, 16, 520, 8, 4, 3))
     with pytest.raises(ValueError, match="latent rank"):
         pops.paged_mla_decode_attention(*wide)
+
+
+def _mla_serving_case(cuda, ps, lengths, seed=0):
+    """DeepSeek-V3's widths (128 heads, rank 512, rope 64, nope 128) at 8
+    slots of 1024 positions through a shuffled table of ``ps``-position
+    pages (page 0 the null page)."""
+    b, h, nope, rank, rope = 8, 128, 128, 512, 64
+    maxp = 1024 // ps
+    n_pages = 1 + b * maxp
+    dt = torch.bfloat16
+    g = torch.Generator().manual_seed(seed)
+    bt = (torch.randperm(n_pages - 1, generator=g) + 1).reshape(
+        b, maxp).to(torch.int32)
+    return [_randn(cuda, seed + 1, b, h, nope, dtype=dt),
+            _randn(cuda, seed + 2, b, h, rope, dtype=dt),
+            _randn(cuda, seed + 3, n_pages, ps, rank, dtype=dt),
+            _randn(cuda, seed + 4, n_pages, ps, rope, dtype=dt),
+            _randn(cuda, seed + 5, rank, h, nope, dtype=dt,
+                   scale=nope ** -0.5),
+            bt.to(cuda), torch.tensor(lengths, dtype=torch.int32,
+                                      device=cuda),
+            (nope + rope) ** -0.5]
+
+
+MLA_LENGTHS = {"full": [1024] * 8,
+               "ragged": [17, 1024, 300, 64, 65, 999, 128, 512],
+               "all-masked rows": [0, 300, 0, 1024, 5, 0, 64, 1]}
+
+
+@pytest.mark.parametrize("ps", [16, 128])
+@pytest.mark.parametrize("lengths", sorted(MLA_LENGTHS))
+def test_paged_mla_wgmma_route_matches_plain_and_the_simple_route(cuda, ps,
+                                                                  lengths):
+    args = _mla_serving_case(cuda, ps, MLA_LENGTHS[lengths])
+    assert pops.mla_route(*args[1:4]) == "wgmma"
+    by_route = dict(pops.mla_launches_by_route)
+    got = pops.paged_mla_decode_attention(*args)
+    simple = pops.paged_mla_decode_simple_bf16(*args)
+    assert {k: v - by_route[k] for k, v in pops.mla_launches_by_route.items()
+            if v != by_route[k]} == {"wgmma": 1, "simple": 1}
+    want = paged_mla_decode_attention_ref(*args)
+    assert bool(torch.isfinite(got.float()).all())
+    _assert_kernel_close(got, want)
+    _assert_kernel_close(got, simple)
+
+
+@pytest.mark.parametrize("ps", [16, 128])
+def test_paged_mla_wgmma_never_reads_table_entries_past_a_length(cuda, ps):
+    """Entries past each row's length point at a page of inf: the wgmma
+    route gives the plain version's result on a clean table."""
+    lengths = MLA_LENGTHS["ragged"]
+    args = _mla_serving_case(cuda, ps, lengths, seed=10)
+    pages = args[2].shape[0]
+    args[2] = torch.cat([args[2], torch.full_like(args[2][:1], float("inf"))])
+    args[3] = torch.cat([args[3], torch.full_like(args[3][:1], float("inf"))])
+    clean = args[5].clone()
+    for row, n in enumerate(lengths):
+        args[5][row, -(-n // ps):] = pages
+    got = pops.paged_mla_decode_attention(*args)
+    assert bool(torch.isfinite(got.float()).all())
+    _assert_kernel_close(got, paged_mla_decode_attention_ref(
+        *args[:5], clean, *args[6:]))
+
+
+def test_paged_mla_route_rule_on_the_card(cuda):
+    """wgmma at rank 512 / rope 64 with 8-, 16-, 32- or 64k-position pages
+    and 16-byte strides; simple for other bf16 shapes; fp32 for fp32."""
+    args = _mla_serving_case(cuda, 16, MLA_LENGTHS["full"])
+    q_pe, ckv, kpe = args[1:4]
+    assert pops.mla_route(q_pe, ckv, kpe) == "wgmma"
+    assert pops.mla_route(q_pe.float(), ckv.float(), kpe.float()) == "fp32"
+    odd = _randn(cuda, 1, 9, 4, 512, dtype=torch.bfloat16)
+    assert pops.mla_route(q_pe, odd, odd[..., :64]) == "simple"
+    assert pops.mla_route(q_pe, ckv[..., :256], kpe) == "simple"
 
 
 def test_deepseek_paged_decode_step_graph_is_bit_equal_to_the_eager_step(

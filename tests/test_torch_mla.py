@@ -143,6 +143,54 @@ def test_paged_mla_wrapper_checks_shapes_before_routing():
         pops.paged_mla_decode_attention(arrays[0][0], *arrays[1:], 1.0)
 
 
+def test_paged_mla_route_rule_by_dtype_width_page_size_and_strides():
+    """The kernel's route from shapes, strides and alignment alone (CPU
+    tensors carry them as well as CUDA ones): wgmma at DeepSeek-V3's rank
+    512 and rope 64 with pages of 8, 16, 32 or a multiple of 64 positions
+    and 16-byte strides and bases; simple for other bf16; fp32 for fp32."""
+    bf = torch.bfloat16
+    q_pe = torch.zeros(8, 128, 64, dtype=bf)
+    for ps in (8, 16, 32, 64, 128, 256):
+        ckv, kpe = torch.zeros(3, ps, 512, dtype=bf), torch.zeros(3, ps, 64,
+                                                                   dtype=bf)
+        assert pops.mla_route(q_pe, ckv, kpe) == "wgmma"
+        assert pops.mla_route(q_pe.float(), ckv.float(),
+                              kpe.float()) == "fp32"
+    for ps in (4, 5, 48, 96):
+        ckv, kpe = torch.zeros(3, ps, 512, dtype=bf), torch.zeros(3, ps, 64,
+                                                                   dtype=bf)
+        assert pops.mla_route(q_pe, ckv, kpe) == "simple"
+    ckv, kpe = torch.zeros(3, 16, 512, dtype=bf), torch.zeros(3, 16, 64,
+                                                              dtype=bf)
+    assert pops.mla_route(q_pe, ckv[..., :256], kpe) == "simple"
+    assert pops.mla_route(q_pe[..., :32], ckv, kpe[..., :32]) == "simple"
+    # the model's q_pe: the rope columns of a wider projection (16-byte
+    # strides and base) stay on wgmma; a base off 16 bytes does not
+    wide = torch.zeros(8, 128, 192, dtype=bf)
+    assert pops.mla_route(wide[..., 128:], ckv, kpe) == "wgmma"
+    assert pops.mla_route(wide[..., 1:65], ckv, kpe) == "simple"
+
+
+def test_paged_mla_wgmma_splits_fill_half_the_card_in_whole_tiles():
+    from repro_torch.kernels.paged_decode.kernel import mla_wgmma_split_len
+    # DeepSeek-V3's serving shape: 8 rows x 2 head groups, 4 splits of 256
+    assert mla_wgmma_split_len(8, 128, 1024, 132) == 256
+    for b, h, t in [(1, 128, 1024), (8, 128, 64), (64, 128, 1024),
+                    (3, 20, 700), (1, 128, 8192)]:
+        split = mla_wgmma_split_len(b, h, t, 132)
+        n = -(-t // split)
+        assert split % 64 == 0 and 1 <= n <= 8
+        pairs = b * -(-h // 64)
+        assert n == 1 or pairs * n <= 132 // 2
+
+
+def test_paged_mla_simple_bf16_refuses_cpu_tensors():
+    arrays = [bridge.array_to_tensor(a, "cpu")
+              for a in _mla_case("bfloat16", 16, seed=2)]
+    with pytest.raises(ValueError, match="CUDA"):
+        pops.paged_mla_decode_simple_bf16(*arrays, 1.0)
+
+
 # -- the attention functions -------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)

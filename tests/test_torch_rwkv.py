@@ -5,6 +5,11 @@ converted bit-exactly by ``repro_torch.bridge``:
 
 * the ``rwkv6`` kernel's plain version against ``rwkv6_ref`` and the Pallas
   kernel in interpret mode, and at odd T against the reference;
+* the chunked route's algebra (``rwkv6_chunked_ref``) against both and the
+  port's sequential loop, with strong decays (exact zeros, 1 - 1e-7) and
+  decays near 1, T below, at and past a chunk, and a hypothesis sweep over
+  (T, chunk); the wrappers' route rule, strided model-layout views, and
+  that the CPU takes the plain version and counts nothing;
 * the time mix (both routes) against ``repro.models.ssm``;
 * the RWKV6 smoke ``Model``: prefill and 3 decode steps, on the plain route
   and on the kernel route (whose decode steps run the recurrence at T = 1);
@@ -14,7 +19,9 @@ converted bit-exactly by ``repro_torch.bridge``:
   to the dense slab with the JAX package's warning.
 
 Tolerances: fp32 1e-5 (1e-4 for the recurrence over 64 steps, as the JAX
-package's own kernel test: the state sums many terms in another order);
+package's own kernel test: the state sums many terms in another order; the
+chunked algebra against the port's loop 1e-5 of max|loop|, the bound its
+kernel is held to on the card);
 bf16 2e-2 relative L2 over the tensor, the JAX package's bf16 differential
 tolerance.
 """
@@ -24,6 +31,7 @@ import warnings
 
 import numpy as np
 import pytest
+from hypothesis import given, settings, strategies as st
 
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
@@ -48,6 +56,8 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import V5E, Session, SessionConfig  # noqa: E402
 from repro_torch.core.capture import run_sequential_uncompiled  # noqa: E402
 from repro_torch.kernels.rwkv6 import ops as rops  # noqa: E402
+from repro_torch.kernels.rwkv6.ref import rwkv6_chunked_ref  # noqa: E402
+from repro_torch.kernels.rwkv6.ref import rwkv6_ref as port_wkv_ref  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
 from repro_torch.models.opgraph_export import build_lm_opgraph  # noqa: E402
@@ -136,6 +146,155 @@ def test_rwkv6_checks_shapes_before_routing():
     with pytest.raises(ValueError, match="u \\[H,K\\]"):
         rops.rwkv6(x, x, x, x, torch.zeros((3, 4)),
                    torch.zeros((1, 2, 4, 4)))
+
+
+# -- the chunked route's algebra (plain PyTorch), strong decays ------------------
+# Held at 1e-5 of max|sequential| against the port's sequential loop (the
+# kernel's own bound on the card: summation order only) and at the JAX
+# package's 1e-4 against its reference and its Pallas kernel in interpret
+# mode.
+
+def _strong_decays(rng, shape):
+    """w over (0, 1) with exact zeros and values 1 - 1e-7 mixed in (fp32's
+    exp(-exp(w_log)) is exactly 0 once w_log > ~4.5, and trained RWKV-6
+    checkpoints have such channels)."""
+    w = rng.uniform(0.0, 1.0, shape)
+    pick = rng.uniform(size=shape)
+    w[pick < 0.15] = 0.0
+    w[pick > 0.85] = 1.0 - 1e-7
+    return w.astype(np.float32)
+
+
+def _chunk_inputs(b, h, t, k, seed, decays="strong"):
+    """``_wkv_inputs`` with strong decays or decays within 2e-3 of 1."""
+    r, kk, vv, w, u, s0 = _wkv_inputs(b, h, t, k, seed)
+    rng = np.random.default_rng(seed + 1)
+    if decays == "strong":
+        w = _strong_decays(rng, w.shape)
+    else:
+        w = (1.0 - rng.uniform(1e-7, 2e-3, w.shape)).astype(np.float32)
+    return r, kk, vv, w, u, s0
+
+
+def _rel_close(got, want, rel=1e-5):
+    got, want = _np(got), _np(want)
+    assert got.shape == want.shape
+    assert np.isfinite(got).all()
+    scale = max(float(np.abs(want).max()), 1e-30)
+    assert float(np.abs(got - want).max()) <= rel * scale
+
+
+@pytest.mark.parametrize("decays", ["strong", "near one"])
+@pytest.mark.parametrize("t,chunk,sub", [(1, 64, 16), (17, 64, 16),
+                                         (64, 64, 16), (100, 64, 16),
+                                         (33, 16, 8), (40, 8, 8)])
+def test_rwkv6_chunked_ref_matches_jax_ref_pallas_and_the_loop(t, chunk, sub,
+                                                               decays):
+    arrs = _chunk_inputs(2, 2, t, 16, 100 + t, decays)
+    tens = [torch.from_numpy(a) for a in arrs]
+    out, s_final = rwkv6_chunked_ref(*tens, chunk=chunk, sub=sub)
+    want_o, want_s = port_wkv_ref(*tens)
+    _rel_close(out, want_o)
+    _rel_close(s_final, want_s)
+    jarrs = [jnp.asarray(a) for a in arrs]
+    jo, js = jax_rwkv6_ref(*jarrs)
+    _close(out, jo, 1e-4)
+    _close(s_final, js, 1e-4)
+    if t % 8 == 0:
+        po, ps = rwkv6_pallas(*jarrs, ct=8, interpret=True)
+        _close(out, po, 1e-4)
+        _close(s_final, ps, 1e-4)
+
+
+def test_rwkv6_chunked_ref_gives_exact_zeros_where_every_decay_is_zero():
+    """w = 0 everywhere: the state forgets at every step, so each output is
+    its own step's bonus term plus r_t . (k_{t-1}^T v_{t-1}), and the final
+    state is k_T^T v_T; no NaN or inf from a product of zeros."""
+    r, k, v, _, u, s0 = (torch.from_numpy(a) for a in
+                         _wkv_inputs(1, 2, 70, 8, 7))
+    w = torch.zeros_like(r)
+    out, s_final = rwkv6_chunked_ref(r, k, v, w, u, s0)
+    want_o, want_s = port_wkv_ref(r, k, v, w, u, s0)
+    _rel_close(out, want_o)
+    _rel_close(s_final, want_s)
+    torch.testing.assert_close(
+        s_final, k[:, :, -1, :, None] * v[:, :, -1, None, :], rtol=0, atol=0)
+
+
+@settings(max_examples=25, deadline=None)
+@given(t=st.integers(1, 90), sub=st.sampled_from([4, 8, 16]),
+       subs=st.integers(1, 4), seed=st.integers(0, 2**16))
+def test_rwkv6_chunked_ref_sweep_over_t_and_chunk(t, sub, subs, seed):
+    arrs = _chunk_inputs(1, 2, t, 8, seed)
+    tens = [torch.from_numpy(a) for a in arrs]
+    out, s_final = rwkv6_chunked_ref(*tens, chunk=sub * subs, sub=sub)
+    want_o, want_s = port_wkv_ref(*tens)
+    _rel_close(out, want_o)
+    _rel_close(s_final, want_s)
+
+
+# -- the wrappers on the CPU: routes, layouts, counts -----------------------------
+
+def test_rwkv6_model_on_strided_views_equals_the_contiguous_path():
+    """The model layout handed over as strided views (a slice of a wider
+    buffer, the r/k/v/w columns of one projection) gives what contiguous
+    copies give, and y comes back contiguous [B,T,H,K]."""
+    b, t, h, k = 2, 9, 3, 8
+    rng = np.random.default_rng(11)
+    wide = torch.from_numpy(rng.standard_normal((b, t, 4, h, k + 4))
+                            .astype(np.float32))
+    views = [wide[:, :, i, :, :k] for i in range(4)]
+    views[3] = torch.sigmoid(views[3])
+    assert not views[0].is_contiguous()
+    u = torch.from_numpy(rng.standard_normal((h, k)).astype(np.float32))
+    s0 = torch.from_numpy(rng.standard_normal((b, h, k, k)).astype(np.float32))
+    y, s_final = rops.rwkv6_model(*views, u, s0)
+    want_y, want_s = rops.rwkv6_model(*[x.contiguous() for x in views], u, s0)
+    assert y.shape == (b, t, h, k) and y.is_contiguous()
+    torch.testing.assert_close(y, want_y, rtol=0, atol=0)
+    torch.testing.assert_close(s_final, want_s, rtol=0, atol=0)
+
+
+def test_rwkv6_route_rule_by_t_dtype_and_strides():
+    k = 64
+    short = torch.zeros(1, 2, rops.CHUNKED_MIN_T - 1, k)
+    long = torch.zeros(1, 2, rops.CHUNKED_MIN_T, k)
+    assert rops.route(short, short, short, short) == "step"
+    assert rops.route(long, long, long, long) == "chunked"
+    # the model layout's transposed view: strides H*K, K, T*H*K
+    model = torch.zeros(1, 512, 32, k).transpose(1, 2)
+    assert rops.route(model, model, model, model) == "chunked"
+    # a K off the 4-element vector, a base off 16 bytes, an odd stride
+    odd_k = torch.zeros(1, 2, 64, 14)
+    assert rops.route(odd_k, odd_k, odd_k, odd_k) == "step"
+    full = torch.zeros(1, 2, 64, k)
+    shifted = torch.zeros(2 * 64 * k + 4)[1:2 * 64 * k + 1].view(1, 2, 64, k)
+    assert rops.route(full, full, full, full) == "chunked"
+    assert rops.route(full, full, shifted, full) == "step"
+    strided = torch.zeros(1, 2, 64, k + 2)[..., :k]
+    assert rops.route(strided, strided, strided, strided) == "step"
+    with pytest.raises(TypeError, match="fp32"):
+        rops.route(long.bfloat16(), long, long, long)
+
+
+def test_rwkv6_cpu_wrappers_take_the_plain_version_and_count_nothing():
+    arrs = [torch.from_numpy(a) for a in _chunk_inputs(1, 2, 70, 16, 3)]
+    before, by_route = rops.launches, dict(rops.launches_by_route)
+    out, s_final = rops.rwkv6(*arrs)
+    want_o, want_s = port_wkv_ref(*arrs)
+    torch.testing.assert_close(out, want_o, rtol=0, atol=0)
+    torch.testing.assert_close(s_final, want_s, rtol=0, atol=0)
+    r, k, v, w = (x.transpose(1, 2) for x in arrs[:4])
+    y, _ = rops.rwkv6_model(r, k, v, w, *arrs[4:])
+    torch.testing.assert_close(y, want_o.transpose(1, 2), rtol=0, atol=0)
+    assert rops.launches == before
+    assert rops.launches_by_route == by_route
+
+
+def test_rwkv6_step_refuses_cpu_tensors():
+    arrs = [torch.from_numpy(a) for a in _chunk_inputs(1, 2, 5, 8, 1)]
+    with pytest.raises(ValueError, match="CUDA"):
+        rops.rwkv6_step(*arrs)
 
 
 # -- the time mix and the model -----------------------------------------------------
