@@ -14,10 +14,19 @@ Phases (any failure raises and the script exits non-zero):
      WMMA routine the wgmma route replaced) at the same shape;
   3. main path: full-width Qwen2-0.5B prefill graph (24 layers, batch 1,
      seq 512, bf16, random weights from --seed) → Session with measured
-     calibration and autotune → lowering → one CUDA graph → 3 requests by
-     replay, each held against eager per-op execution on the card; every
-     GEMM launch of this and the other op-graph phases (4, 8, 9, 10) on the
-     wgmma route (launches counted by route);
+     calibration and autotune → lowering → one CUDA graph with each lane of
+     the plan on a stream of its own → 3 requests by replay, each held
+     against eager per-op execution on the card; every GEMM launch of this
+     and the other op-graph phases (4, 8, 9, 10) on the wgmma route
+     (launches counted by route); in this and the op graphs of phases 8, 9
+     and 10 the same steps recorded on one stream, bit-equal to the lane
+     recording on every request, the lanes, waits and syncs, each graph's
+     kernel nodes and depth (the lane graph must not be a chain where the
+     plan puts steps on two lanes), both replays timed, profiled (device
+     busy as the union of kernel intervals, the share of it with two or
+     more kernels at once) and their pools; here also the paper's
+     baseline, the sequential CUDA Graph (one stream, topo order, no
+     fusion), timed beside both;
   4. ragged capture: a hand-built ragged matmul fan-out captured into a CUDA
      graph through the grouped_gemm kernel, held against per-op execution;
   5. attention kernels: rmsnorm, flash_attention, decode_attention and
@@ -540,14 +549,64 @@ def phase_main_path(seed: int) -> dict:
     log(f"[main] per-forward ms (median of {TIMING_ITERS}): sequential eager "
         f"{seq_ms:.3f}, eager step walk {walk_ms:.3f}, CUDA-graph replay "
         f"{replay_ms:.3f} (graph alone {graph_only_ms:.3f})")
-    profile_replay(exe.replay.graph.replay)
+    lanes = compare_one_stream("main", exe, outputs)
+
+    # the paper's baseline: the sequential CUDA Graph (one stream, topo
+    # order, no fusion) of the same graph and request
+    seq_model = Session(SessionConfig(
+        alloc_policy="sequential", order_policy="topo",
+        calib_dir=CALIB_DIR)).compile(graph)
+    got = seq_model(inputs)[-1].float()
+    want = outputs[0][1][-1].float()
+    rel, agree = _agreement(got, want)
+    log(f"[main] sequential CUDA graph: {len(seq_model.executable.steps)} "
+        f"steps on {seq_model.executable.lane_stats()['n_lanes']} lane; "
+        f"logits vs the Opara plan's rel_l2 {rel:.3e} top1 agreement "
+        f"{agree:.4f} (bit-equal {torch.equal(got, want)})")
+    if rel > LOGITS_REL_L2 or agree < TOP1_AGREE:
+        raise AssertionError("the sequential CUDA graph disagrees with the "
+                             "Opara plan")
+    seq_graph = seq_model.executable.replay
+    three = {"sequential": cuda_ms(lambda: seq_model(inputs)),
+             "sequential_graph": cuda_ms(seq_graph.graph.replay)}
+    log(f"[main-three-way] per-forward ms (median of {TIMING_ITERS}, whole "
+        f"call / graph alone): sequential CUDA graph "
+        f"{three['sequential']:.3f} / {three['sequential_graph']:.3f}; "
+        f"Opara plan on one stream (fusion only) {lanes['one']:.3f} / "
+        f"{lanes['one_graph']:.3f}; Opara plan on its lanes "
+        f"{lanes['lanes']:.3f} / {lanes['lanes_graph']:.3f}; sequential "
+        f"graph pool bytes {seq_graph.pool_bytes}")
+    profile_replay(seq_graph.graph.replay, what="forward (sequential)",
+                   tag="main-profile-sequential")
+    del seq_model, seq_graph, got, want
     return {"launches": launches, "recorded": recorded}
+
+
+def busy_and_overlap(intervals) -> tuple[float, float]:
+    """The length of the union of ``intervals`` ((start, end) pairs) and
+    the length of the part of it that two or more of them cover."""
+    points = sorted([(a, 1) for a, _ in intervals]
+                    + [(b, -1) for _, b in intervals])
+    busy = overlap = 0.0
+    depth, last = 0, None
+    for t, step in points:          # an end sorts before a start at one t
+        if depth >= 1:
+            busy += t - last
+        if depth >= 2:
+            overlap += t - last
+        depth += step
+        last = t
+    return busy, overlap
 
 
 def profile_replay(replay, n: int = 3, what: str = "forward",
                    tag: str = "profile") -> None:
     """Device time per ``what`` by kernel, from torch.profiler over ``n``
-    calls of ``replay``, against the wall time of the same window."""
+    calls of ``replay``, against the wall time of the same window.  Device
+    busy is the union of the kernels' intervals (kernels on concurrent
+    lanes overlap, so their sum can exceed the wall time); the overlap
+    share is the part of it during which two or more ran at once."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -565,14 +624,69 @@ def profile_replay(replay, n: int = 3, what: str = "forward",
         if dev_us > 0 and getattr(e, "device_type", None) is not None \
                 and "cuda" in str(e.device_type).lower():
             rows.append((dev_us / n / 1e3, e.count // n, e.key))
-    total = sum(r[0] for r in rows)
     if not rows:
         log(f"[{tag}] torch.profiler recorded no device time")
         return
-    log(f"[{tag}] per {what}: device busy {total:.3f} ms of wall "
-        f"{wall_ms:.3f} ms (idle share {max(0.0, 1 - total / wall_ms):.3f})")
+    busy_us, overlap_us = busy_and_overlap(
+        [(e.time_range.start, e.time_range.end) for e in prof.events()
+         if e.device_type == DeviceType.CUDA])
+    busy = busy_us / n / 1e3
+    log(f"[{tag}] per {what}: device busy {busy:.3f} ms of wall "
+        f"{wall_ms:.3f} ms (idle share {max(0.0, 1 - busy / wall_ms):.3f}); "
+        f"kernel time summed {sum(r[0] for r in rows):.3f} ms; two or more "
+        f"kernels at once {overlap_us / busy_us:.3f} of busy")
     for ms, count, key in sorted(rows, reverse=True)[:12]:
         log(f"[{tag}] {ms:8.3f} ms {count:5d}x  {key[:90]}")
+
+
+def compare_one_stream(tag: str, exe, outputs: list) -> dict:
+    """The executable's lane recording (``exe.replay``, made by its first
+    request) beside the same steps recorded on one stream
+    (``CudaGraphReplay(exe.fn, args)``): lanes, waits and syncs, each
+    graph's kernel nodes and depth, outputs bit-equal on every request of
+    ``outputs`` ((inputs, outs) pairs), both replays timed (whole call and
+    graph alone; returned, in ms) and profiled, and both graph pools.
+    Fails on any
+    differing output, on a graph of several lanes that is a chain, and on a
+    one-stream graph that is not one."""
+    from repro_torch.core.capture import CudaGraphReplay
+    stats, lanes = exe.lane_stats(), exe.replay
+
+    def args(inputs):
+        return [inputs[n] for n in exe.input_names]
+
+    one = CudaGraphReplay(exe.fn, args(outputs[0][0]))
+    for i, (inputs, outs) in enumerate(outputs):
+        if not all(torch.equal(a, b) for a, b in zip(outs, one(args(inputs)))):
+            raise AssertionError(f"{tag} request {i}: the lane recording's "
+                                 "outputs differ from the one-stream one's")
+    nodes, depth = lanes.kernel_dag()
+    one_nodes, one_depth = one.kernel_dag()
+    log(f"[{tag}-lanes] plan streams {exe.stream_plan.n_streams}, lanes "
+        f"holding a step {stats['n_lanes']} (recorded {lanes.n_lanes}), "
+        f"waits {stats['n_waits']} (recorded {lanes.n_waits}), cross-lane "
+        f"edges between steps {stats['n_cross_edges']}, count_syncs "
+        f"{stats['n_syncs']}; lane graph {nodes} kernel nodes, depth "
+        f"{depth}; one-stream graph {one_nodes} nodes, depth {one_depth}; "
+        f"outputs of {len(outputs)} requests bit-equal")
+    if stats["n_lanes"] > 1 and depth >= nodes:
+        raise AssertionError(f"{tag}: {stats['n_lanes']} lanes recorded as "
+                             "a chain")
+    if (one_nodes, one_depth) != (nodes, nodes):
+        raise AssertionError(f"{tag}: the one-stream graph has "
+                             f"{one_nodes} nodes, depth {one_depth}")
+    a = args(outputs[0][0])
+    ms = {"one": cuda_ms(lambda: one(a)), "lanes": cuda_ms(lambda: lanes(a)),
+          "lanes_graph": cuda_ms(lanes.graph.replay),
+          "one_graph": cuda_ms(one.graph.replay)}
+    log(f"[{tag}-lanes] per-forward ms (median of {TIMING_ITERS}): lanes "
+        f"{ms['lanes']:.3f} (graph alone {ms['lanes_graph']:.3f}), one "
+        f"stream {ms['one']:.3f} (graph alone {ms['one_graph']:.3f}); graph "
+        f"pool bytes lanes {lanes.pool_bytes}, one stream {one.pool_bytes}")
+    profile_replay(lanes.graph.replay, tag=f"{tag}-profile")
+    profile_replay(one.graph.replay, what="forward (one stream)",
+                   tag=f"{tag}-profile-one-stream")
+    return ms
 
 
 def device_us_by_kernel(calls: dict, n: int = 50) -> dict:
@@ -2034,7 +2148,7 @@ def moe_graph(cfg, params, seed: int, tag: str) -> dict:
                      iters=3, warmup=1)
     log(f"[{tag}] per-forward ms: sequential eager {seq_ms:.3f}, CUDA-graph "
         f"replay {replay_ms:.3f} (median of 10)")
-    profile_replay(exe.replay.graph.replay, tag=f"{tag}-profile")
+    compare_one_stream(tag, exe, outputs)
     del outputs, model, exe, sess, graph
     free_card()
     return {"launches": launches, "recorded": recorded}
@@ -2653,7 +2767,7 @@ def rwkv_graph(cfg, params, seed: int) -> dict:
     walk_ms = cuda_ms(lambda: exe.call_uncompiled(inputs), iters=5)
     log(f"[rwkv] per-forward ms: eager step walk {walk_ms:.3f}, CUDA-graph "
         f"replay {replay_ms:.3f}")
-    profile_replay(exe.replay.graph.replay, tag="rwkv-profile")
+    compare_one_stream("rwkv", exe, outputs)
     return {"launches": launches, "recorded": recorded}
 
 

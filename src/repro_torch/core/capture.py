@@ -1,8 +1,8 @@
 """Graph Capturer (paper §3.4) — scheduled DAG → ONE CUDA graph.
 
 The paper records a scheduled DNN into a CUDA Graph so a replay pays no
-per-op launch overhead.  This module does exactly that on the card, in two
-phases:
+per-op launch overhead, with every stream of the plan a branch of that one
+graph.  This module does exactly that on the card, in two phases:
 
 Phase 1, ``_lower`` (capture time, runs once per plan), step for step the
 JAX package's lowering:
@@ -23,23 +23,45 @@ JAX package's lowering:
     they are dead (inside a CUDA graph their memory is reused by later
     steps of the same recording).
 
+Then ``_plan_lanes`` gives every step its lane, the plan's stream of its
+first op (:class:`~repro_torch.core.stream_alloc.StreamPlan`; one lane
+without a plan), and the fewest waits that order every cross-lane data
+edge: a step waits on the event of a producer step on another lane unless
+its lane already knows that lane to be past the producer, through FIFO
+order or an earlier wait (a vector clock per lane).  An event is recorded
+only after a step some other lane waits on.
+
 Phase 2, the executor, walks the step list:
-  * CPU tensors: the walk runs eagerly on every call;
-  * CUDA tensors: the first call copies the inputs into static buffers,
-    warms the walk up on a side stream and records it into one
-    ``torch.cuda.CUDAGraph``; every call then copies its inputs into the
-    static buffers, replays, and returns clones of the outputs (so a second
-    request cannot overwrite the first one's result).
+  * CPU tensors, ``CapturedGraph.fn`` and ``call_uncompiled``: the
+    single-stream walk in step order, eagerly, on every call;
+  * CUDA tensors: the first call copies the inputs into static buffers and
+    records the lane walk (:class:`LaneWalk`) into one
+    ``torch.cuda.CUDAGraph``: one stream per lane that holds a step, forked
+    from the capturing stream, each step issued on its lane after its
+    waits, every lane joined back before the capture ends — so steps on
+    different lanes are unordered nodes of the graph.  Every call then
+    copies its inputs into the static buffers, replays, and returns clones
+    of the outputs (so a second request cannot overwrite the first one's
+    result).
+
+Memory across lanes: a step that reads a tensor made on another lane calls
+``Tensor.record_stream`` with its own lane's stream before the walk drops
+the slot, so the block does not go back to its maker's pool while the
+reader may still read it.  Inside a capture PyTorch's allocator defers the
+reuse of such a block to the capture's end, so a multi-lane graph's pool
+is larger than the one-stream recording's (``CudaGraphReplay.pool_bytes``).
 
 Unlike the JAX package there is no rescue rung: a fused route that cannot
 be built, an armed ``kernel_compile`` / ``grouped_gemm_route`` fault site,
-or a failing replay raises.  ``CapturedGraph.degradations`` stays as an
-(empty) log so ``Session.cache_stats()["degraded_routes"]`` keeps its
-meaning.  Payloads and steps must not synchronise with the host or build
-tensors from Python values on the card: either breaks the recording.
+or a failing replay raises; nor does a lane recording that fails fall back
+to one stream.  ``CapturedGraph.degradations`` stays as an (empty) log so
+``Session.cache_stats()["degraded_routes"]`` keeps its meaning.  Payloads
+and steps must not synchronise with the host or build tensors from Python
+values on the card: either breaks the recording.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Any, Callable, Mapping, Sequence
 
@@ -57,6 +79,7 @@ from ..runtime.faults import FaultInjected, FaultPlan, get_active as _active_fau
 from ..runtime.guard import DegradationLog
 from .fusion import WaveSchedule
 from .graph import OpGraph
+from .stream_alloc import StreamPlan, count_syncs
 
 # Routing targets for a lowered step.
 _CALL = "call"                  # single payload call
@@ -91,6 +114,12 @@ class Step:
                                         # (the capture-time offset table)
     table: torch.Tensor | None = None   # _GROUPED_GEMM: the kernel's
                                         # tile→(group, row range) table
+    # -- lanes (``_plan_lanes``; a fused step takes its first branch's lane)
+    lane: int = 0                       # the plan's stream of op_ids[0]
+    waits: tuple[int, ...] = ()         # earlier steps (on other lanes)
+                                        # whose events this step waits on
+    records_event: bool = False         # another lane waits on this step
+    cross_slots: tuple[int, ...] = ()   # consumed slots made on another lane
 
 
 def _launch_counts() -> dict[str, int]:
@@ -105,13 +134,103 @@ def _launch_counts() -> dict[str, int]:
     return counts
 
 
+def dag_depth(is_kernel: Mapping[Any, bool],
+              edges: Sequence[tuple[Any, Any]]) -> tuple[int, int]:
+    """(kernel nodes, depth) of a DAG whose nodes are the keys of
+    ``is_kernel``: the depth is the most kernel nodes on one path, the
+    other nodes (events, memsets, copies) counting as links only."""
+    succ: dict[Any, list] = {n: [] for n in is_kernel}
+    indeg = dict.fromkeys(is_kernel, 0)
+    for a, b in edges:
+        succ[a].append(b)
+        indeg[b] += 1
+    above = dict.fromkeys(is_kernel, 0)    # most kernels on a path into n
+    ready = [n for n, d in indeg.items() if d == 0]
+    depth, seen = 0, 0
+    while ready:
+        n = ready.pop()
+        seen += 1
+        d = above[n] + int(is_kernel[n])
+        depth = max(depth, d)
+        for b in succ[n]:
+            above[b] = max(above[b], d)
+            indeg[b] -= 1
+            if indeg[b] == 0:
+                ready.append(b)
+    if seen != len(is_kernel):
+        raise ValueError("the graph has a cycle")
+    return sum(map(bool, is_kernel.values())), depth
+
+
+_CU_GRAPH_NODE_TYPE_KERNEL = 0
+
+
+def kernel_dag(cuda_graph: int) -> tuple[int, int]:
+    """:func:`dag_depth` of a ``cudaGraph_t`` (as the integer
+    ``torch.cuda.CUDAGraph.raw_cuda_graph`` returns), read through
+    libcuda's ``cuGraphGetNodes``, ``cuGraphGetEdges`` and
+    ``cuGraphNodeGetType``."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    ptr, size, ptrs = ctypes.c_void_p, ctypes.c_size_t, ctypes.POINTER(
+        ctypes.c_void_p)
+    cu.cuGraphGetNodes.argtypes = [ptr, ptrs, ctypes.POINTER(size)]
+    cu.cuGraphGetEdges.argtypes = [ptr, ptrs, ptrs, ctypes.POINTER(size)]
+    cu.cuGraphNodeGetType.argtypes = [ptr, ctypes.POINTER(ctypes.c_int)]
+    for f in (cu.cuGraphGetNodes, cu.cuGraphGetEdges, cu.cuGraphNodeGetType):
+        f.restype = ctypes.c_int
+
+    def check(err: int, what: str) -> None:
+        if err != 0:
+            raise RuntimeError(f"{what} failed: CUresult {err}")
+
+    graph = ptr(cuda_graph)
+    n = size(0)
+    check(cu.cuGraphGetNodes(graph, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ptr * n.value)()
+    check(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    m = size(0)
+    check(cu.cuGraphGetEdges(graph, None, None, ctypes.byref(m)),
+          "cuGraphGetEdges")
+    src, dst = (ptr * m.value)(), (ptr * m.value)()
+    check(cu.cuGraphGetEdges(graph, src, dst, ctypes.byref(m)),
+          "cuGraphGetEdges")
+    kind = ctypes.c_int()
+    is_kernel = {}
+    for node in nodes:
+        check(cu.cuGraphNodeGetType(node, ctypes.byref(kind)),
+              "cuGraphNodeGetType")
+        is_kernel[node] = kind.value == _CU_GRAPH_NODE_TYPE_KERNEL
+    return dag_depth(is_kernel, list(zip(src, dst)))
+
+
+class LaneWalk:
+    """The step walk with every lane that holds a step on a CUDA stream of
+    its own (made once, here), forked from the caller's current stream and
+    joined back into it: recorded inside ``torch.cuda.graph`` the lanes
+    become concurrent branches of the one graph."""
+
+    def __init__(self, exe: "CapturedGraph", device: torch.device):
+        self.streams = {lane: torch.cuda.Stream(device)
+                        for lane in sorted({s.lane for s in exe.steps})}
+        self.n_waits = sum(len(s.waits) for s in exe.steps)
+        self._run = exe.lane_fn
+
+    def __call__(self, *args: Any) -> list[Any]:
+        return self._run(self.streams, *args)
+
+
 class CudaGraphReplay:
     """One recorded ``torch.cuda.CUDAGraph`` of a step walk, with the
     static input buffers it reads and the outputs it writes.
 
+    ``walk`` is a :class:`LaneWalk` (what ``CapturedGraph`` records) or any
+    callable that issues its work on the current stream, such as
+    ``CapturedGraph.fn``, which records the same steps as one stream.
     ``recorded_launches`` counts the kernel launches recorded into the
     graph (one per fused step; a replay re-runs them without calling the
-    wrappers)."""
+    wrappers); ``n_lanes`` / ``n_waits`` the streams and cross-lane waits
+    recorded; ``pool_bytes`` the memory the graph's private pool holds.
+    The graph (``cudaGraph_t``) is kept so :meth:`kernel_dag` can read it."""
 
     def __init__(self, walk: Callable[..., list], args: Sequence[Any]):
         if not all(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
@@ -120,18 +239,32 @@ class CudaGraphReplay:
         if len(devices) != 1:
             raise ValueError(f"inputs on several devices {sorted(map(str, devices))}")
         device = devices.pop()
+        self.n_lanes, self.n_waits = ((len(walk.streams), walk.n_waits)
+                                      if isinstance(walk, LaneWalk) else (1, 0))
         self.static_inputs = [a.clone() for a in args]
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
             walk(*self.static_inputs)          # warm-up
         torch.cuda.current_stream(device).wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         before = _launch_counts()
         with torch.cuda.graph(self.graph):
             self.static_outputs = walk(*self.static_inputs)
         after = _launch_counts()
+        pool = tuple(self.graph.pool())
+        self.pool_bytes = sum(
+            seg["total_size"] for seg in torch.cuda.memory_snapshot()
+            if tuple(seg["segment_pool_id"]) == pool)
         self.recorded_launches = {k: after[k] - before[k] for k in after}
+        self.graph.instantiate()
+
+    def kernel_dag(self) -> tuple[int, int]:
+        """(kernel nodes, depth) of the recorded graph: the depth is the
+        most kernel nodes on one dependency path, so a one-stream
+        recording has depth == nodes and depth < nodes means at least two
+        kernels are unordered."""
+        return kernel_dag(self.graph.raw_cuda_graph())
 
     def __call__(self, args: Sequence[Any]) -> list[torch.Tensor]:
         for buf, a in zip(self.static_inputs, args):
@@ -152,8 +285,15 @@ class CapturedGraph:
     schedule: WaveSchedule
     input_ids: list[int]
     output_ids: list[int]
-    fn: Callable[..., Any]           # the step walk (eager)
+    fn: Callable[..., Any]           # the step walk (eager, one stream)
     steps: list[Step] = dataclasses.field(default_factory=list)
+    # the lane walk, fn(streams: {lane: torch.cuda.Stream}, *args)
+    lane_fn: Callable[..., Any] | None = None
+    # the plan's lanes (None: every step on lane 0)
+    stream_plan: StreamPlan | None = None
+    # env slots of the inputs (input_ids order) and of the outputs
+    input_slots: tuple[int, ...] = ()
+    output_slots: tuple[int, ...] = ()
     # input names in input_ids order, precomputed at capture time so the
     # replay path does no per-call graph walks
     input_names: tuple[str, ...] = ()
@@ -173,7 +313,9 @@ class CapturedGraph:
         if not any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
             return self.fn(*args)
         if self.replay is None:
-            self.replay = CudaGraphReplay(self.fn, args)
+            device = next(a.device for a in args
+                          if isinstance(a, torch.Tensor) and a.is_cuda)
+            self.replay = CudaGraphReplay(LaneWalk(self, device), args)
         return self.replay(args)
 
     def call_uncompiled(self, inputs: Mapping[str, Any]) -> list[Any]:
@@ -205,6 +347,22 @@ class CapturedGraph:
             "n_vmap": float(routes.count(_VMAP)),
             "n_branch_gemm": float(routes.count(_BRANCH_GEMM)),
             "n_grouped_gemm": float(routes.count(_GROUPED_GEMM)),
+        }
+
+    def lane_stats(self) -> dict[str, int]:
+        """Lanes holding a step, cross-lane waits, cross-lane data edges
+        between steps (distinct producer/consumer step pairs; ``n_waits``
+        never exceeds it) and the plan's ``count_syncs`` over all ops."""
+        producer = {s: k for k, st in enumerate(self.steps)
+                    for s in st.out_slots}
+        edges = {(producer[s], k) for k, st in enumerate(self.steps)
+                 for s in st.cross_slots}
+        return {
+            "n_lanes": len({s.lane for s in self.steps}),
+            "n_waits": sum(len(s.waits) for s in self.steps),
+            "n_cross_edges": len(edges),
+            "n_syncs": (count_syncs(self.graph, self.stream_plan)
+                        if self.stream_plan is not None else 0),
         }
 
 
@@ -480,9 +638,7 @@ def _lower(
     keep = {slot_of[o] for o in output_ids}
     last_use: dict[int, int] = {}
     for k, step in enumerate(steps):
-        consumed = (step.arg_slots if step.route == _CALL
-                    else [s for slots in step.arg_slots for s in slots])
-        for s in consumed:
+        for s in _consumed(step):
             last_use[s] = k
     free_at: dict[int, list[int]] = {}
     for s, last in last_use.items():
@@ -495,6 +651,82 @@ def _lower(
                  if s not in keep and s not in last_use]
         step.free_slots = tuple(dead)
     return steps, slot_of, n_slots
+
+
+def _consumed(step: Step) -> list[int]:
+    """The slots a step reads."""
+    if step.route == _CALL:
+        return list(step.arg_slots)
+    return [s for slots in step.arg_slots for s in slots]
+
+
+def _plan_lanes(steps: list[Step], stream_plan: StreamPlan | None) -> None:
+    """Give every step its lane and its waits (module docstring).
+
+    Each lane keeps a vector clock, ``{lane: last step of that lane known
+    finished}``.  A step needs, of every other lane it reads from, that
+    lane's latest producer step; it waits on that step's event unless its
+    clock already covers it, and a wait merges the producer's clock after
+    that step (an event recorded after step p on lane A completes only
+    after everything lane A waited on before p).  Producers are taken
+    latest first, so one wait can cover an older one."""
+    producer: dict[int, int] = {}
+    after: list[dict[int, int]] = []      # step k's lane's clock after k
+    clocks: dict[int, dict[int, int]] = {}
+    for k, step in enumerate(steps):
+        step.lane = (stream_plan.stream_of[step.op_ids[0]]
+                     if stream_plan is not None else 0)
+        clock = clocks.setdefault(step.lane, {})
+        need: dict[int, int] = {}         # other lane -> latest producer
+        cross = []
+        for s in _consumed(step):
+            p = producer.get(s)
+            if p is None or steps[p].lane == step.lane:
+                continue                  # a graph input, or FIFO order
+            cross.append(s)
+            need[steps[p].lane] = max(need.get(steps[p].lane, -1), p)
+        waits = []
+        for p in sorted(need.values(), reverse=True):
+            if clock.get(steps[p].lane, -1) >= p:
+                continue
+            waits.append(p)
+            steps[p].records_event = True
+            for lane, q in after[p].items():
+                clock[lane] = max(clock.get(lane, -1), q)
+        clock[step.lane] = k
+        after.append(dict(clock))
+        step.waits = tuple(waits)
+        step.cross_slots = tuple(dict.fromkeys(cross))
+        for s in step.out_slots:
+            producer[s] = k
+
+
+def run_step(step: Step, env: list[Any]) -> None:
+    """Run one step on the current stream: read its slots of ``env``, write
+    its outputs' slots."""
+    if step.route == _CALL:
+        env[step.out_slots[0]] = step.fn(*[env[s] for s in step.arg_slots],
+                                         *step.consts)
+    elif step.route == _GROUPED_GEMM:
+        outs = step.fn([env[s] for s in step.arg_slots[0]], step.table,
+                       *step.consts)
+        for k, slot in enumerate(step.out_slots):
+            env[slot] = outs[k]
+    else:
+        stacked = [torch.stack([env[s] for s in slots])
+                   for slots in step.arg_slots]
+        outs = step.fn(*stacked, *step.consts)
+        for k, slot in enumerate(step.out_slots):
+            env[slot] = _branch(outs, k)
+
+
+def _record_stream(value: Any, stream: torch.cuda.Stream) -> None:
+    """``Tensor.record_stream`` on every tensor of a slot's value."""
+    if isinstance(value, torch.Tensor):
+        value.record_stream(stream)
+    elif isinstance(value, (tuple, list)):
+        for v in value:
+            _record_stream(v, stream)
 
 
 def _branch(outs: Any, k: int) -> Any:
@@ -510,8 +742,13 @@ def capture(
     output_ids: Sequence[int] | None = None,
     gemm_kernel: str = "auto",
     faults: FaultPlan | None = None,
+    stream_plan: StreamPlan | None = None,
 ) -> CapturedGraph:
     """Build the executable from a wave schedule.
+
+    ``stream_plan`` gives the steps their lanes (``stream_of`` of each
+    step's first op); without one every step sits on one lane, so the
+    recording is one stream.
 
     ``gemm_kernel`` routes eligible stacked GEMM groups: ``"auto"`` or
     ``"kernel"`` (the fused ``branch_gemm`` kernel; ragged-M matmul groups
@@ -543,30 +780,45 @@ def capture(
 
     steps, slot_of, n_slots = _lower(graph, schedule, output_ids,
                                      gemm_kernel, faults=faults)
-    input_slots = [slot_of[i] for i in input_ids]
-    output_slots = [slot_of[o] for o in output_ids]
+    _plan_lanes(steps, stream_plan)
+    input_slots = tuple(slot_of[i] for i in input_ids)
+    output_slots = tuple(slot_of[o] for o in output_ids)
 
-    def run(*args: Any) -> list[Any]:
+    def bind(args: Sequence[Any]) -> list[Any]:
         env: list[Any] = [None] * n_slots
         for s, a in zip(input_slots, args):
             env[s] = a
+        return env
+
+    def run(*args: Any) -> list[Any]:
+        env = bind(args)
         for step in steps:
-            if step.route == _CALL:
-                out = step.fn(*[env[s] for s in step.arg_slots], *step.consts)
-                env[step.out_slots[0]] = out
-            elif step.route == _GROUPED_GEMM:
-                outs = step.fn([env[s] for s in step.arg_slots[0]],
-                               step.table, *step.consts)
-                for k, slot in enumerate(step.out_slots):
-                    env[slot] = outs[k]
-            else:
-                stacked = [torch.stack([env[s] for s in slots])
-                           for slots in step.arg_slots]
-                outs = step.fn(*stacked, *step.consts)
-                for k, slot in enumerate(step.out_slots):
-                    env[slot] = _branch(outs, k)
+            run_step(step, env)
             for s in step.free_slots:
                 env[s] = None
+        return [env[s] for s in output_slots]
+
+    def run_lanes(streams: Mapping[int, torch.cuda.Stream],
+                  *args: Any) -> list[Any]:
+        env = bind(args)
+        base = torch.cuda.current_stream()
+        for stream in streams.values():
+            stream.wait_stream(base)
+        events: dict[int, torch.cuda.Event] = {}
+        for k, step in enumerate(steps):
+            stream = streams[step.lane]
+            for p in step.waits:
+                stream.wait_event(events[p])
+            with torch.cuda.stream(stream):
+                for s in step.cross_slots:
+                    _record_stream(env[s], stream)
+                run_step(step, env)
+            if step.records_event:
+                events[k] = stream.record_event()
+            for s in step.free_slots:
+                env[s] = None
+        for stream in streams.values():
+            base.wait_stream(stream)
         return [env[s] for s in output_slots]
 
     return CapturedGraph(
@@ -576,6 +828,10 @@ def capture(
         output_ids=output_ids,
         fn=run,
         steps=steps,
+        lane_fn=run_lanes,
+        stream_plan=stream_plan,
+        input_slots=input_slots,
+        output_slots=output_slots,
     )
 
 

@@ -606,7 +606,8 @@ def autotune(
 def compile_plan(plan: SchedulePlan, output_ids=None,
                  gemm_kernel: str = "auto", faults=None) -> CapturedGraph:
     return capture(plan.graph, plan.waves, output_ids=output_ids,
-                   gemm_kernel=gemm_kernel, faults=faults)
+                   gemm_kernel=gemm_kernel, faults=faults,
+                   stream_plan=plan.stream_plan)
 
 
 def simulate_plan(plan: SchedulePlan, cfg: SimConfig | None = None) -> SimResult:

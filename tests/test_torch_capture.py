@@ -6,6 +6,8 @@ site raises out of capture instead of degrading.
 Route names pair up as reference ``"pallas"`` ↔ port ``"kernel"`` and
 ``"vmap"`` ↔ ``"vmap"``.  Walk vs per-op tolerance: fp32, 1e-5.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -27,11 +29,16 @@ from repro_torch.core import graph as port_graph  # noqa: E402
 from repro_torch.core import profiler as port_profiler  # noqa: E402
 from repro_torch.core.capture import (  # noqa: E402
     PlanValidationError,
+    capture,
+    dag_depth,
     run_sequential_uncompiled,
+    run_step,
 )
-from repro_torch.core.scheduler import compile_plan, schedule  # noqa: E402
+from repro_torch.core.scheduler import autotune, compile_plan, schedule  # noqa: E402
+from repro_torch.core.stream_alloc import count_syncs  # noqa: E402
 from repro_torch.kernels.grouped_gemm.ops import tile_rows  # noqa: E402
 from repro_torch.models.opgraph_export import build_lm_opgraph  # noqa: E402
+from repro_torch.models.transformer import init_lm  # noqa: E402
 from repro_torch.runtime.faults import FaultInjected, FaultPlan  # noqa: E402
 
 KERNEL_NAMES = {"pallas": "kernel", "vmap": "vmap"}
@@ -239,3 +246,202 @@ def test_unknown_gemm_kernel_and_input_names_raise():
     exe = compile_plan(plan)
     with pytest.raises(KeyError, match="unrecognized"):
         exe({"x": torch.zeros(8, 32), "y": torch.zeros(1)})
+
+
+# ---- lanes: each step on its plan stream, the fewest waits that order it ----
+# The recording puts every lane on a CUDA stream of its own; here, on the
+# CPU, the lane plan is checked on its own terms: every cross-lane data edge
+# between steps is ordered by lane FIFO order and the waits, no wait is
+# implied by the others, and any walk that keeps only those orders computes
+# what the single-stream walk computes.
+
+def _qwen_full_depth():
+    cfg = dataclasses.replace(get_config("qwen2-0.5b", smoke=True),
+                              n_layers=24)
+    params = init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    return build_lm_opgraph(cfg, batch=2, seq=8, params=params)
+
+
+LANE_GRAPHS = {**{name: (lambda n=name: GRAPHS[n]()[1]) for name in GRAPHS},
+               "qwen2_smoke_24_layers": _qwen_full_depth}
+PLANS = {"opara": lambda g: schedule(g, "opara", "opara"),
+         "autotune": lambda g: autotune(g, hw=V5E)}
+
+
+def _consumed(step):
+    return (list(step.arg_slots) if step.route == "call"
+            else [s for slots in step.arg_slots for s in slots])
+
+
+def _cross_edges(steps):
+    producer = {s: k for k, st in enumerate(steps) for s in st.out_slots}
+    return {(producer[s], k) for k, st in enumerate(steps)
+            for s in _consumed(st)
+            if s in producer and steps[producer[s]].lane != st.lane}
+
+
+def _before(steps, skip=None):
+    """before[k]: bitmask of the steps ordered before step k by lane FIFO
+    order and the waits (leaving out the wait ``skip`` = (p, k))."""
+    before, last = [], {}
+    for k, st in enumerate(steps):
+        mask = 0
+        if st.lane in last:
+            q = last[st.lane]
+            mask |= before[q] | (1 << q)
+        for p in st.waits:
+            if (p, k) != skip:
+                mask |= before[p] | (1 << p)
+        before.append(mask)
+        last[st.lane] = k
+    return before
+
+
+@pytest.mark.parametrize("plan", sorted(PLANS))
+@pytest.mark.parametrize("name", sorted(LANE_GRAPHS))
+def test_lane_plan_orders_every_cross_lane_edge_with_the_fewest_waits(
+        name, plan):
+    g = LANE_GRAPHS[name]()
+    p = PLANS[plan](g)
+    exe = compile_plan(p)
+    steps = exe.steps
+    assert [s.lane for s in steps] == [p.stream_plan.stream_of[s.op_ids[0]]
+                                       for s in steps]
+    edges = _cross_edges(steps)
+    before = _before(steps)
+    assert all(before[k] >> q & 1 for q, k in edges)
+    waited = {q for st in steps for q in st.waits}
+    for k, st in enumerate(steps):
+        assert all(q < k and steps[q].lane != st.lane for q in st.waits)
+        assert st.records_event == (k in waited)
+        for q in st.waits:      # no wait is implied by FIFO order and the rest
+            assert not _before(steps, skip=(q, k))[k] >> q & 1
+    stats = exe.lane_stats()
+    assert stats["n_cross_edges"] == len(edges)
+    assert stats["n_waits"] == sum(len(s.waits) for s in steps) <= len(edges)
+    assert stats["n_lanes"] == len({s.lane for s in steps})
+    assert stats["n_syncs"] == count_syncs(g, p.stream_plan)
+    # the lanes leave step lists and program_stats as the JAX package has them
+    assert [s.route for s in steps] == [
+        s.route for s in capture(g, p.waves).steps]
+
+
+def test_some_wave_puts_its_steps_on_two_lanes():
+    spans = {}
+    for name, build in LANE_GRAPHS.items():
+        g = build()
+        p = schedule(g, "opara", "opara")
+        exe = compile_plan(p)
+        wave_of = {op: w.index for w in p.waves.waves for op in w.op_ids}
+        lanes = {}
+        for s in exe.steps:
+            lanes.setdefault(wave_of[s.op_ids[0]], set()).add(s.lane)
+        spans[name] = max(map(len, lanes.values()))
+    assert max(spans.values()) >= 2, spans
+    assert spans["qwen2_smoke_24_layers"] >= 2, spans
+
+
+@pytest.mark.parametrize("how", ["sequential", "no_stream_plan"])
+@pytest.mark.parametrize("name", sorted(LANE_GRAPHS))
+def test_sequential_and_unplanned_schedules_hold_one_lane(name, how):
+    g = LANE_GRAPHS[name]()
+    if how == "sequential":
+        exe = compile_plan(schedule(g, "sequential", "topo"))
+    else:
+        exe = capture(g, schedule(g, "opara", "opara").waves)
+    assert exe.lane_stats() == {"n_lanes": 1, "n_waits": 0,
+                                "n_cross_edges": 0, "n_syncs": 0}
+    assert not any(s.waits or s.records_event or s.cross_slots
+                   for s in exe.steps)
+
+
+def _interleaved_walk(exe, args, rng):
+    """The steps in a random order that keeps only each lane's FIFO order
+    and the waits, with every slot kept to the end (the device's memory
+    lifetimes are the recording's matter): a slot read before it was
+    written raises KeyError."""
+    steps = exe.steps
+    queues = {}
+    for k, s in enumerate(steps):
+        queues.setdefault(s.lane, []).append(k)
+    env = dict(zip(exe.input_slots, args))
+    done, order = set(), []
+    while len(order) < len(steps):
+        ready = [q for q in queues.values()
+                 if q and all(p in done for p in steps[q[0]].waits)]
+        k = ready[rng.integers(len(ready))].pop(0)
+        run_step(steps[k], env)
+        done.add(k)
+        order.append(k)
+    return [env[s] for s in exe.output_slots], order
+
+
+def _args(g, exe, seed=9):
+    """Tokens for the LM exports (smoke vocab 256), fp32 values otherwise."""
+    rng = np.random.default_rng(seed)
+    args = []
+    for name in exe.input_names:
+        shape = next(n.out_shape for n in g if n.name == name)
+        args.append(torch.from_numpy(rng.integers(0, 256, shape))
+                    if name == "tokens" else torch.tensor(
+                        rng.standard_normal(shape) * 0.1, dtype=torch.float32))
+    return args
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("name", sorted(LANE_GRAPHS))
+def test_any_walk_the_waits_allow_equals_the_single_stream_walk(name, seed):
+    g = LANE_GRAPHS[name]()
+    exe = compile_plan(schedule(g, "opara", "opara"))
+    args = _args(g, exe)
+    want = exe.fn(*args)
+    rng = np.random.default_rng(seed)
+    orders = []
+    for _ in range(3):
+        got, order = _interleaved_walk(exe, args, rng)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        orders.append(order)
+    if exe.lane_stats()["n_lanes"] > 1:
+        assert any(o != sorted(o) for o in orders)
+
+
+def test_interleaved_walk_of_qwen2_smoke_matches_the_reference_program():
+    rc = dataclasses.replace(ref_config("qwen2-0.5b", smoke=True),
+                             dtype=jnp.float32)
+    pc = dataclasses.replace(get_config("qwen2-0.5b", smoke=True),
+                             dtype=torch.float32)
+    params = make_model(rc).init(jax.random.key(0))
+    tparams = bridge.from_numpy(jax.tree_util.tree_map(np.asarray, params),
+                                "cpu")
+    rexe = ref_compile(ref_schedule(ref_export(rc, batch=2, seq=8,
+                                               params=params), "opara",
+                                    "opara"), gemm_kernel="pallas")
+    exe = compile_plan(schedule(build_lm_opgraph(pc, batch=2, seq=8,
+                                                 params=tparams),
+                                "opara", "opara"))
+    assert exe.lane_stats()["n_lanes"] > 1
+    rng = np.random.default_rng(0)
+    for seed in (1, 2):
+        tok = np.random.default_rng(seed).integers(0, pc.vocab_size, (2, 8))
+        want = rexe({"tokens": jnp.asarray(tok, jnp.int32)})
+        got, _ = _interleaved_walk(exe, [torch.from_numpy(tok)], rng)
+        np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("edges,is_kernel,want", [
+    # a chain of three kernels through an event node
+    ([(0, 1), (1, 2), (2, 3)], [1, 0, 1, 1], (3, 3)),
+    # a fork into two lanes and a join: two kernels unordered
+    ([(0, 1), (0, 2), (1, 3), (2, 3)], [1, 1, 1, 1], (4, 3)),
+    # two lanes with no kernel in common, joined by an empty node
+    ([(0, 2), (1, 2)], [1, 1, 0], (2, 1)),
+])
+def test_dag_depth_counts_kernel_nodes_on_the_longest_path(edges, is_kernel,
+                                                          want):
+    assert dag_depth(dict(enumerate(map(bool, is_kernel))), edges) == want
+
+
+def test_dag_depth_rejects_a_cycle():
+    with pytest.raises(ValueError, match="cycle"):
+        dag_depth({0: True, 1: True}, [(0, 1), (1, 0)])

@@ -9,14 +9,16 @@ PyTorch (the repository's conftest imports JAX; skip it there):
 Tolerances: kernel vs plain bf16 1e-2 (both accumulate in fp32 and round
 once to bf16: about one bf16 ulp apart at most); fp32 1e-5 of max|plain|
 with TF32 off (summation order only); CUDA-graph replay vs per-op fp32
-execution 1e-5.
+execution 1e-5; the recording on the plan's lanes vs the same steps
+recorded on one stream and vs the eager walk: bit-equal.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core.capture import run_sequential_uncompiled  # noqa: E402
+from repro_torch.core.capture import (  # noqa: E402
+    CudaGraphReplay, run_sequential_uncompiled)
 from repro_torch.core.graph import OpGraph, OpKind  # noqa: E402
 from repro_torch.core.profiler import elementwise_cost, gemm_cost  # noqa: E402
 from repro_torch.core.scheduler import compile_plan, schedule  # noqa: E402
@@ -314,6 +316,81 @@ def test_cuda_graph_replay_matches_per_op_execution(cuda, name):
             torch.testing.assert_close(a, b, rtol=tol, atol=tol)
         eager = exe.call_uncompiled(inputs)
         assert all(torch.equal(a, b) for a, b in zip(got, eager))
+    with pytest.raises(ValueError, match="recorded"):
+        exe({k: torch.cat([v, v]) for k, v in requests[0].items()})
+
+
+def _inception(device, widths=(64, 64, 96, 160), d=128, tokens=64, seed=4,
+               dtype=torch.float32):
+    """Two blocks of parallel (gemm d→f → relu → gemm f→d) branches, then a
+    sum: branches of one width stack into fused steps, the others stay
+    single steps on lanes of their own."""
+    rng = np.random.default_rng(seed)
+    g = OpGraph("inception")
+    cur = g.add("x", OpKind.INPUT, out_shape=(tokens, d), out_dtype=dtype)
+    for blk in range(2):
+        outs = []
+        for b, f in enumerate(widths):
+            h = cur
+            for i, (k, n) in enumerate(((d, f), (f, d))):
+                w = torch.tensor(rng.standard_normal((k, n)) * k ** -0.5,
+                                 dtype=dtype, device=device)
+                h = g.add(f"b{blk}_{b}_gemm{i}", OpKind.GEMM, [h], fn=_mm,
+                          cost=gemm_cost(tokens, k, n, 4),
+                          fuse_sig=("gemm", tokens, k, n), consts=(w,),
+                          payload="matmul", out_shape=(tokens, n),
+                          out_dtype=dtype)
+                if i == 0:
+                    h = g.add(f"b{blk}_{b}_relu", OpKind.ELEMENTWISE, [h],
+                              fn=torch.relu,
+                              cost=elementwise_cost(tokens * f, 4),
+                              fuse_sig=("relu", tokens, f),
+                              out_shape=(tokens, f), out_dtype=dtype)
+            outs.append(h)
+        cur = g.add(f"b{blk}_sum", OpKind.ELEMENTWISE, outs, fn=_sum,
+                    cost=elementwise_cost(tokens * d, 4, n_in=len(widths)),
+                    out_shape=(tokens, d), out_dtype=dtype)
+    return g
+
+
+LANE_GRAPHS = {**GRAPHS, "inception": _inception,
+               "inception_bf16": lambda d: _inception(d, dtype=torch.bfloat16)}
+
+
+@pytest.mark.parametrize("name", sorted(LANE_GRAPHS))
+def test_lane_recording_is_concurrent_and_bit_equal_to_one_stream(cuda, name):
+    """The recording with each lane on its own stream: bit-equal to the
+    same steps recorded on one stream and to the eager walk, request after
+    request; its graph has two unordered kernels wherever the plan puts
+    steps on two lanes, and the one-stream recording is a chain."""
+    g = LANE_GRAPHS[name](cuda)
+    exe = compile_plan(schedule(g, "opara", "opara"))
+    lanes = exe.lane_stats()
+    if name.startswith("inception"):
+        assert lanes["n_lanes"] > 1 and lanes["n_waits"] >= 1
+    rng = np.random.default_rng(2)
+    requests = [{n.name: torch.tensor(rng.standard_normal(n.out_shape) * 0.1,
+                                      dtype=n.out_dtype or torch.float32,
+                                      device=cuda)
+                 for n in g if n.fn is None} for _ in range(2)]
+    outs = [exe(r) for r in requests]          # record, then replay
+    replay = exe.replay
+    assert (replay.n_lanes, replay.n_waits) == (lanes["n_lanes"],
+                                                lanes["n_waits"])
+    one = CudaGraphReplay(exe.fn, [requests[0][n] for n in exe.input_names])
+    assert (one.n_lanes, one.n_waits) == (1, 0)
+    for got, inputs in zip(outs, requests):
+        single = one([inputs[n] for n in exe.input_names])
+        eager = exe.call_uncompiled(inputs)
+        assert all(torch.equal(a, b) for a, b in zip(got, single))
+        assert all(torch.equal(a, b) for a, b in zip(got, eager))
+    # clones: the second request did not overwrite the first one's result
+    assert not all(torch.equal(a, b) for a, b in zip(*outs))
+    assert replay.pool_bytes > 0 and one.pool_bytes > 0
+    nodes, depth = replay.kernel_dag()
+    assert nodes >= len(exe.steps)
+    assert (depth < nodes) if lanes["n_lanes"] > 1 else (depth == nodes)
+    assert one.kernel_dag() == (nodes, nodes)
     with pytest.raises(ValueError, match="recorded"):
         exe({k: torch.cat([v, v]) for k, v in requests[0].items()})
 
