@@ -34,14 +34,18 @@ Phases (any failure raises and the script exits non-zero):
      ones (D = 14, ragged T, null pages, clamped window starts), bf16 and
      fp32: error, kernel / plain / library times, bound; rmsnorm's onepass
      route at every width the registered models normalise (896, 2048, 7168,
-     1536, 512) at 512 and 8 rows, beside the simple route (the routine it
-     replaced) and F.rms_norm in the same call; flash_attention's
-     bf16 prefills (Qwen2-0.5B at 512 and 1024 tokens, Kimi-K2's 64/8 heads
-     of 112) with its route, TFLOP/s, share of the bound and the simple
-     route (the WMMA routine the wgmma route replaced) at the same shape;
-     the decode pair at 8 slots of 1024 positions (Qwen2-0.5B's 14/2 heads
-     of 64, Kimi-K2's 64/8 of 112) likewise, beside the simple route (the
-     routine the mma route replaced), paged equal to dense bit for bit;
+     1536, 512, 1600, 2304, 4096) at 512 and 8 rows, beside the simple
+     route (the routine it replaced) and F.rms_norm in the same call;
+     flash_attention's bf16 prefills (Qwen2-0.5B at 512 and 1024 tokens,
+     Kimi-K2's 64/8 heads of 112, GLM-4-9B's 32/2 of 128, Hymba-1.5B's 25/5
+     of 64 over 980 + 128 positions with its 1024-position window) with its
+     route, TFLOP/s, share of the bound and the simple route (the WMMA
+     routine the wgmma route replaced) at the same shape; the decode pair
+     at 8 slots of 1024 positions (Qwen2-0.5B's 14/2 heads of 64, Kimi-K2's
+     64/8 of 112, GLM-4-9B's 32/2 of 128) and at Hymba-1.5B's 25/5 of 64
+     over 1152 positions with every slot past its window, likewise, beside
+     the simple route (the routine the mma route replaced), paged equal to
+     dense bit for bit;
   6. serve: full-width Qwen2-0.5B behind ``Model(use_kernels=True)`` and
      ``InferenceEngine`` (8 slots, 1024 positions), once with the dense KV
      slab and once paged (16-position pages): 16 requests of 17-700 prompt
@@ -96,7 +100,31 @@ Phases (any failure raises and the script exits non-zero):
      through Session.compile, held against eager per-op execution; the
      serve trace on the dense-slab engine in bf16 and fp32 with phase 6's
      gates; a decode tick graph vs eager; the longest prompt's prefill with
-     every rwkv6 launch on the chunked route.
+     every rwkv6 launch on the chunked route;
+ 11. Llama-3.2-1B, MiniCPM-2B and GLM-4-9B at full width and depth, bf16,
+     one after another: the op graph (batch 1, seq 512) with phase 3's
+     gates (Session.compile into one CUDA graph on the plan's lanes, held
+     against eager per-op execution, bit-equal to the same steps on one
+     stream, depth below the kernel-node count, every GEMM launch on
+     wgmma; MiniCPM-2B's plan fuses q, k and v and holds one lane, so its
+     graph is a chain by construction); then phase 6's serve trace on dense
+     and paged engines with its gates (kernel route vs plain route, paged
+     vs dense up to a resume, graph tick == eager tick, flash on wgmma and
+     the decode pair on mma) and fp32 top-1 gates; Llama-3.2-1B's bf16
+     routes held by relative L2 as Qwen2-0.5B's, beside an fp32 serve run
+     (paged == dense exactly); MiniCPM-2B's and GLM-4-9B's (40 layers,
+     whose bf16 rounding alone moves the logits past 2e-2) block by block
+     on identical inputs and against the fp32 plain route, as phase 10's;
+ 12. Hymba-1.5B at full width and depth (32 layers, attention in parallel
+     with a Mamba head, 1024-position windows but in 3 global layers, 128
+     meta tokens): the op graph at seq 512 with phase 11's gates and its
+     lanes, waits, overlap and idle shares beside the one-stream recording,
+     and the Mamba scan's share of the replay; the serve trace on the dense
+     slab in bf16 and fp32 with phase 6's gates (bf16 held as phase 10's,
+     block by block and against the fp32 plain route), plus one request whose
+     980-token prompt and the meta tokens cross the window: its windowed
+     prefill and windowed decode steps are held against the plain route;
+     the scan's share of a prefill.
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
 package; needs the repository's ``src/`` next to this file and a CUDA card.
@@ -796,6 +824,11 @@ def phase_ragged(gen: torch.Generator) -> dict:
 # Qwen2-0.5B's serving geometry: heads, KV heads, head dim; 8 decode slots of
 # 1024 positions; 16-position pages
 HEADS, KV_HEADS, HEAD_DIM = 14, 2, 64
+# glm4-9b's and hymba-1.5b's attention heads (query / KV, head dim); Hymba's
+# windowed layers attend the last 1024 positions, and its 128 meta tokens
+# ride in front of every prompt, so a 980-token prompt crosses the window
+GLM4_HEADS, HYMBA_HEADS = (32, 2, 128), (25, 5, 64)
+HYMBA_WINDOW, HYMBA_META, LONG_PROMPT = 1024, 128, 980
 SLOTS, MAX_LEN, PAGE = 8, 1024, 16
 
 
@@ -864,13 +897,14 @@ def phase_attention_kernels(env: dict, gen: torch.Generator) -> dict:
                     bound_ms=bound, bound_by=by, library_ms=library_ms)
 
     # -- rmsnorm: every width the registered models normalise (Qwen2-0.5B
-    # 896, RWKV6-1.6B 2048, Kimi-K2 and DeepSeek-V3 7168, DeepSeek-V3's
-    # q_norm 1536 and kv_norm 512) at a prefill's 512 rows and a decode
+    # 896, RWKV6-1.6B and Llama-3.2-1B 2048, Kimi-K2 and DeepSeek-V3 7168,
+    # DeepSeek-V3's q_norm 1536 and kv_norm 512, Hymba-1.5B 1600,
+    # MiniCPM-2B 2304, GLM-4-9B 4096) at a prefill's 512 rows and a decode
     # tick's 8, each beside the simple route (the routine the onepass route
     # replaced) and F.rms_norm in the same call; fp32; odd shapes ----------
     bf16, fp32 = torch.bfloat16, torch.float32
     norm_cases = [(f"{tag} d={d}", (n, d), bf16, True)
-                  for d in (896, 2048, 7168, 1536, 512)
+                  for d in (896, 2048, 7168, 1536, 512, 1600, 2304, 4096)
                   for tag, n in (("prefill", 512), ("decode", SLOTS))]
     norm_cases += [("prefill d=896", (512, 896), fp32, True),
                    ("odd", (3, 14), bf16, False),
@@ -915,17 +949,23 @@ def phase_attention_kernels(env: dict, gen: torch.Generator) -> dict:
                 f"{k} {v:.2f} us" for k, v in dev.items()))
 
     # -- flash attention: the bf16 prefills of the serving paths (Qwen2-0.5B
-    # at 512 tokens and at the engine's max_len, Kimi-K2's 64/8 heads of 112),
-    # each timed beside the simple route (the WMMA routine the wgmma route
-    # replaced) in the same call; fp32; then odd shapes -----------------------
+    # at 512 tokens and at the engine's max_len, Kimi-K2's 64/8 heads of 112,
+    # GLM-4-9B's 32/2 of 128, Hymba-1.5B's 25/5 of 64 over the long request's
+    # 980 + 128 positions with its 1024-position window), each timed beside
+    # the simple route (the WMMA routine the wgmma route replaced) in the
+    # same call; fp32; then odd shapes ----------------------------------------
     from repro_torch.configs import get_config
     kimi = get_config("kimi-k2-1t-a32b")
     kimi_heads = (kimi.n_heads, kimi.n_kv_heads, kimi.head_dim)
+    long_s = LONG_PROMPT + HYMBA_META
     for tag, (b, s, h, kvh, d, window), dtype, timed in [
             ("prefill", (1, 512, HEADS, KV_HEADS, HEAD_DIM, 0), bf16, True),
             ("prefill S=1024", (1, MAX_LEN, HEADS, KV_HEADS, HEAD_DIM, 0),
              bf16, True),
             ("kimi prefill", (1, 512, *kimi_heads, 0), bf16, True),
+            ("glm4 prefill", (1, 512, *GLM4_HEADS, 0), bf16, True),
+            ("hymba prefill window=1024", (1, long_s, *HYMBA_HEADS,
+                                           HYMBA_WINDOW), bf16, True),
             ("prefill", (1, 512, HEADS, KV_HEADS, HEAD_DIM, 0), fp32, True),
             ("odd D=14 S=77", (2, 77, 4, 2, 14, 0), bf16, False),
             ("odd window=32 S=200", (1, 200, 4, 1, 64, 32), fp32, False),
@@ -956,38 +996,60 @@ def phase_attention_kernels(env: dict, gen: torch.Generator) -> dict:
                    f" (simple route {simple_err:.3g})"))
             continue
 
-        def sdpa(q=q, k=k, v=v):
+        # SDPA takes a window only as a boolean mask
+        i = torch.arange(s, device="cuda")
+        band = ((i[None] <= i[:, None]) & (i[None] > i[:, None] - window)
+                if window else None)
+
+        def sdpa(q=q, k=k, v=v, band=band):
             return F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                is_causal=True, enable_gqa=True)
+                attn_mask=band, is_causal=band is None, enable_gqa=True)
         lib_err = float((sdpa().transpose(1, 2).float() - want.float())
                         .abs().max())
-        log(f"[kernel] SDPA causal max_abs_err vs plain {lib_err:.3g}")
+        log(f"[kernel] SDPA causal{' windowed' if window else ''} "
+            f"max_abs_err vs plain {lib_err:.3g}")
         pairs = _causal_pairs(s, s, window)
         results[("flash_attention", tag, dtype)] = measure(
             "flash_attention", f"{tag} B={b} S=T={s} H={h}/{kvh} D={d}",
             dtype, err,
             lambda q=q, k=k, v=v: fops.flash_attention(q, k, v, True, window),
             lambda q=q, k=k, v=v: flash_attention_ref(q, k, v, True, window),
-            sdpa, "SDPA causal gqa", 4.0 * b * h * d * pairs,
+            sdpa, "SDPA causal gqa" + (" band mask" if window else ""),
+            4.0 * b * h * d * pairs,
             q.element_size() * (2 * b * s * h * d + 2 * b * s * kvh * d),
             path=path, simple_fn=simple_fn)
 
     # -- decode: 8 slots of 1024 positions, attended up to pos: Qwen2's 14/2
-    # heads of 64 (bf16 and fp32) and Kimi-K2's 64/8 heads of 112 (bf16);
-    # each bf16 row timed beside the simple route (the routine the mma route
-    # replaced) in the same call, dense and through shuffled 16-position
-    # pages; the paged decode must equal the dense one bit for bit ----------
+    # heads of 64 (bf16 and fp32), Kimi-K2's 64/8 heads of 112 and GLM-4-9B's
+    # 32/2 of 128 (bf16); Hymba-1.5B's 25/5 of 64 over its 1024 + 128
+    # positions, each slot past its 1024-position window (bf16); each bf16
+    # row timed beside the simple route (the routine the mma route replaced)
+    # in the same call, dense and through shuffled 16-position pages; the
+    # paged decode must equal the dense one bit for bit ----------------------
     rng = np.random.default_rng(1234)
-    pos = torch.tensor(rng.integers(17, MAX_LEN - 24, SLOTS), device="cuda")
-    for tag, (h, kvh, d), dtype in [
-            ("decode", (HEADS, KV_HEADS, HEAD_DIM), bf16),
-            ("decode", (HEADS, KV_HEADS, HEAD_DIM), fp32),
-            ("kimi decode", kimi_heads, bf16)]:
-        b, t = SLOTS, MAX_LEN
+    pos_short = torch.tensor(rng.integers(17, MAX_LEN - 24, SLOTS),
+                             device="cuda")
+    hymba_t = MAX_LEN + HYMBA_META
+    pos_long = torch.tensor(rng.integers(HYMBA_WINDOW + 8, hymba_t - 8, SLOTS),
+                            device="cuda")
+    for tag, (h, kvh, d), dtype, t, window in [
+            ("decode", (HEADS, KV_HEADS, HEAD_DIM), bf16, MAX_LEN, 0),
+            ("decode", (HEADS, KV_HEADS, HEAD_DIM), fp32, MAX_LEN, 0),
+            ("kimi decode", kimi_heads, bf16, MAX_LEN, 0),
+            ("glm4 decode", GLM4_HEADS, bf16, MAX_LEN, 0),
+            ("hymba decode window=1024", HYMBA_HEADS, bf16, hymba_t,
+             HYMBA_WINDOW)]:
+        b = SLOTS
+        pos = pos_long if window else pos_short
         q = rnd((b, h, d), dtype)
         k, v = rnd((b, t, kvh, d), dtype), rnd((b, t, kvh, d), dtype)
-        valid = torch.arange(t, device="cuda")[None] <= pos[:, None]
+        k_pos = torch.arange(t, device="cuda")[None]
+        valid = k_pos <= pos[:, None]
+        starts = None
+        if window:
+            valid &= k_pos > pos[:, None] - window
+            starts = (pos - window + 1).to(torch.int32)
         path = dops.route(q, k, v)
         if path != ("mma" if dtype == bf16 else "fp32"):
             raise AssertionError(f"decode_attention {tag} {_dt(dtype)} takes "
@@ -1032,7 +1094,7 @@ def phase_attention_kernels(env: dict, gen: torch.Generator) -> dict:
             path=path, simple_fn=simple_fn)
 
         # paged: the same positions through shuffled 16-position pages
-        maxp = MAX_LEN // PAGE
+        maxp = t // PAGE
         n_pages = 1 + b * maxp
         perm = torch.randperm(n_pages - 1, generator=torch.Generator()
                               .manual_seed(5)) + 1
@@ -1047,8 +1109,8 @@ def phase_attention_kernels(env: dict, gen: torch.Generator) -> dict:
                                  f"{dops.route(q, kp, vp)} route, the slab "
                                  f"{path}")
         by_route = dict(pops.launches_by_route)
-        got_p = pops.paged_decode_attention(q, kp, vp, bt, lengths)
-        want_p = paged_decode_attention_ref(q, kp, vp, bt, lengths)
+        got_p = pops.paged_decode_attention(q, kp, vp, bt, lengths, starts)
+        want_p = paged_decode_attention_ref(q, kp, vp, bt, lengths, starts)
         torch.cuda.synchronize()
         if pops.launches_by_route[path] != by_route[path] + 1:
             raise AssertionError(f"paged_decode {tag}: no {path} launch")
@@ -1057,11 +1119,14 @@ def phase_attention_kernels(env: dict, gen: torch.Generator) -> dict:
             raise AssertionError(f"paged_decode {tag} differs from "
                                  "decode_attention on the same positions")
         if dtype == bf16:
-            check_close(pops.paged_decode_simple_bf16(q, kp, vp, bt, lengths),
+            check_close(pops.paged_decode_simple_bf16(q, kp, vp, bt, lengths,
+                                                      starts),
                         want_p, f"paged_decode simple {tag}")
 
-            def simple_p(q=q, kp=kp, vp=vp, bt=bt, lengths=lengths):
-                return pops.paged_decode_simple_bf16(q, kp, vp, bt, lengths)
+            def simple_p(q=q, kp=kp, vp=vp, bt=bt, lengths=lengths,
+                         starts=starts):
+                return pops.paged_decode_simple_bf16(q, kp, vp, bt, lengths,
+                                                     starts)
 
         def gather_sdpa(q=q, kp=kp, vp=vp, bt=bt, mask=mask, kvh=kvh, d=d):
             idx = bt.long()
@@ -1073,16 +1138,18 @@ def phase_attention_kernels(env: dict, gen: torch.Generator) -> dict:
         gather_ms = cuda_ms(gather_sdpa, flush=flush)
         log(f"[kernel] paged_decode {tag} two-call reference (page gather + "
             f"SDPA, not one library call) {_dt(dtype)}: {gather_ms:.4f} ms")
-        pages_read = int(((lengths + PAGE - 1) // PAGE).sum())
+        first_page = 0 if starts is None else starts // PAGE
+        pages_read = int(((lengths + PAGE - 1) // PAGE - first_page).sum())
         results[("paged_decode", tag, dtype)] = measure(
             "paged_decode",
             f"{tag} B={b} ps={PAGE} MAXP={maxp} H={h}/{kvh} D={d} "
             f"({n_valid} positions attended; equal to decode_attention)",
             dtype, err_p,
-            lambda q=q, kp=kp, vp=vp, bt=bt, lengths=lengths:
-                pops.paged_decode_attention(q, kp, vp, bt, lengths),
-            lambda q=q, kp=kp, vp=vp, bt=bt, lengths=lengths:
-                paged_decode_attention_ref(q, kp, vp, bt, lengths), None,
+            lambda q=q, kp=kp, vp=vp, bt=bt, lengths=lengths, starts=starts:
+                pops.paged_decode_attention(q, kp, vp, bt, lengths, starts),
+            lambda q=q, kp=kp, vp=vp, bt=bt, lengths=lengths, starts=starts:
+                paged_decode_attention_ref(q, kp, vp, bt, lengths, starts),
+            None,
             "none", 4.0 * h * d * n_valid,
             size * (2 * n_valid * kvh * d + 2 * b * h * d)
             + 4 * (pages_read + b), path=path, simple_fn=simple_p)
@@ -1193,7 +1260,8 @@ def _cast(tree, dtype):
 
 
 def serve_both(make_engine, specs: list[dict], dtype,
-               modes: tuple[bool, ...] = (False, True)) -> dict:
+               modes: tuple[bool, ...] = (False, True),
+               tag: str = "serve") -> dict:
     """Drive the trace through a dense and (unless ``modes`` leaves it out)
     a paged engine; check that every request completed with no fallback,
     that preemption (and, paged, page resume) happened."""
@@ -1209,7 +1277,7 @@ def serve_both(make_engine, specs: list[dict], dtype,
         stats = {k: v for k, v in eng.fault_stats.items()
                  if v and k != "by_tenant"}
         label = "paged" if paged else "dense"
-        log(f"[serve] {_dt(dtype)} {label}: {eng.tick} ticks, "
+        log(f"[{tag}] {_dt(dtype)} {label}: {eng.tick} ticks, "
             f"{ {s: states.count(s) for s in sorted(set(states))} }, "
             f"{tokens} output tokens in {wall:.3f} s = "
             f"{tokens / wall:.1f} tokens/s; fault_stats {stats}; launches "
@@ -1373,13 +1441,15 @@ def check_flash_wgmma_only(tag: str) -> None:
                              f"off the wgmma route: {routes}")
 
 
-def check_decode_mma_only(tag: str) -> None:
-    """A bf16 serving run's decode_attention and paged_decode launches since
-    the last reset_launches() all took the mma route."""
+def check_decode_mma_only(tag: str, paged: bool = True) -> None:
+    """A bf16 serving run's decode_attention and (with ``paged``)
+    paged_decode launches since the last reset_launches() all took the mma
+    route."""
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.paged_decode import ops as pops
-    routes = {"decode_attention": dict(dops.launches_by_route),
-              "paged_decode": dict(pops.launches_by_route)}
+    routes = {"decode_attention": dict(dops.launches_by_route)}
+    if paged:
+        routes["paged_decode"] = dict(pops.launches_by_route)
     log(f"[{tag}] decode launches over the bf16 serving runs, by route "
         f"{routes}")
     if any(n for by in routes.values() for r, n in by.items() if r != "mma") \
@@ -1623,6 +1693,7 @@ def teacher_forced(cfg, model, plain, params, specs, seed: int,
                                                 init_paged_decode_caches)
     from repro_torch.serving.engine import _leaves
     maxp = MAX_LEN // PAGE
+    cache_len = MAX_LEN + cfg.meta_tokens
     lens = torch.tensor([len(s["prompt"]) for s in specs], device="cuda")
     forced = torch.randint(1, cfg.vocab_size, (steps, SLOTS),
                            generator=torch.Generator(device="cuda")
@@ -1632,10 +1703,11 @@ def teacher_forced(cfg, model, plain, params, specs, seed: int,
     bt = bt.to(torch.int32).cuda()
 
     def prefilled(m):
-        caches = init_decode_caches(cfg, SLOTS, MAX_LEN, device="cuda")
+        caches = init_decode_caches(cfg, SLOTS, cache_len, device="cuda")
         for i, s in enumerate(specs):
             tokens = torch.tensor([s["prompt"]], device="cuda")
-            _, cache = m.prefill(params, {"tokens": tokens}, cache_len=MAX_LEN)
+            _, cache = m.prefill(params, {"tokens": tokens},
+                                 cache_len=cache_len)
             for big, small in zip(_leaves(caches), _leaves(cache)):
                 big[:, i].copy_(small[:, 0])
         return caches
@@ -2708,16 +2780,23 @@ def phase_deepseek(env: dict, gen: torch.Generator, seed: int) -> dict:
 # 10. RWKV6-1.6B: op graph and serving at full width and depth
 # =============================================================================
 
-def rwkv_graph(cfg, params, seed: int) -> dict:
+def op_graph_path(tag: str, cfg, params, seed: int, salt: int,
+                  kernels: tuple[str, ...] = ("branch_gemm",),
+                  check=None) -> dict:
+    """An arch's prefill op graph (batch 1, seq 512) through
+    Session.compile (measured calibration, autotune) into one CUDA graph
+    on the plan's lanes: 3 requests, launch counts of ``kernels`` from 0,
+    every GEMM launch on the wgmma route, ``check(graph, recorded)`` (the
+    arch's own gates), each request held against eager per-op execution,
+    per-forward times, and :func:`compare_one_stream`."""
     from repro_torch.core import Session, SessionConfig, SimConfig
     from repro_torch.core.capture import run_sequential_uncompiled
     from repro_torch.models.opgraph_export import build_lm_opgraph
 
     graph = build_lm_opgraph(cfg, batch=BATCH, seq=SEQ, params=params)
-    n_scan = sum(n.name.endswith(".wkv_scan") for n in graph)
 
     def tokens(i):
-        g = torch.Generator(device="cuda").manual_seed(seed * 1000 + 700 + i)
+        g = torch.Generator(device="cuda").manual_seed(seed * 1000 + salt + i)
         return torch.randint(0, cfg.vocab_size, (BATCH, SEQ), generator=g,
                              device="cuda")
 
@@ -2732,24 +2811,28 @@ def rwkv_graph(cfg, params, seed: int) -> dict:
     compile_s = time.perf_counter() - t0
     exe = model.executable
     outputs = []
+    t0 = time.perf_counter()
     for i in range(3):
         inputs = {"tokens": tokens(100 + i)}
         outputs.append((inputs, model(inputs)))
+        if i == 0:
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
     torch.cuda.synchronize()
-    launches = read_launches("branch_gemm", "rwkv6")
+    launches = read_launches(*kernels)
     routes = gemm_routes()
     # -- end of the path's run ---------------------------------------------------
     recorded = exe.replay.recorded_launches
-    log(f"[rwkv] op graph: {len(graph)} ops, {n_scan} wkv_scan nodes; "
-        f"compile {compile_s:.2f} s; program_stats "
+    stages = {k: round(v, 3) for k, v in model.explain()["stages_ms"].items()}
+    log(f"[{tag}] op graph: {len(graph)} ops; compile {compile_s:.2f} s, "
+        f"stages_ms {json.dumps(stages)}; first request (warm-up + record + "
+        f"replay) {first_s:.3f} s; program_stats "
         f"{json.dumps(exe.program_stats())}; launches in the graph (one "
         f"forward) {recorded}; wrapper launches over the run {launches}, by "
         f"route {routes}")
-    check_wgmma_only("rwkv", routes)
-    check_rwkv_chunked_only("rwkv")
-    if recorded["rwkv6"] != n_scan:
-        raise AssertionError(f"{recorded['rwkv6']} rwkv6 launches recorded "
-                             f"for {n_scan} wkv_scan nodes")
+    check_wgmma_only(tag, routes)
+    if check is not None:
+        check(graph, recorded)
     for i, (inputs, outs) in enumerate(outputs):
         ref = run_sequential_uncompiled(graph, inputs, exe.output_ids)
         got, want = outs[-1].float(), ref[-1].float()
@@ -2757,58 +2840,86 @@ def rwkv_graph(cfg, params, seed: int) -> dict:
                 not bool(torch.isfinite(got).all()):
             raise AssertionError(f"bad logits {tuple(got.shape)}")
         rel, agree = _agreement(got, want)
-        log(f"[rwkv] request {i}: logits rel_l2 {rel:.3e} (<= "
+        log(f"[{tag}] request {i}: logits rel_l2 {rel:.3e} (<= "
             f"{LOGITS_REL_L2}) top1 agreement {agree:.4f} (>= {TOP1_AGREE})")
         if rel > LOGITS_REL_L2 or agree < TOP1_AGREE:
-            raise AssertionError(f"rwkv request {i} disagrees with eager "
+            raise AssertionError(f"{tag} request {i} disagrees with eager "
                                  "per-op execution")
+    if torch.equal(outputs[0][1][-1], outputs[1][1][-1]):
+        raise AssertionError(f"{tag}: two requests gave identical logits")
     inputs = outputs[0][0]
     replay_ms = cuda_ms(lambda: model(inputs))
     walk_ms = cuda_ms(lambda: exe.call_uncompiled(inputs), iters=5)
-    log(f"[rwkv] per-forward ms: eager step walk {walk_ms:.3f}, CUDA-graph "
+    log(f"[{tag}] per-forward ms: eager step walk {walk_ms:.3f}, CUDA-graph "
         f"replay {replay_ms:.3f}")
-    compare_one_stream("rwkv", exe, outputs)
-    return {"launches": launches, "recorded": recorded}
+    lanes = compare_one_stream(tag, exe, outputs)
+    return {"launches": launches, "recorded": recorded, "graph": graph,
+            "lanes": lanes}
 
 
-def rwkv_block_gate(cfg, params, prompt: list[int], failures: list) -> None:
-    """Every RWKV block, kernel route vs plain route on identical inputs
-    (the plain route's hidden states and states): its update of the
-    residual stream over the prompt, and over one decode step from the
-    prompt's state.  Relative L2 <= 2e-2 in the worst block."""
-    from repro_torch.models.layers import embed
-    from repro_torch.models.transformer import (block_seq, block_step,
-                                                layer_params)
+def rwkv_graph(cfg, params, seed: int) -> dict:
+    """The RWKV op graph: each wkv_scan node launches rwkv6 on the chunked
+    route."""
+    def check(graph, recorded):
+        n_scan = sum(n.name.endswith(".wkv_scan") for n in graph)
+        check_rwkv_chunked_only("rwkv")
+        if recorded["rwkv6"] != n_scan:
+            raise AssertionError(f"{recorded['rwkv6']} rwkv6 launches "
+                                 f"recorded for {n_scan} wkv_scan nodes")
+
+    return op_graph_path("rwkv", cfg, params, seed, 700,
+                         ("branch_gemm", "rwkv6"), check)
+
+
+def block_gate(tag: str, cfg, params, prompt: list[int],
+               failures: list) -> None:
+    """Every block of a one-stack model (dense, RWKV or hybrid), kernel
+    route vs plain route on identical inputs (the plain route's hidden
+    states and caches): its update of the residual stream over the prompt (with its
+    meta tokens), and over one decode step after it.  Relative L2 <= 2e-2
+    in the worst block."""
+    from repro_torch.models.transformer import (_embed_inputs, block_seq,
+                                                block_step, layer_params,
+                                                stack_meta)
+
+    def longer(kv):
+        return tuple(torch.nn.functional.pad(t, (0, 0, 0, 0, 0, 1))
+                     for t in kv)
+
     tokens = torch.tensor([prompt], device="cuda")
-    x = embed(params["embed"], tokens)
+    x = _embed_inputs(params, tokens, cfg)
     positions = torch.arange(x.shape[1], device="cuda")[None]
     pos = torch.tensor([x.shape[1]], dtype=torch.int32, device="cuda")
     worst_seq = worst_step = 0.0
-    stack = params["stacks"][0]
-    for li in range(cfg.n_layers):
-        p = layer_params(stack, li)
-        xk, _ = block_seq(p, x, cfg, positions, None, True, "rwkv")
-        xp, state = block_seq(p, x, cfg, positions, None, False, "rwkv")
+    (kind, n, windows), = stack_meta(cfg)
+    for li in range(n):
+        p = layer_params(params["stacks"][0], li)
+        window = windows[li] or None
+        xk, _ = block_seq(p, x, cfg, positions, window, True, kind)
+        xp, cache = block_seq(p, x, cfg, positions, window, False, kind)
         worst_seq = max(worst_seq, _agreement(xk - x, xp - x)[0])
         step_in = xp[:, -1:]
         outs = []
         for route in (True, False):
-            cache = {k: v.clone() for k, v in state.items()}
-            outs.append(block_step(p, step_in, cache, pos, cfg, None, route,
-                                   "rwkv")[0] - step_in)
+            # a fresh copy of the state; a KV slab one position longer
+            step_cache = (longer(cache) if isinstance(cache, tuple) else
+                          {k: longer(v) if k == "kv" else v.clone()
+                           for k, v in cache.items()})
+            outs.append(block_step(p, step_in, step_cache, pos, cfg, window,
+                                   route, kind)[0] - step_in)
         worst_step = max(worst_step, _agreement(*outs)[0])
         x = xp
-    log(f"[rwkv] {_dt(cfg.dtype)} blocks on identical inputs, kernel route "
-        f"vs plain route, {len(prompt)}-token prompt: worst block update "
-        f"rel_l2 {worst_seq:.3e} over the prompt, {worst_step:.3e} over a "
-        f"decode step (<= {LOGITS_REL_L2})")
+    log(f"[{tag}] {_dt(cfg.dtype)} blocks on identical inputs, kernel route "
+        f"vs plain route, {len(prompt)}-token prompt ({x.shape[1]} "
+        f"positions): worst block update rel_l2 {worst_seq:.3e} over the "
+        f"prompt, {worst_step:.3e} over a decode step (<= {LOGITS_REL_L2})")
     if max(worst_seq, worst_step) > LOGITS_REL_L2:
-        failures.append(f"rwkv blocks on identical inputs: rel_l2 "
+        failures.append(f"{tag} blocks on identical inputs: rel_l2 "
                         f"{worst_seq:.3e} / {worst_step:.3e}")
 
 
-def rwkv_forward_gate(cfg, params, cfg32, params32, prompt: list[int],
-                      failures: list) -> None:
+def forward_gate(tag: str, cfg, params, cfg32, params32, prompt: list[int],
+                 failures: list) -> None:
     """Whole model in bf16: the kernel route's distance from the fp32 plain
     route must not exceed the bf16 plain route's own distance from it by
     more than a quarter (nor 2e-2, if that is larger); the two bf16 routes'
@@ -2822,13 +2933,13 @@ def rwkv_forward_gate(cfg, params, cfg32, params32, prompt: list[int],
     rel_p, agree_p = _agreement(want, truth)
     rel, agree = _agreement(got, want)
     limit = max(LOGITS_REL_L2, 1.25 * rel_p)
-    log(f"[rwkv] bf16 lm_forward, {tokens.shape[1]} positions, against the "
+    log(f"[{tag}] bf16 lm_forward, {got.shape[1]} positions, against the "
         f"fp32 plain route: kernel route rel_l2 {rel_k:.3e} top1 "
         f"{agree_k:.4f} (<= {limit:.3e}), plain route rel_l2 {rel_p:.3e} "
         f"top1 {agree_p:.4f}; kernel vs plain route rel_l2 {rel:.3e} top1 "
         f"{agree:.4f} (reported)")
     if not bool(torch.isfinite(got).all()) or rel_k > limit:
-        failures.append(f"rwkv bf16 kernel route: rel_l2 {rel_k:.3e} from "
+        failures.append(f"{tag} bf16 kernel route: rel_l2 {rel_k:.3e} from "
                         f"fp32 > {limit:.3e}")
 
 
@@ -2888,9 +2999,10 @@ def phase_rwkv(seed: int) -> dict:
     # bf16: each block on identical inputs, then the whole model against
     # the fp32 plain route beside the bf16 plain route
     for s in prompts:
-        rwkv_block_gate(cfg, params, s["prompt"], failures)
+        block_gate("rwkv", cfg, params, s["prompt"], failures)
     for s in prompts:
-        rwkv_forward_gate(cfg, params, cfg32, params32, s["prompt"], failures)
+        forward_gate("rwkv", cfg, params, cfg32, params32, s["prompt"],
+                     failures)
     del params32
     tick = _decode_tick("dense", engine(cfg, params)(False), specs, "rwkv")
     # the longest prompt's prefill: every rwkv6 launch on the chunked route
@@ -2909,6 +3021,244 @@ def phase_rwkv(seed: int) -> dict:
     if failures:
         raise AssertionError("; ".join(failures))
     return {"launches": launches, "graph": graph, "tick": tick}
+
+
+# =============================================================================
+# 11. llama3.2-1b, minicpm-2b and glm4-9b; 12. hymba-1.5b
+# =============================================================================
+
+DENSE_ARCHS = ("llama3.2-1b", "minicpm-2b", "glm4-9b")
+FP32_ARCHS = ("llama3.2-1b",)   # the fp32 serve run
+# 40 layers: bf16 rounding noise alone moves the whole model's logits past
+# 2e-2 (MiniCPM-2B's two bf16 routes differ by 2.1e-2), so the bf16 routes
+# are held block by block and against the fp32 plain route, as RWKV's are
+BLOCK_GATED = ("minicpm-2b", "glm4-9b")
+
+
+def _init_full(tag: str, name: str, seed: int):
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    cfg = get_config(name)
+    t0 = time.perf_counter()
+    params = Model(cfg).init(torch.Generator(device="cuda").manual_seed(seed),
+                             "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _param_leaves(params))
+    log(f"[{tag}] {cfg.name}: {cfg.n_layers} layers d={cfg.d_model} heads="
+        f"{cfg.n_heads}/{cfg.n_kv_heads} head_dim={cfg.head_dim} d_ff="
+        f"{cfg.d_ff} vocab={cfg.vocab_size} {_dt(cfg.dtype)}"
+        + (f" window={cfg.window} global={cfg.global_layers} meta="
+           f"{cfg.meta_tokens} ssm N={cfg.ssm.state_dim} expand="
+           f"{cfg.ssm.expand}" if cfg.family == "hybrid" else "")
+        + f": {n_params / 1e9:.3f} B params, init "
+        f"{time.perf_counter() - t0:.2f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+    return cfg, params
+
+
+def serve_arch(tag: str, cfg, params, seed: int, specs: list[dict],
+               paged: bool, fp32_serve: bool, prompts: list[dict],
+               bf16_blocks: bool = False) -> dict:
+    """Phase 6's serve trace on ``cfg`` at full width: dense (and, with
+    ``paged``, paged) engines in bf16 with every flash_attention launch on
+    wgmma and every decode launch on mma, paged against dense up to a
+    resume; the kernel route against the plain route (``lm_forward`` on
+    ``prompts`` and 32 teacher-forced decode steps: relative L2 in bf16;
+    with fp32 weights also top-1 in fp32); with ``fp32_serve`` an fp32
+    serve run whose paged and dense streams must be equal; decode ticks
+    graph vs eager; prefill times by length.  With ``bf16_blocks`` (a
+    model whose bf16 rounding noise alone moves its logits past 2e-2, as
+    RWKV's does) the bf16 routes are held as phase 10 holds them: each
+    block on identical inputs, and the whole model against the fp32 plain
+    route (:func:`forward_gate`)."""
+    from repro_torch.models import Model
+    from repro_torch.models.transformer import lm_forward
+    from repro_torch.serving import AdmissionConfig, InferenceEngine
+    modes = (False, True) if paged else (False,)
+
+    def engine(c, p):
+        return lambda paged_: InferenceEngine(
+            Model(c, use_kernels=True), p, max_slots=SLOTS, max_len=MAX_LEN,
+            seed=seed, admission=AdmissionConfig(policy="edf",
+                                                 preemption=True,
+                                                 expire_running=False),
+            paged_kv=paged_, page_size=PAGE,
+            num_pages=1 + 2 * SLOTS * (MAX_LEN // PAGE) if paged_ else None)
+
+    # -- the serving path's run: launch counts from 0 ---------------------------
+    reset_launches()
+    runs = serve_both(engine(cfg, params), specs, cfg.dtype, modes, tag)
+    names = ("rmsnorm", "flash_attention", "decode_attention") + (
+        ("paged_decode",) if paged else ())
+    launches = read_launches(*names)
+    check_flash_wgmma_only(tag)
+    check_decode_mma_only(tag, paged)
+    # -- end of the serving path's run ------------------------------------------
+    log(f"[{tag}] wrapper launches over the bf16 serving runs {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"the {cfg.name} serve path launched no "
+                                 f"{name}")
+    if paged:
+        compare_streams(runs, exact=False)
+    del runs
+    failures: list[str] = []
+    model, plain = Model(cfg, use_kernels=True), Model(cfg, use_kernels=False)
+    for s in prompts:
+        if bf16_blocks:
+            block_gate(tag, cfg, params, s["prompt"], failures)
+            continue
+        tokens = torch.tensor([s["prompt"]], device="cuda")
+        got, _ = lm_forward(params, tokens, cfg, True, with_cache=False)
+        want, _ = lm_forward(params, tokens, cfg, False, with_cache=False)
+        if not bool(torch.isfinite(got).all()) or got.shape != (
+                1, tokens.shape[1] + cfg.meta_tokens, cfg.vocab_size):
+            raise AssertionError(f"bad logits {tuple(got.shape)}")
+        _check_agreement(f"{cfg.name} bfloat16 lm_forward logits, all "
+                         f"{got.shape[1]} positions", got, want, failures,
+                         gate_top1=False)
+        del got, want
+    if not bf16_blocks:
+        teacher_forced(cfg, model, plain, params, specs[:SLOTS], seed,
+                       failures, gate_top1=False, paged=paged)
+    if fp32_serve or bf16_blocks:
+        free_card()
+        cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+        params32 = _cast(params, torch.float32)
+    if fp32_serve:
+        runs = serve_both(engine(cfg32, params32), specs, torch.float32,
+                          modes, tag)
+        if paged:
+            compare_streams(runs, exact=True)
+        del runs
+    if fp32_serve or bf16_blocks:
+        for s in prompts:
+            if bf16_blocks:
+                forward_gate(tag, cfg, params, cfg32, params32, s["prompt"],
+                             failures)
+            tokens = torch.tensor([s["prompt"]], device="cuda")
+            got, _ = lm_forward(params32, tokens, cfg32, True,
+                                with_cache=False)
+            want, _ = lm_forward(params32, tokens, cfg32, False,
+                                 with_cache=False)
+            _check_agreement(f"{cfg.name} float32 lm_forward logits, all "
+                             f"{got.shape[1]} positions", got, want, failures)
+            del got, want
+        teacher_forced(cfg32, Model(cfg32, use_kernels=True),
+                       Model(cfg32, use_kernels=False), params32,
+                       specs[:SLOTS], seed, failures, gate_top1=True,
+                       paged=paged)
+        del params32
+        free_card()
+    ticks = {}
+    for p in modes:
+        label = "paged" if p else "dense"
+        ticks[label] = _decode_tick(label, engine(cfg, params)(p), specs, tag)
+        free_card()
+    by_len = sorted(specs, key=lambda s: len(s["prompt"]))
+    prefill_ms = {}
+    for s in (by_len[0], by_len[len(by_len) // 2], by_len[-1]):
+        tokens = torch.tensor([s["prompt"]], device="cuda")
+        prefill_ms[tokens.shape[1]] = cuda_ms(
+            lambda: model.prefill(params, {"tokens": tokens},
+                                  cache_len=MAX_LEN + cfg.meta_tokens),
+            iters=5)
+        log(f"[{tag}] prefill {tokens.shape[1]} tokens (+ {cfg.meta_tokens} "
+            f"meta; batch 1, eager, kernel route, median of 5): "
+            f"{prefill_ms[tokens.shape[1]]:.3f} ms")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return {"launches": launches, "ticks": ticks, "prefill_ms": prefill_ms}
+
+
+def phase_dense_archs(seed: int) -> dict:
+    """Llama-3.2-1B, MiniCPM-2B and GLM-4-9B at full width and depth, bf16,
+    one after another: the op graph on its lanes (phase 3's gates), then
+    the serve trace dense and paged (phase 6's gates; fp32 for Llama)."""
+    out = {}
+    for name in DENSE_ARCHS:
+        tag = name.split("-")[0].replace(".", "")
+        cfg, params = _init_full(tag, name, seed)
+        graph = op_graph_path(tag, cfg, params, seed, 800)
+        specs = serve_specs(cfg.vocab_size, seed)
+        by_len = sorted(specs, key=lambda s: len(s["prompt"]))
+        serve = serve_arch(tag, cfg, params, seed, specs, paged=True,
+                           fp32_serve=name in FP32_ARCHS,
+                           prompts=[by_len[0], by_len[len(by_len) // 2],
+                                    by_len[-1]],
+                           bf16_blocks=name in BLOCK_GATED)
+        out[name] = {"graph": graph["launches"], "serve": serve["launches"]}
+        del params, graph, serve
+        free_card()
+    return out
+
+
+def mamba_scan_share(tag: str, cfg, graph, replay_ms: float) -> None:
+    """The Mamba scan's share of one op-graph replay (one layer's scan
+    payload recorded alone into a CUDA graph, times the layers, over the
+    lane graph's replay) and of an eager prefill (the scan alone at the
+    prefill's length, times the layers, reported beside the prefills)."""
+    from repro_torch.core.capture import CudaGraphReplay
+    node = next(n for n in graph if n.name.endswith(".mamba_scan"))
+    consts = node.meta["consts"]
+    di, n = consts[0].shape
+    g = torch.Generator(device="cuda").manual_seed(5)
+    packed = (torch.randn((BATCH, SEQ, 2 * di + 2 * n + 1), generator=g,
+                          device="cuda")).to(cfg.dtype)
+    rep = CudaGraphReplay(lambda x: [node.fn(x, *consts)], [packed])
+    nodes, _ = rep.kernel_dag()
+    scan_ms = cuda_ms(rep.graph.replay)
+    share = cfg.n_layers * scan_ms / replay_ms
+    log(f"[{tag}] Mamba scan (one layer, seq {SEQ}, recorded alone: {nodes} "
+        f"kernel nodes) {scan_ms:.3f} ms; x {cfg.n_layers} layers = "
+        f"{cfg.n_layers * scan_ms:.3f} ms, {share:.3f} of the lane graph's "
+        f"replay ({replay_ms:.3f} ms)")
+
+
+def phase_hymba(seed: int) -> dict:
+    """Hymba-1.5B at full width and depth: the op graph at seq 512 on its
+    lanes beside its one-stream recording, the Mamba scan's share; the serve
+    trace on the dense slab (bf16, fp32) plus one request whose 980-token
+    prompt and 128 meta tokens cross the 1024-position window, whose
+    windowed prefill and decode steps are held against the plain route."""
+    from repro_torch.models.ssm import mamba_scan
+    tag = "hymba"
+    cfg, params = _init_full(tag, "hymba-1.5b", seed)
+    if (cfg.window, cfg.meta_tokens) != (HYMBA_WINDOW, HYMBA_META):
+        raise AssertionError("hymba's window or meta tokens moved")
+    graph = op_graph_path(tag, cfg, params, seed, 900)
+    mamba_scan_share(tag, cfg, graph["graph"], graph["lanes"]["lanes_graph"])
+    specs = serve_specs(cfg.vocab_size, seed)
+    rng = np.random.default_rng(seed + 980)
+    long_req = dict(rid=len(specs), arrival=0, priority=0, ttl=None,
+                    prompt=rng.integers(1, cfg.vocab_size,
+                                        LONG_PROMPT).tolist())
+    if LONG_PROMPT + cfg.meta_tokens <= cfg.window:
+        raise AssertionError("the long request does not cross the window")
+    by_len = sorted(specs, key=lambda s: len(s["prompt"]))
+    # teacher-forced decode runs the first 8 specs: the long request is one
+    trace = [long_req] + specs
+    serve = serve_arch(tag, cfg, params, seed, trace, paged=False,
+                       fp32_serve=True,
+                       prompts=[by_len[0], by_len[-1], long_req],
+                       bf16_blocks=True)
+    # the scan's share of an eager prefill, at the prefills' lengths
+    di, n = cfg.ssm.expand * cfg.d_model, cfg.ssm.state_dim
+    a = -torch.exp(params["stacks"][0]["mamba"]["a_log"][0])
+    for n_tok, prefill_ms in serve["prefill_ms"].items():
+        t = n_tok + cfg.meta_tokens
+        g = torch.Generator(device="cuda").manual_seed(t)
+        args = (torch.rand((1, t, 1), generator=g, device="cuda") + 1e-4,
+                torch.randn((1, t, di), generator=g, device="cuda"),
+                torch.randn((1, t, n), generator=g, device="cuda"),
+                torch.randn((1, t, n), generator=g, device="cuda"), a,
+                torch.zeros((1, di, n), device="cuda"))
+        scan_ms = cuda_ms(lambda: mamba_scan(*args), iters=5)
+        log(f"[{tag}] prefill {n_tok} tokens: the Mamba scan alone (eager, "
+            f"{t} positions) {scan_ms:.3f} ms x {cfg.n_layers} layers = "
+            f"{cfg.n_layers * scan_ms / prefill_ms:.3f} of the prefill's "
+            f"{prefill_ms:.3f} ms")
+    return {"graph": graph["launches"], "serve": serve["launches"]}
 
 
 def main() -> int:
@@ -2939,6 +3289,10 @@ def main() -> int:
     deepseek = phase_deepseek(env, gen, args.seed)
     free_card()
     rwkv = phase_rwkv(args.seed)
+    free_card()
+    dense = phase_dense_archs(args.seed)
+    free_card()
+    hymba = phase_hymba(args.seed)
 
     for path, launches in (("main", main_path["launches"]["branch_gemm"]),
                            ("ragged", ragged["launches"]["grouped_gemm"]),
@@ -2948,7 +3302,10 @@ def main() -> int:
                             deepseek["graph"]["launches"]["branch_gemm"]),
                            ("deepseek graph (grouped_gemm)",
                             deepseek["graph"]["launches"]["grouped_gemm"]),
-                           ("rwkv graph", rwkv["graph"]["launches"]["rwkv6"])):
+                           ("rwkv graph", rwkv["graph"]["launches"]["rwkv6"]),
+                           *((f"{name} graph", d["graph"]["branch_gemm"])
+                             for name, d in dense.items()),
+                           ("hymba graph", hymba["graph"]["branch_gemm"])):
         if launches <= 0:
             raise AssertionError(f"the {path} path launched no kernel")
     bf16 = torch.bfloat16

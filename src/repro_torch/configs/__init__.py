@@ -28,13 +28,14 @@ _ARCH_MODULES = {
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
     "deepseek-v3-671b": "deepseek_v3_671b",
     "rwkv6-1.6b": "rwkv6_1_6b",
+    "llama3.2-1b": "llama3_2_1b",
+    "minicpm-2b": "minicpm_2b",
+    "glm4-9b": "glm4_9b",
+    "hymba-1.5b": "hymba_1_5b",
 }
 
-# registered in the JAX package, not ported yet (ROADMAP queue A6)
-_NOT_PORTED = (
-    "whisper-medium", "glm4-9b", "llama3.2-1b",
-    "minicpm-2b", "hymba-1.5b", "llava-next-mistral-7b",
-)
+# registered in the JAX package, not ported yet (ROADMAP queue A6/A7)
+_NOT_PORTED = ("whisper-medium", "llava-next-mistral-7b")
 
 
 def list_archs() -> list[str]:

@@ -63,6 +63,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import gc
 from typing import Any, Callable, Mapping, Sequence
 
 import torch
@@ -249,8 +250,17 @@ class CudaGraphReplay:
         torch.cuda.current_stream(device).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         before = _launch_counts()
-        with torch.cuda.graph(self.graph):
-            self.static_outputs = walk(*self.static_inputs)
+        # Python's collector must not run inside the capture: freeing a dead
+        # graph (an engine dropped in a reference cycle) while a stream is
+        # capturing invalidates the capture
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph):
+                self.static_outputs = walk(*self.static_inputs)
+        finally:
+            if collecting:
+                gc.enable()
         after = _launch_counts()
         pool = tuple(self.graph.pool())
         self.pool_bytes = sum(

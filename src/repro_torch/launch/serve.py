@@ -1,12 +1,14 @@
 """End-to-end serving run (continuous batching on a smoke model).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \
-        --requests 8 --max-tokens 16 [--arch kimi-k2-1t-a32b|rwkv6-1.6b]
+        --requests 8 --max-tokens 16 [--arch hymba-1.5b]
 
 The JAX package's ``launch/serve.py`` with the same options, plus
 ``--device`` (default ``cuda``; ``cpu`` runs the kernels' plain versions).
 ``--arch`` takes any registered architecture (its smoke config): qwen2-0.5b,
-kimi-k2-1t-a32b (MoE) or rwkv6-1.6b (recurrent state, dense slab).
+llama3.2-1b, minicpm-2b, glm4-9b, kimi-k2-1t-a32b (MoE), deepseek-v3-671b
+(MLA), rwkv6-1.6b (recurrent state, dense slab) or hymba-1.5b (attention
+beside a Mamba head, meta tokens, dense slab).
 The model runs its kernel route (``use_kernels=True``).  Multi-tenant
 overload mode: ``--tenants N`` spreads the requests over N tenants, each
 with its own isolated :class:`repro_torch.core.Session`, and ``--overload``

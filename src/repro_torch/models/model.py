@@ -6,16 +6,17 @@
     init_paged_caches / paged_decode     → the paged-KV decode step
 
 as the JAX package's ``models/model.py`` does for the decoder LM (dense,
-MoE and RWKV-6 stacks, GQA or MLA attention; RWKV keeps recurrent state
-instead of KV, MLA a compressed latent cache).  The
+MoE, hybrid and RWKV-6 stacks, GQA or MLA attention; RWKV keeps recurrent
+state instead of KV, a hybrid (Hymba) stack KV beside its Mamba state, MLA
+a compressed latent cache).  The
 tensors' device is the device: params, inputs and caches stay where the
 caller put them, and nothing moves to the CPU on its own.  Decode writes
 the caches in place (what a CUDA graph of the step needs) and returns them.
 
 Not ported: ``loss`` (training, ROADMAP A9) and the dry-run helpers
 ``input_specs``, ``decode_state_specs`` and ``init_shapes`` (ROADMAP A10);
-they raise.  Encoder-decoder, hybrid and multimodal models raise in the
-transformer (ROADMAP A6).
+they raise.  Encoder-decoder and multimodal models raise in the
+transformer (ROADMAP A6/A7).
 """
 from __future__ import annotations
 
@@ -42,7 +43,7 @@ class Model:
                 cache_len: int | None = None):
         if "extra_embeds" in inputs:
             raise NotImplementedError("multimodal prefill is not ported yet "
-                                      "(ROADMAP A6)")
+                                      "(ROADMAP A6/A7)")
         return tf.lm_prefill(params, inputs["tokens"], self.cfg, cache_len,
                              self.use_kernels)
 

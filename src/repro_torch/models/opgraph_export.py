@@ -14,7 +14,11 @@ unequal capacities → gate∥up and down GEMM waves that stack into
 ``grouped_gemm`` → weighted combine, plus the shared expert) when params are
 threaded, else the uniform cost-only form.  An RWKV layer is the five
 token-shift mixes, the r/k/v/g and decay projections, the WKV scan (the
-``rwkv6`` kernel on the card), group-norm, gate and the channel mix.
+``rwkv6`` kernel on the card), group-norm, gate and the channel mix.  A
+hybrid (Hymba) layer runs the attention stages (with the layer's window as
+a mask) in parallel with the Mamba branch — in_proj, the causal conv, the
+B/C/Δ projection, the selective scan — and averages the two heads; like
+the reference's, the graph has no node for the meta tokens (ROADMAP C13).
 
 Payload functions close over concrete tensors when ``params`` is given (on
 whatever device those tensors live: the CUDA card unless the caller built
@@ -33,8 +37,8 @@ RoPE on the shared rope key), the same decomposed attention stages with one
 latent KV head (Dk = rank + rope, Dv = rank), then the per-head ``wv_b``
 up-projection and ``wo``.
 
-Hybrid and encoder-decoder exports are not ported yet (ROADMAP A6) and
-raise ``NotImplementedError``.
+The encoder-decoder export is not ported yet (ROADMAP A6/A7) and raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -56,7 +60,7 @@ from ..core.profiler import (
 from .attention import NEG_INF, causal_window_mask, value_up
 from .export_costs import act_gemm_cost, stream_cost
 from .layers import apply_norm, apply_rope, rmsnorm
-from .ssm import RWKV_LORA
+from .ssm import RWKV_LORA, _mamba_conv_seq, mamba_scan
 from .transformer import layer_params, stack_meta
 
 
@@ -70,7 +74,8 @@ def _w(params, *path):
 
 
 def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} export is not ported yet (ROADMAP A6)")
+    return NotImplementedError(f"{what} export is not ported yet "
+                               "(ROADMAP A6/A7)")
 
 
 def build_lm_opgraph(cfg: ModelConfig, batch: int, seq: int,
@@ -120,15 +125,16 @@ def build_lm_opgraph(cfg: ModelConfig, batch: int, seq: int,
                   if params is not None else None)
             if kind == "rwkv":
                 x = _rwkv_layer(g, cfg, x, b, s, tag, pl, root)
+            elif kind == "hybrid":
+                x = _hybrid_layer(g, cfg, x, b, s, tag, pl,
+                                  windows[li] or None, root)
             elif kind == "moe":
                 x = _dense_layer(g, cfg, x, b, s, tag, pl, root, moe=True,
                                  moe_branch_cap=moe_branch_cap,
                                  moe_dispatch=moe_dispatch,
                                  moe_cap_scale=moe_cap_scale)
-            elif kind in ("dense", "dense_prefix"):
-                x = _dense_layer(g, cfg, x, b, s, tag, pl, root, moe=False)
             else:
-                raise _not_ported(f"{kind!r} layer")
+                x = _dense_layer(g, cfg, x, b, s, tag, pl, root, moe=False)
             layer_idx += 1
     x = _norm_node(g, "final_norm", x, _w(params, "final_norm"), cfg.norm,
                    b * s * d)
@@ -785,6 +791,115 @@ def _rwkv_layer(g, cfg, x, b, s, tag, pl, root):
     cv = _ffn_gemm(g, f"{tag}.cm_v", act, root, cm and cm["wv"],
                    b * s, dff, d)
     return g.add(f"{tag}.res2", OpKind.ELEMENTWISE, [r1, cv],
+                 fn=_add if with_fn else None,
+                 cost=elementwise_cost(b * s * d, n_in=2))
+
+
+# -- Hymba (parallel attention ∥ mamba) ---------------------------------------
+
+def _mamba_conv_payload(xz, w):
+    """Split in_proj's output, the causal depthwise conv + silu on the x
+    half from the zero prefill conv state, z carried along."""
+    di = xz.shape[-1] // 2
+    xi, z = xz[..., :di], xz[..., di:]
+    y, _ = _mamba_conv_seq(w, xi, xi.new_zeros((xi.shape[0],
+                                                w.shape[0] - 1, di)))
+    return torch.cat([y, z], dim=-1)
+
+
+def _mamba_xproj_payload(xz, w):
+    """B/C/Δ projection of the conved x half; emits [x ‖ z ‖ bcd] so the
+    scan stage needs a single input edge."""
+    di = xz.shape[-1] // 2
+    return torch.cat([xz, xz[..., :di] @ w], dim=-1)
+
+
+def _mamba_scan_payload(packed, a_log, d_skip):
+    """Discretise + selective scan + skip + silu(z) gate, from the zero
+    state (``ssm.mamba_seq``'s tail)."""
+    di, n = a_log.shape
+    xi = packed[..., :di].float()
+    z = packed[..., di:2 * di]
+    bmat, cmat, dt_raw = torch.split(packed[..., 2 * di:].float(),
+                                     [n, n, 1], dim=-1)
+    delta = F.softplus(dt_raw) + 1e-4
+    h0 = torch.zeros((xi.shape[0], di, n), dtype=torch.float32,
+                     device=xi.device)
+    _, ys = mamba_scan(delta, xi, bmat, cmat, -torch.exp(a_log), h0)
+    y = ys + xi * d_skip
+    return y.to(packed.dtype) * F.silu(z)
+
+
+def _head_mix(a, c):
+    return 0.5 * (a + c)
+
+
+def _hybrid_layer(g, cfg, x, b, s, tag, pl, window, root):
+    """Hymba: attention and mamba heads in PARALLEL — the paper's Fig. 3
+    compute∥memory overlap case (attention compute-bound, the SSM scan
+    memory-bound).  The sliding window enters as a mask (costs use the full
+    s×t logits the plain payload materialises).  ``mamba_xproj`` is a GEMM
+    without the ``matmul`` payload marker: its output width (2·N + 1) is
+    the reference's plain matmul inside the payload."""
+    d, hd, nh, kvh = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    ssm = cfg.ssm
+    di = ssm.expand * d
+    with_fn = pl is not None
+    attn_p = pl["attn"] if pl else None
+    mp = pl["mamba"] if pl else None
+    n1 = _norm_node(g, f"{tag}.norm1", x, pl and pl["norm1"], cfg.norm,
+                    b * s * d)
+    q = _gemm_node(g, f"{tag}.wq", n1, attn_p and attn_p["wq"],
+                   b * s, d, nh * hd, cfg.qkv_bias)
+    k = _gemm_node(g, f"{tag}.wk", n1, attn_p and attn_p["wk"],
+                   b * s, d, kvh * hd, cfg.qkv_bias)
+    v = _gemm_node(g, f"{tag}.wv", n1, attn_p and attn_p["wv"],
+                   b * s, d, kvh * hd, cfg.qkv_bias)
+    mrg = _attn_stages(g, f"{tag}.", q, k, v, b, s, s, nh, kvh, hd,
+                       causal=True, window=window, with_fn=with_fn)
+    o = _gemm_node(g, f"{tag}.wo", mrg, attn_p and attn_p["wo"],
+                   b * s, nh * hd, d)
+    # the parallel mamba branch (memory-bound scan against the GEMMs above)
+    inp = _gemm_node(g, f"{tag}.mamba_in", n1, mp and mp["in_proj"],
+                     b * s, d, 2 * di)
+    conv = g.add(f"{tag}.mamba_conv", OpKind.ELEMENTWISE, [inp],
+                 fn=_mamba_conv_payload if with_fn else None,
+                 cost=elementwise_cost(b * s * di, n_in=1, flops_per_elem=8),
+                 fuse_sig=("mconv", s, di),
+                 **({"consts": (mp["conv_w"],)} if with_fn else {}))
+    xproj = g.add(f"{tag}.mamba_xproj", OpKind.GEMM, [conv],
+                  fn=_mamba_xproj_payload if with_fn else None,
+                  cost=gemm_cost(b * s, di, 2 * ssm.state_dim + 1),
+                  fuse_sig=("mxproj", s, di, ssm.state_dim),
+                  **({"consts": (mp["x_proj"]["w"],)} if with_fn else {}))
+    scan = g.add(f"{tag}.mamba_scan", OpKind.SCAN, [xproj],
+                 fn=_mamba_scan_payload if with_fn else None,
+                 cost=scan_cost(b, s, di, ssm.state_dim),
+                 fuse_sig=("mscan", s, di, ssm.state_dim),
+                 **({"consts": (mp["a_log"], mp["d_skip"])}
+                    if with_fn else {}))
+    mo = _gemm_node(g, f"{tag}.mamba_out", scan, mp and mp["out_proj"],
+                    b * s, di, d)
+    mix = g.add(f"{tag}.head_mix", OpKind.ELEMENTWISE, [o, mo],
+                fn=_head_mix if with_fn else None,
+                cost=elementwise_cost(b * s * d, n_in=2))
+    r1 = g.add(f"{tag}.res1", OpKind.ELEMENTWISE, [x, mix],
+               fn=_add if with_fn else None,
+               cost=elementwise_cost(b * s * d, n_in=2))
+    n2 = _norm_node(g, f"{tag}.norm2", r1, pl and pl["norm2"], cfg.norm,
+                    b * s * d)
+    ffn_p = pl["ffn"] if pl else None
+    gate = _ffn_gemm(g, f"{tag}.gate", n2, root, ffn_p and ffn_p["gate"],
+                     b * s, d, cfg.d_ff)
+    up = _ffn_gemm(g, f"{tag}.up", n2, root, ffn_p and ffn_p["up"],
+                   b * s, d, cfg.d_ff)
+    glu = g.add(f"{tag}.glu", OpKind.ELEMENTWISE, [gate, up],
+                fn=_glu if with_fn else None,
+                cost=elementwise_cost(b * s * cfg.d_ff, n_in=2,
+                                      flops_per_elem=5))
+    down = _ffn_gemm(g, f"{tag}.down", glu, root, ffn_p and ffn_p["down"],
+                     b * s, cfg.d_ff, d)
+    return g.add(f"{tag}.res2", OpKind.ELEMENTWISE, [r1, down],
                  fn=_add if with_fn else None,
                  cost=elementwise_cost(b * s * d, n_in=2))
 

@@ -1,10 +1,11 @@
-"""RWKV-6 ("Finch") blocks: the time mix (token-shift projections, the WKV
-recurrence, group-norm and the gate) and the channel mix.
+"""State-space blocks: RWKV-6 ("Finch") and the Mamba-style selective SSM
+head that Hymba runs in parallel with attention.
 
-The RWKV6 half of the JAX package's ``models/ssm.py``.  Each block has a
+The port of the JAX package's ``models/ssm.py``.  Each block has a
 sequence form that processes T tokens from a carried state and returns the
-new state; a decode step is the sequence form at T = 1.  The recurrence, per
-head of size K with the state S [K, K] in fp32:
+new state; a decode step is the sequence form at T = 1.
+
+RWKV-6, per head of size K with the state S [K, K] in fp32:
 
     out_t = r_t · (diag(u)·k_tᵀv_t + S_{t-1})
     S_t   = diag(w_t)·S_{t-1} + k_tᵀv_t          (w_t data-dependent decay)
@@ -12,12 +13,22 @@ head of size K with the state S [K, K] in fp32:
 With ``use_kernels`` it runs in the port's ``rwkv6`` kernel at every T (the
 JAX package's decode step runs the plain recurrence; the kernel computes the
 same function, so the card's decode path has no plain version on it);
-otherwise in :func:`wkv_scan_ref`, a Python loop over time.  The Mamba head
-(Hymba's parallel SSM) is not ported (ROADMAP A6).
+otherwise in :func:`wkv_scan_ref`, a Python loop over time.
+
+Mamba, with the state h [B, di, N] in fp32 and the conv state [B, K-1, di]
+in the model dtype:
+
+    h_t = exp(Δ_t·A)·h_{t-1} + (Δ_t·x_t) ⊗ B_t ;  y_t = C_t·h_t + D·x_t
+
+The scan has no kernel in either package.  :func:`mamba_scan_ref` is the
+per-token loop of the JAX package; :func:`mamba_scan` computes the same
+recurrence with the discretised terms of every step made ahead of the loop
+and one in-place update of h a step, then contracts C after the loop.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from .layers import check_device, init_linear, linear
@@ -166,3 +177,104 @@ def rwkv_state_init(cfg: ModelConfig, batch: int, *,
                             device=device),
         "cm_x": torch.zeros((batch, d), dtype=cfg.dtype, device=device),
     }
+
+
+# =============================== Mamba head ==================================
+
+def init_mamba(generator: torch.Generator, cfg: ModelConfig, *,
+               device: torch.device | str,
+               lead: tuple[int, ...] = ()) -> dict:
+    """Selective SSM head for Hymba (runs in parallel with attention)."""
+    d = cfg.d_model
+    s = cfg.ssm
+    di = s.expand * d
+    dt = cfg.dtype
+    device = check_device(device)
+    kw = {"device": device, "lead": lead}
+    a = torch.arange(1, s.state_dim + 1, dtype=torch.float32, device=device)
+    return {
+        "in_proj": init_linear(generator, d, 2 * di, False, dt, **kw),  # x, z
+        "conv_w": (torch.randn(lead + (s.conv_dim, di), generator=generator,
+                               dtype=torch.float32, device=device)
+                   * 0.2).to(dt),
+        "x_proj": init_linear(generator, di, s.state_dim * 2 + 1, False, dt,
+                              **kw),                                 # B, C, dt
+        "a_log": torch.log(a).expand(lead + (di, s.state_dim)).clone(),
+        "d_skip": torch.ones(lead + (di,), dtype=torch.float32,
+                             device=device),
+        "out_proj": init_linear(generator, di, d, False, dt, **kw),
+    }
+
+
+def _mamba_conv_seq(w: torch.Tensor, x: torch.Tensor,
+                    conv_state: torch.Tensor):
+    """Causal depthwise conv over time, then silu.  x: [B,T,di]; w: [K,di];
+    conv_state: [B,K-1,di] → (y [B,T,di], conv_state')."""
+    k = w.shape[0]
+    t = x.shape[1]
+    xp = torch.cat([conv_state.to(x.dtype), x], dim=1)       # [B,T+K-1,di]
+    out = xp[:, :t] * w[0].to(x.dtype)
+    for i in range(1, k):
+        out = out + xp[:, i:i + t] * w[i].to(x.dtype)
+    return F.silu(out), xp[:, t:]
+
+
+def mamba_scan_ref(delta: torch.Tensor, xi: torch.Tensor, bmat: torch.Tensor,
+                   cmat: torch.Tensor, a: torch.Tensor, h0: torch.Tensor):
+    """The discretised selective scan on fp32 tensors, one token a step as
+    the JAX package's ``mamba_scan_ref``.  delta [B,T,1], xi [B,T,di], B/C
+    [B,T,N], a [di,N], h0 [B,di,N] → (h_final, y [B,T,di])."""
+    h = h0
+    ys = []
+    for t in range(xi.shape[1]):
+        da_t = torch.exp(delta[:, t, :, None] * a[None])    # [B,di,N]
+        h = da_t * h + (delta[:, t] * xi[:, t])[..., None] * bmat[:, t, None]
+        ys.append(torch.einsum("bdn,bn->bd", h, cmat[:, t]))
+    return h, torch.stack(ys, dim=1)
+
+
+def mamba_scan(delta: torch.Tensor, xi: torch.Tensor, bmat: torch.Tensor,
+               cmat: torch.Tensor, a: torch.Tensor, h0: torch.Tensor):
+    """:func:`mamba_scan_ref`'s recurrence with one launch a step: the
+    decays ``exp(Δ_t·A)`` and inputs ``(Δ_t·x_t) ⊗ B_t`` of every step are
+    made ahead of the loop (``[B,T,di,N]`` fp32 each), each step updates
+    its slice of the state history in place, and C is contracted with the
+    whole history after it."""
+    decay = torch.exp(delta[..., None] * a)                  # [B,T,di,N]
+    hist = (delta * xi)[..., None] * bmat[:, :, None, :]     # [B,T,di,N]
+    hist[:, 0].addcmul_(decay[:, 0], h0)
+    for t in range(1, xi.shape[1]):
+        hist[:, t].addcmul_(decay[:, t], hist[:, t - 1])
+    y = torch.einsum("btdn,btn->btd", hist, cmat)
+    return hist[:, -1].clone(), y
+
+
+def mamba_seq(p: dict, x: torch.Tensor, state, cfg: ModelConfig):
+    """x: [B,T,d]; state: (conv_state [B,K-1,di], h [B,di,N] fp32) →
+    (out [B,T,d], state')."""
+    s = cfg.ssm
+    conv_state, h0 = state
+    xz = linear(p["in_proj"], x)
+    xi, z = torch.chunk(xz, 2, dim=-1)
+    xi, conv_state = _mamba_conv_seq(p["conv_w"], xi, conv_state)
+    bcd = linear(p["x_proj"], xi)
+    bmat, cmat, dt_raw = torch.split(bcd, [s.state_dim, s.state_dim, 1],
+                                     dim=-1)
+    delta = F.softplus(dt_raw.float()) + 1e-4                 # [B,T,1]
+    a = -torch.exp(p["a_log"])                                # [di,N]
+    xf = xi.float()
+    h_final, ys = mamba_scan(delta, xf, bmat.float(), cmat.float(), a, h0)
+    y = ys + xf * p["d_skip"]
+    y = y.to(x.dtype) * F.silu(z)
+    return linear(p["out_proj"], y), (conv_state, h_final)
+
+
+def mamba_state_init(cfg: ModelConfig, batch: int, *,
+                     device: torch.device | str):
+    """(conv_state [B,K-1,di] in the model dtype, h [B,di,N] fp32)."""
+    s = cfg.ssm
+    di = s.expand * cfg.d_model
+    return (torch.zeros((batch, s.conv_dim - 1, di), dtype=cfg.dtype,
+                        device=device),
+            torch.zeros((batch, di, s.state_dim), dtype=torch.float32,
+                        device=device))

@@ -9,15 +9,19 @@ Where the JAX package scans a stack with ``jax.lax.scan``, the port loops
 over the layer index in Python, with each layer's attention window an int
 (0 = none).  Stacks are of one block kind each: ``dense`` (GQA + MLP),
 ``dense_prefix`` and ``moe`` (the MoE family: its first layers keep a wide
-dense MLP, the rest route to experts) and ``rwkv`` (RWKV-6 time and channel
-mix).  Attention is GQA, or MLA (DeepSeek-V3) when the config has one.
-Caches are stacked ``[L, ...]`` per stack as there — ``(k, v)`` for GQA
-stacks, the latent ``(c_kv, k_rope)`` for MLA stacks, ``{tm_x, tm_s,
-cm_x}`` recurrent state for RWKV — and decode writes them in place.  An
-MTP config gets the reference's ``mtp`` subtree (projection, one block,
-norm); nothing at serving reads it, and its loss is training's.  Hybrid
-(Mamba) stacks, meta tokens and modality frontends raise, naming ROADMAP
-A6.  Training (``lm_loss``, the MTP loss) is ROADMAP A9.
+dense MLP, the rest route to experts), ``hybrid`` (Hymba: attention and a
+Mamba head in parallel on the same normed input, their outputs averaged)
+and ``rwkv`` (RWKV-6 time and channel mix).  Attention is GQA, or MLA
+(DeepSeek-V3) when the config has one.  Caches are stacked ``[L, ...]`` per
+stack as there — ``(k, v)`` for GQA stacks, the latent ``(c_kv, k_rope)``
+for MLA stacks, ``{kv, mamba_conv, mamba_h}`` for hybrid stacks, ``{tm_x,
+tm_s, cm_x}`` recurrent state for RWKV — and decode writes them in place.
+A config with meta tokens (Hymba) gets the reference's learned ``meta``
+rows, prepended to every prompt; decode positions are offset by their
+count.  An MTP config gets the reference's ``mtp`` subtree (projection,
+one block, norm); nothing at serving reads it, and its loss is training's.
+Encoder-decoder stacks and modality frontends raise, naming ROADMAP A6/A7.
+Training (``lm_loss``, the MTP loss) is ROADMAP A9.
 """
 from __future__ import annotations
 
@@ -31,8 +35,9 @@ from .attention import (attn_decode, attn_paged_decode, attn_prefill,
 from .ffn import ffn, init_ffn, init_mlp, mlp
 from .layers import (apply_norm, check_device, embed, init_embedding,
                      init_linear, init_norm, unembed)
-from .ssm import (init_rwkv_channel_mix, init_rwkv_time_mix,
-                  rwkv_channel_mix, rwkv_state_init, rwkv_time_mix_seq)
+from .ssm import (init_mamba, init_rwkv_channel_mix, init_rwkv_time_mix,
+                  mamba_seq, mamba_state_init, rwkv_channel_mix,
+                  rwkv_state_init, rwkv_time_mix_seq)
 
 
 def layer_kinds(cfg: ModelConfig) -> list[tuple[str, int]]:
@@ -82,7 +87,7 @@ def init_block(generator: torch.Generator, cfg: ModelConfig, layer_kind: str,
                *, device: torch.device | str,
                lead: tuple[int, ...] = ()) -> dict:
     """Params of ``lead`` stacked blocks of ``layer_kind`` (dense,
-    dense_prefix, moe or rwkv)."""
+    dense_prefix, moe, hybrid or rwkv)."""
     kw = {"device": device, "lead": lead}
     if layer_kind == "rwkv":
         return {
@@ -91,11 +96,7 @@ def init_block(generator: torch.Generator, cfg: ModelConfig, layer_kind: str,
             "norm2": init_norm(cfg.d_model, cfg.norm, cfg.dtype, **kw),
             "channel_mix": init_rwkv_channel_mix(generator, cfg, **kw),
         }
-    if layer_kind not in ("dense", "dense_prefix", "moe"):
-        raise NotImplementedError(
-            f"{layer_kind!r} blocks of {cfg.name} are not ported yet "
-            "(ROADMAP A6)")
-    return {
+    p = {
         "norm1": init_norm(cfg.d_model, cfg.norm, cfg.dtype, **kw),
         "attn": init_attention(generator, cfg, **kw),
         "norm2": init_norm(cfg.d_model, cfg.norm, cfg.dtype, **kw),
@@ -103,6 +104,9 @@ def init_block(generator: torch.Generator, cfg: ModelConfig, layer_kind: str,
                          cfg.dtype, **kw) if layer_kind == "dense_prefix"
                 else init_ffn(generator, cfg, **kw)),
     }
+    if layer_kind == "hybrid":
+        p["mamba"] = init_mamba(generator, cfg, **kw)
+    return p
 
 
 def init_lm(cfg: ModelConfig, generator: torch.Generator,
@@ -123,6 +127,9 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator,
     if not cfg.tie_embeddings:
         p["head"] = init_embedding(generator, cfg.vocab_size, cfg.d_model,
                                    cfg.dtype, device=device)
+    if cfg.meta_tokens:
+        p["meta"] = init_embedding(generator, cfg.meta_tokens, cfg.d_model,
+                                   cfg.dtype, device=device)["table"]
     if cfg.mtp_heads:
         # DeepSeek-V3's multi-token-prediction head, as the reference builds
         # it: [h ‖ embed(next)] projected back to d, one block, a norm
@@ -139,11 +146,11 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator,
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if (cfg.family not in ("dense", "moe", "ssm") or cfg.meta_tokens
+    if (cfg.family not in ("dense", "moe", "ssm", "hybrid")
             or cfg.frontend is not None):
         raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) needs hybrid stacks, meta tokens or "
-            "a modality frontend; not ported yet (ROADMAP A6)")
+            f"{cfg.name} ({cfg.family}) needs an encoder-decoder stack or a "
+            "modality frontend; not ported yet (ROADMAP A6/A7)")
 
 
 def layer_params(tree: Any, li: int) -> Any:
@@ -181,8 +188,9 @@ def _rwkv_block(p: dict, x: torch.Tensor, state: dict, cfg: ModelConfig,
 def block_seq(p: dict, x: torch.Tensor, cfg: ModelConfig,
               positions: torch.Tensor, window: int | None,
               use_kernels: bool = False, layer_kind: str = "dense"):
-    """Full-sequence block (prefill). Returns (x', cache): ``(k, v)``, or
-    the RWKV state ``{tm_x, tm_s, cm_x}`` after the sequence."""
+    """Full-sequence block (prefill). Returns (x', cache): ``(k, v)``, the
+    hybrid ``{kv, mamba_conv, mamba_h}``, or the RWKV state ``{tm_x, tm_s,
+    cm_x}`` after the sequence."""
     if layer_kind == "rwkv":
         state = rwkv_state_init(cfg, x.shape[0], device=x.device)
         x, (tm_x, tm_s, cm_x) = _rwkv_block(p, x, state, cfg, use_kernels)
@@ -190,6 +198,11 @@ def block_seq(p: dict, x: torch.Tensor, cfg: ModelConfig,
     h = apply_norm(p["norm1"], x, cfg.norm, use_kernels)
     attn_out, kv = attn_prefill(p["attn"], h, cfg, positions, window,
                                 use_kernels)
+    if layer_kind == "hybrid":
+        state = mamba_state_init(cfg, x.shape[0], device=x.device)
+        m_out, (conv, m_h) = mamba_seq(p["mamba"], h, state, cfg)
+        attn_out = 0.5 * (attn_out + m_out)  # Hymba: mean-fused heads
+        kv = {"kv": kv, "mamba_conv": conv, "mamba_h": m_h}
     x = x + attn_out * cfg.residual_scale
     h2 = apply_norm(p["norm2"], x, cfg.norm, use_kernels)
     f_out = _ffn(p["ffn"], h2, cfg, use_kernels, layer_kind)
@@ -199,16 +212,25 @@ def block_seq(p: dict, x: torch.Tensor, cfg: ModelConfig,
 def block_step(p: dict, x: torch.Tensor, cache, pos: torch.Tensor,
                cfg: ModelConfig, window: int | None,
                use_kernels: bool = False, layer_kind: str = "dense"):
-    """Single-token decode. x: [B,1,d]; the cache (``(k, v)`` or the RWKV
-    state) is written in place."""
+    """Single-token decode. x: [B,1,d]; the cache (``(k, v)``, the hybrid
+    dict or the RWKV state) is written in place."""
     if layer_kind == "rwkv":
         x, new = _rwkv_block(p, x, cache, cfg, use_kernels)
         for key, value in zip(("tm_x", "tm_s", "cm_x"), new):
             cache[key].copy_(value)
         return x, cache
     h = apply_norm(p["norm1"], x, cfg.norm, use_kernels)
-    attn_out, cache = attn_decode(p["attn"], h, cache, pos, cfg, window,
-                                  use_kernels)
+    if layer_kind == "hybrid":
+        attn_out, _ = attn_decode(p["attn"], h, cache["kv"], pos, cfg,
+                                  window, use_kernels)
+        m_out, (conv, m_h) = mamba_seq(
+            p["mamba"], h, (cache["mamba_conv"], cache["mamba_h"]), cfg)
+        cache["mamba_conv"].copy_(conv)
+        cache["mamba_h"].copy_(m_h)
+        attn_out = 0.5 * (attn_out + m_out)
+    else:
+        attn_out, cache = attn_decode(p["attn"], h, cache, pos, cfg, window,
+                                      use_kernels)
     x = x + attn_out * cfg.residual_scale
     h2 = apply_norm(p["norm2"], x, cfg.norm, use_kernels)
     f_out = _ffn(p["ffn"], h2, cfg, use_kernels, layer_kind)
@@ -241,24 +263,39 @@ def _head(params: dict, x: torch.Tensor, cfg: ModelConfig,
 def _stack_caches(caches: list):
     """Per-layer caches of one stack → the stacked ``[L, ...]`` cache."""
     if isinstance(caches[0], dict):
-        return {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
-    return tuple(torch.stack(leaves) for leaves in zip(*caches))
+        return {k: _stack_caches([c[k] for c in caches]) for k in caches[0]}
+    if isinstance(caches[0], tuple):
+        return tuple(_stack_caches(list(leaves)) for leaves in zip(*caches))
+    return torch.stack(caches)
 
 
 def _layer_cache(cache, li: int):
     """Layer ``li`` of a stacked cache (views, so writes land in place)."""
     if isinstance(cache, dict):
-        return {k: v[li] for k, v in cache.items()}
-    return tuple(leaf[li] for leaf in cache)
+        return {k: _layer_cache(v, li) for k, v in cache.items()}
+    if isinstance(cache, tuple):
+        return tuple(_layer_cache(leaf, li) for leaf in cache)
+    return cache[li]
+
+
+def _embed_inputs(params: dict, tokens: torch.Tensor,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """tokens [B,S] → [B,S',d], the meta rows (if any) prepended."""
+    x = embed(params["embed"], tokens)
+    if cfg.meta_tokens:
+        meta = params["meta"].to(x.dtype).expand(x.shape[0], -1, -1)
+        x = torch.cat([meta, x], dim=1)
+    return x
 
 
 def lm_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
                use_kernels: bool = False, with_cache: bool = True):
-    """Prefill forward → (logits [B,S,V] fp32, caches): per stack ``(k, v)``
-    each ``[L,B,S,KVH,D]``, or the RWKV state leaves ``[L,B,...]`` (None
-    without ``with_cache``)."""
+    """Prefill forward → (logits [B,S',V] fp32, caches): per stack ``(k,
+    v)`` each ``[L,B,S',KVH,D]``, the hybrid dict of those and the Mamba
+    state, or the RWKV state leaves ``[L,B,...]`` (None without
+    ``with_cache``).  S' counts the meta tokens."""
     _check_supported(cfg)
-    x = embed(params["embed"], tokens)
+    x = _embed_inputs(params, tokens, cfg)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     caches = []
@@ -283,14 +320,18 @@ def lm_prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     """Prefill → (last-token logits [B,V], caches): KV caches zero-padded to
     ``cache_len``; recurrent state (no sequence axis) as it is."""
     logits, caches = lm_forward(params, tokens, cfg, use_kernels)
-    if cache_len is not None and cfg.family != "ssm":
+    if cache_len is not None:
         caches = [_pad_cache(c, cache_len) for c in caches]
     return logits[:, -1], caches
 
 
 def _pad_cache(cache, length: int):
-    """Zero-pad the sequence axis (2, of ``[L,B,S,...]``) of each leaf —
-    GQA's ``(k, v)`` or MLA's ``(c_kv, k_rope)`` — to ``length``."""
+    """Zero-pad the sequence axis (2, of ``[L,B,S,...]``) of each KV leaf —
+    GQA's ``(k, v)``, MLA's ``(c_kv, k_rope)``, a hybrid stack's ``kv`` —
+    to ``length``; recurrent state passes through."""
+    if isinstance(cache, dict):
+        return ({**cache, "kv": _pad_cache(cache["kv"], length)}
+                if "kv" in cache else cache)
     return tuple(torch.nn.functional.pad(
         leaf, [0, 0] * (leaf.dim() - 3) + [0, length - leaf.shape[2]])
         for leaf in cache)
@@ -299,8 +340,8 @@ def _pad_cache(cache, length: int):
 def init_decode_caches(cfg: ModelConfig, batch: int, length: int, *,
                        device: torch.device | str):
     """Empty decode caches per stack: ``(k, v)`` ``[L,B,length,KVH,D]``,
-    MLA's ``(c_kv [L,B,length,rank], k_rope [..,rope])``, or the RWKV state
-    leaves ``[L,B,...]``."""
+    MLA's ``(c_kv [L,B,length,rank], k_rope [..,rope])``, the hybrid
+    ``{kv, mamba_conv, mamba_h}``, or the RWKV state leaves ``[L,B,...]``."""
     _check_supported(cfg)
     caches = []
     for kind, n, _ in stack_meta(cfg):
@@ -309,8 +350,14 @@ def init_decode_caches(cfg: ModelConfig, batch: int, length: int, *,
             caches.append({k: v.new_zeros((n,) + v.shape)
                            for k, v in state.items()})
             continue
-        caches.append(tuple(leaf.new_zeros((n,) + leaf.shape) for leaf in
-                            init_cache(cfg, batch, length, device=device)))
+        entry = tuple(leaf.new_zeros((n,) + leaf.shape) for leaf in
+                      init_cache(cfg, batch, length, device=device))
+        if kind == "hybrid":
+            conv, m_h = mamba_state_init(cfg, batch, device=device)
+            entry = {"kv": entry,
+                     "mamba_conv": conv.new_zeros((n,) + conv.shape),
+                     "mamba_h": m_h.new_zeros((n,) + m_h.shape)}
+        caches.append(entry)
     return caches
 
 
@@ -321,6 +368,8 @@ def lm_decode(params: dict, token: torch.Tensor, caches: list,
     caches written in place."""
     _check_supported(cfg)
     x = embed(params["embed"], token[:, None])
+    if cfg.meta_tokens:
+        pos = pos + cfg.meta_tokens
     for stack, cache, (kind, n, windows) in zip(params["stacks"], caches,
                                                 stack_meta(cfg)):
         for li in range(n):
@@ -355,6 +404,8 @@ def lm_paged_decode(params: dict, token: torch.Tensor, caches: list,
     written in place."""
     _check_supported(cfg)
     x = embed(params["embed"], token[:, None])
+    if cfg.meta_tokens:
+        pos = pos + cfg.meta_tokens
     for stack, cache, (kind, n, windows) in zip(params["stacks"], caches,
                                                 stack_meta(cfg)):
         for li in range(n):

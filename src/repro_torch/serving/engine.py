@@ -2,8 +2,9 @@
 
 The port of the JAX package's ``serving/engine.py``: a fixed pool of decode
 slots sharing one stacked cache (a dense KV slab, fixed KV pages behind
-block tables with ``paged_kv=True``, or, for RWKV, recurrent state per slot,
-where ``paged_kv=True`` degrades to the dense layout as in the JAX package);
+block tables with ``paged_kv=True``, or, for RWKV and Hymba, recurrent
+state per slot (beside Hymba's KV slab), where ``paged_kv=True`` degrades
+to the dense layout as in the JAX package);
 one engine tick is either one prefill
 or one batched decode step; per-request sampling; EOS / max-token
 completion; the admission tier of :mod:`.admission` (bounded EDF queue,
@@ -146,8 +147,9 @@ class InferenceEngine:
             from ..models.transformer import init_decode_caches
             self.caches = init_decode_caches(self.cfg, max_slots, cache_len,
                                              device=self.device)
-        # a recurrent stack (RWKV) updates its state in place every step
-        self._recurrent = self.cfg.family in ("ssm", "hybrid")
+        # the recurrent leaves (RWKV's state, a hybrid stack's Mamba state),
+        # which every step advances in place
+        self._state_leaves = _state_leaves(self.caches)
         self.decode_graph: CudaGraphReplay | None = None
         self._step = self._make_step()
         # Measured-mode Opara schedule of this engine's step graph, filled by
@@ -204,10 +206,11 @@ class InferenceEngine:
 
         Exports the model's operator DAG at this engine's decode geometry
         (batch = ``max_slots``; MoE models with the routed fan-out, RWKV
-        with its scan) with the port's exporter, binds zero
-        tokens as profiling inputs, and plans through this engine's
-        :class:`repro_torch.core.Session` — so the one profiling inference
-        is shared by every engine with the same signature.  The plan is
+        with its scan, Hymba with its Mamba branch) with the port's
+        exporter, binds zero tokens as profiling inputs, and plans through
+        this engine's :class:`repro_torch.core.Session` — so the one
+        profiling inference is shared by every engine with the same
+        signature.  The plan is
         introspection state; the decode hot path is the step above."""
         from ..core.session import default_session
         from ..models.opgraph_export import build_lm_opgraph
@@ -786,8 +789,7 @@ class InferenceEngine:
         if self._use_compiled:
             # recurrent state, unlike a KV write, is not idempotent: keep
             # it so that the eager rung re-runs the step from it
-            saved = ([t.clone() for t in _leaves(self.caches)]
-                     if self._recurrent else None)
+            saved = [t.clone() for t in self._state_leaves]
             try:
                 logits = self._step([self.last_token, self.pos])
                 if faults is not None:
@@ -799,9 +801,8 @@ class InferenceEngine:
                 # step watchdog: latch onto the eager step; the graph writes
                 # the KV caches in place, so re-running the step is
                 # idempotent there, and recurrent state is restored first
-                if saved is not None:
-                    for leaf, kept in zip(_leaves(self.caches), saved):
-                        leaf.copy_(kept)
+                for leaf, kept in zip(self._state_leaves, saved):
+                    leaf.copy_(kept)
                 self.fault_stats["decode_faults"] += 1
                 self.fault_stats["watchdog_fallbacks"] += 1
                 self._use_compiled = False
@@ -878,6 +879,14 @@ def _leaves(tree) -> list[torch.Tensor]:
     if isinstance(tree, (list, tuple)):
         return [leaf for item in tree for leaf in _leaves(item)]
     return [tree]
+
+
+def _state_leaves(caches: list) -> list[torch.Tensor]:
+    """The recurrent-state leaves of the stacked caches: every leaf of an
+    RWKV stack's dict, the Mamba leaves of a hybrid stack's; no KV leaf."""
+    return [leaf for stack in caches if isinstance(stack, dict)
+            for key in sorted(stack) if key != "kv"
+            for leaf in _leaves(stack[key])]
 
 
 def _splice(big: torch.Tensor, small: torch.Tensor, slot: int) -> None:

@@ -177,7 +177,7 @@ def test_model_facade_raises_for_what_is_not_ported():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
     with pytest.raises(NotImplementedError, match="A6"):
-        Model(dataclasses.replace(tcfg, family="hybrid")).prefill(
+        Model(dataclasses.replace(tcfg, family="encdec")).prefill(
             {}, {"tokens": torch.zeros((1, 2), dtype=torch.long)})
 
 
