@@ -124,7 +124,22 @@ Phases (any failure raises and the script exits non-zero):
      block by block and against the fp32 plain route), plus one request whose
      980-token prompt and the meta tokens cross the window: its windowed
      prefill and windowed decode steps are held against the plain route;
-     the scan's share of a prefill.
+     the scan's share of a prefill;
+ 13. Whisper-medium at full width and depth (24 encoder + 24 decoder
+     layers, 1500 frames): the encoder-decoder op graph (batch 1, 224
+     decoder tokens; the 48 cross-attention K/V GEMMs read the encoder
+     output alone) with phase 3's gates, lanes beside one stream and the
+     sequential CUDA Graph in the same call; then the model facade on 8
+     segments of 1500 frames and Whisper's 4-token prompt: prefill (cache
+     448) and 220 greedy ticks through one CUDA graph of the decode step,
+     the graph tick bit-equal to the eager tick, every bf16 flash launch
+     on wgmma and decode launch on mma, the kernel route against the plain
+     route (fp32: the 8 greedy streams identical, logits within 1e-4;
+     bf16: the prefill and each of the 220 ticks at the path's shapes,
+     from the same caches and fed the same tokens, each decoder block on
+     identical inputs and the whole model against the fp32 plain route),
+     encode / prefill / tick times, tokens/s and the plain
+     cross-attention's share of a tick.
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
 package; needs the repository's ``src/`` next to this file and a CUDA card.
@@ -579,25 +594,34 @@ def phase_main_path(seed: int) -> dict:
         f"{replay_ms:.3f} (graph alone {graph_only_ms:.3f})")
     lanes = compare_one_stream("main", exe, outputs)
 
-    # the paper's baseline: the sequential CUDA Graph (one stream, topo
-    # order, no fusion) of the same graph and request
+    three_way("main", graph, inputs, outputs[0][1][-1], lanes)
+    return {"launches": launches, "recorded": recorded}
+
+
+def three_way(tag: str, graph, inputs: dict, want: torch.Tensor,
+              lanes: dict) -> dict:
+    """The paper's baseline, the sequential CUDA Graph (one stream, topo
+    order, no fusion) of ``graph``, held against the Opara plan's logits
+    ``want`` on the same request and timed beside the plan on one stream
+    and on its lanes (``lanes``, from :func:`compare_one_stream`)."""
+    from repro_torch.core import Session, SessionConfig
     seq_model = Session(SessionConfig(
         alloc_policy="sequential", order_policy="topo",
         calib_dir=CALIB_DIR)).compile(graph)
     got = seq_model(inputs)[-1].float()
-    want = outputs[0][1][-1].float()
+    want = want.float()
     rel, agree = _agreement(got, want)
-    log(f"[main] sequential CUDA graph: {len(seq_model.executable.steps)} "
+    log(f"[{tag}] sequential CUDA graph: {len(seq_model.executable.steps)} "
         f"steps on {seq_model.executable.lane_stats()['n_lanes']} lane; "
         f"logits vs the Opara plan's rel_l2 {rel:.3e} top1 agreement "
         f"{agree:.4f} (bit-equal {torch.equal(got, want)})")
     if rel > LOGITS_REL_L2 or agree < TOP1_AGREE:
-        raise AssertionError("the sequential CUDA graph disagrees with the "
-                             "Opara plan")
+        raise AssertionError(f"{tag}: the sequential CUDA graph disagrees "
+                             "with the Opara plan")
     seq_graph = seq_model.executable.replay
     three = {"sequential": cuda_ms(lambda: seq_model(inputs)),
              "sequential_graph": cuda_ms(seq_graph.graph.replay)}
-    log(f"[main-three-way] per-forward ms (median of {TIMING_ITERS}, whole "
+    log(f"[{tag}-three-way] per-forward ms (median of {TIMING_ITERS}, whole "
         f"call / graph alone): sequential CUDA graph "
         f"{three['sequential']:.3f} / {three['sequential_graph']:.3f}; "
         f"Opara plan on one stream (fusion only) {lanes['one']:.3f} / "
@@ -605,9 +629,8 @@ def phase_main_path(seed: int) -> dict:
         f"{lanes['lanes']:.3f} / {lanes['lanes_graph']:.3f}; sequential "
         f"graph pool bytes {seq_graph.pool_bytes}")
     profile_replay(seq_graph.graph.replay, what="forward (sequential)",
-                   tag="main-profile-sequential")
-    del seq_model, seq_graph, got, want
-    return {"launches": launches, "recorded": recorded}
+                   tag=f"{tag}-profile-sequential")
+    return three
 
 
 def busy_and_overlap(intervals) -> tuple[float, float]:
@@ -2780,40 +2803,44 @@ def phase_deepseek(env: dict, gen: torch.Generator, seed: int) -> dict:
 # 10. RWKV6-1.6B: op graph and serving at full width and depth
 # =============================================================================
 
-def op_graph_path(tag: str, cfg, params, seed: int, salt: int,
+def token_inputs(cfg, seed: int, salt: int):
+    """The input maker of an LM op graph: request ``i``'s tokens, batch
+    ``BATCH`` of ``SEQ``, from ``seed`` and ``salt``."""
+    def make(i):
+        g = torch.Generator(device="cuda").manual_seed(seed * 1000 + salt + i)
+        return {"tokens": torch.randint(0, cfg.vocab_size, (BATCH, SEQ),
+                                        generator=g, device="cuda")}
+    return make
+
+
+def op_graph_path(tag: str, graph, make_inputs, out_shape: tuple,
                   kernels: tuple[str, ...] = ("branch_gemm",),
                   check=None) -> dict:
-    """An arch's prefill op graph (batch 1, seq 512) through
-    Session.compile (measured calibration, autotune) into one CUDA graph
-    on the plan's lanes: 3 requests, launch counts of ``kernels`` from 0,
-    every GEMM launch on the wgmma route, ``check(graph, recorded)`` (the
-    arch's own gates), each request held against eager per-op execution,
-    per-forward times, and :func:`compare_one_stream`."""
+    """An op graph through Session.compile (measured calibration,
+    autotune) into one CUDA graph on the plan's lanes: 3 requests
+    (``make_inputs(i)``, a dict by input name), launch counts of
+    ``kernels`` from 0, every GEMM launch on the wgmma route,
+    ``check(exe, recorded)`` (the arch's own gates), each request's logits
+    (``out_shape``) held against eager per-op execution, per-forward times,
+    and :func:`compare_one_stream`."""
     from repro_torch.core import Session, SessionConfig, SimConfig
     from repro_torch.core.capture import run_sequential_uncompiled
-    from repro_torch.models.opgraph_export import build_lm_opgraph
 
-    graph = build_lm_opgraph(cfg, batch=BATCH, seq=SEQ, params=params)
-
-    def tokens(i):
-        g = torch.Generator(device="cuda").manual_seed(seed * 1000 + salt + i)
-        return torch.randint(0, cfg.vocab_size, (BATCH, SEQ), generator=g,
-                             device="cuda")
-
-    root = next(n.op_id for n in graph if n.fn is None)
+    calib = make_inputs(0)
     # -- the path's run: launch counts from 0 ----------------------------------
     reset_launches()
     sess = Session(SessionConfig(autotune=True,
                                  sim_cfg=SimConfig(head_of_line=True),
                                  calib_dir=CALIB_DIR))
     t0 = time.perf_counter()
-    model = sess.compile(graph, inputs={root: tokens(0)})
+    model = sess.compile(graph, inputs={n.op_id: calib[n.name]
+                                        for n in graph if n.fn is None})
     compile_s = time.perf_counter() - t0
     exe = model.executable
     outputs = []
     t0 = time.perf_counter()
     for i in range(3):
-        inputs = {"tokens": tokens(100 + i)}
+        inputs = make_inputs(100 + i)
         outputs.append((inputs, model(inputs)))
         if i == 0:
             torch.cuda.synchronize()
@@ -2832,12 +2859,11 @@ def op_graph_path(tag: str, cfg, params, seed: int, salt: int,
         f"route {routes}")
     check_wgmma_only(tag, routes)
     if check is not None:
-        check(graph, recorded)
+        check(exe, recorded)
     for i, (inputs, outs) in enumerate(outputs):
         ref = run_sequential_uncompiled(graph, inputs, exe.output_ids)
         got, want = outs[-1].float(), ref[-1].float()
-        if got.shape != (BATCH, SEQ, cfg.vocab_size) or \
-                not bool(torch.isfinite(got).all()):
+        if got.shape != out_shape or not bool(torch.isfinite(got).all()):
             raise AssertionError(f"bad logits {tuple(got.shape)}")
         rel, agree = _agreement(got, want)
         log(f"[{tag}] request {i}: logits rel_l2 {rel:.3e} (<= "
@@ -2854,93 +2880,121 @@ def op_graph_path(tag: str, cfg, params, seed: int, salt: int,
         f"replay {replay_ms:.3f}")
     lanes = compare_one_stream(tag, exe, outputs)
     return {"launches": launches, "recorded": recorded, "graph": graph,
-            "lanes": lanes}
+            "lanes": lanes, "first": outputs[0]}
+
+
+def lm_graph_path(tag: str, cfg, params, seed: int, salt: int,
+                  kernels: tuple[str, ...] = ("branch_gemm",),
+                  check=None) -> dict:
+    """:func:`op_graph_path` on an LM's prefill op graph (batch 1, seq
+    512)."""
+    from repro_torch.models.opgraph_export import build_lm_opgraph
+    graph = build_lm_opgraph(cfg, batch=BATCH, seq=SEQ, params=params)
+    return op_graph_path(tag, graph, token_inputs(cfg, seed, salt),
+                         (BATCH, SEQ, cfg.vocab_size), kernels, check)
 
 
 def rwkv_graph(cfg, params, seed: int) -> dict:
     """The RWKV op graph: each wkv_scan node launches rwkv6 on the chunked
     route."""
-    def check(graph, recorded):
-        n_scan = sum(n.name.endswith(".wkv_scan") for n in graph)
+    def check(exe, recorded):
+        n_scan = sum(n.name.endswith(".wkv_scan") for n in exe.graph)
         check_rwkv_chunked_only("rwkv")
         if recorded["rwkv6"] != n_scan:
             raise AssertionError(f"{recorded['rwkv6']} rwkv6 launches "
                                  f"recorded for {n_scan} wkv_scan nodes")
 
-    return op_graph_path("rwkv", cfg, params, seed, 700,
+    return lm_graph_path("rwkv", cfg, params, seed, 700,
                          ("branch_gemm", "rwkv6"), check)
 
 
-def block_gate(tag: str, cfg, params, prompt: list[int],
-               failures: list) -> None:
-    """Every block of a one-stack model (dense, RWKV or hybrid), kernel
-    route vs plain route on identical inputs (the plain route's hidden
-    states and caches): its update of the residual stream over the prompt (with its
-    meta tokens), and over one decode step after it.  Relative L2 <= 2e-2
-    in the worst block."""
-    from repro_torch.models.transformer import (_embed_inputs, block_seq,
-                                                block_step, layer_params,
-                                                stack_meta)
+def _one_longer(kv):
+    """A fresh copy of a K/V slab pair, one position longer."""
+    return tuple(torch.nn.functional.pad(t, (0, 0, 0, 0, 0, 1)) for t in kv)
 
-    def longer(kv):
-        return tuple(torch.nn.functional.pad(t, (0, 0, 0, 0, 0, 1))
-                     for t in kv)
 
-    tokens = torch.tensor([prompt], device="cuda")
-    x = _embed_inputs(params, tokens, cfg)
-    positions = torch.arange(x.shape[1], device="cuda")[None]
-    pos = torch.tensor([x.shape[1]], dtype=torch.int32, device="cuda")
+def block_gate(tag: str, what: str, x, blocks, failures: list) -> None:
+    """Every block, kernel route vs plain route on identical inputs (the
+    plain route's hidden states and caches): its update of the residual
+    stream over the sequence ``x``, and over one decode step after it.
+    Each block is a pair ``seq(x, use_kernels) -> (x, cache)``,
+    ``step(x, cache, use_kernels) -> x`` (``step`` works on a fresh copy of
+    the cache).  Relative L2 <= 2e-2 in the worst block."""
     worst_seq = worst_step = 0.0
-    (kind, n, windows), = stack_meta(cfg)
-    for li in range(n):
-        p = layer_params(params["stacks"][0], li)
-        window = windows[li] or None
-        xk, _ = block_seq(p, x, cfg, positions, window, True, kind)
-        xp, cache = block_seq(p, x, cfg, positions, window, False, kind)
+    for seq, step in blocks:
+        xk, _ = seq(x, True)
+        xp, cache = seq(x, False)
         worst_seq = max(worst_seq, _agreement(xk - x, xp - x)[0])
         step_in = xp[:, -1:]
-        outs = []
-        for route in (True, False):
-            # a fresh copy of the state; a KV slab one position longer
-            step_cache = (longer(cache) if isinstance(cache, tuple) else
-                          {k: longer(v) if k == "kv" else v.clone()
-                           for k, v in cache.items()})
-            outs.append(block_step(p, step_in, step_cache, pos, cfg, window,
-                                   route, kind)[0] - step_in)
+        outs = [step(step_in, cache, route) - step_in
+                for route in (True, False)]
         worst_step = max(worst_step, _agreement(*outs)[0])
         x = xp
-    log(f"[{tag}] {_dt(cfg.dtype)} blocks on identical inputs, kernel route "
-        f"vs plain route, {len(prompt)}-token prompt ({x.shape[1]} "
-        f"positions): worst block update rel_l2 {worst_seq:.3e} over the "
-        f"prompt, {worst_step:.3e} over a decode step (<= {LOGITS_REL_L2})")
+    log(f"[{tag}] {what} blocks on identical inputs, kernel route vs plain "
+        f"route, {x.shape[0]} rows x {x.shape[1]} positions: worst block "
+        f"update rel_l2 {worst_seq:.3e} over the positions, {worst_step:.3e} "
+        f"over a decode step (<= {LOGITS_REL_L2})")
     if max(worst_seq, worst_step) > LOGITS_REL_L2:
         failures.append(f"{tag} blocks on identical inputs: rel_l2 "
                         f"{worst_seq:.3e} / {worst_step:.3e}")
 
 
-def forward_gate(tag: str, cfg, params, cfg32, params32, prompt: list[int],
+def lm_blocks(cfg, params, prompt: list[int]) -> tuple:
+    """``block_gate``'s input and blocks for a one-stack model (dense, RWKV
+    or hybrid): the prompt with its meta tokens, each block's prefill and
+    its decode step after the prompt."""
+    from repro_torch.models.transformer import (_embed_inputs, block_seq,
+                                                block_step, layer_params,
+                                                stack_meta)
+    x = _embed_inputs(params, torch.tensor([prompt], device="cuda"), cfg)
+    positions = torch.arange(x.shape[1], device="cuda")[None]
+    pos = torch.tensor([x.shape[1]], dtype=torch.int32, device="cuda")
+    (kind, n, windows), = stack_meta(cfg)
+
+    def block(p, window):
+        def seq(h, route):
+            return block_seq(p, h, cfg, positions, window, route, kind)
+
+        def step(h, cache, route):
+            cache = (_one_longer(cache) if isinstance(cache, tuple) else
+                     {k: _one_longer(v) if k == "kv" else v.clone()
+                      for k, v in cache.items()})
+            return block_step(p, h, cache, pos, cfg, window, route, kind)[0]
+        return seq, step
+
+    return x, [block(layer_params(params["stacks"][0], li),
+                     windows[li] or None) for li in range(n)]
+
+
+def forward_gate(tag: str, what: str, forward, cfg, params, cfg32, params32,
                  failures: list) -> None:
-    """Whole model in bf16: the kernel route's distance from the fp32 plain
-    route must not exceed the bf16 plain route's own distance from it by
-    more than a quarter (nor 2e-2, if that is larger); the two bf16 routes'
-    distance from each other is reported."""
-    from repro_torch.models.transformer import lm_forward
-    tokens = torch.tensor([prompt], device="cuda")
-    truth, _ = lm_forward(params32, tokens, cfg32, False, with_cache=False)
-    got, _ = lm_forward(params, tokens, cfg, True, with_cache=False)
-    want, _ = lm_forward(params, tokens, cfg, False, with_cache=False)
+    """Whole model in bf16, ``forward(params, cfg, use_kernels) -> logits``:
+    the kernel route's distance from the fp32 plain route must not exceed
+    the bf16 plain route's own distance from it by more than a quarter (nor
+    2e-2, if that is larger); the two bf16 routes' distance from each other
+    is reported."""
+    truth = forward(params32, cfg32, False)
+    got = forward(params, cfg, True)
+    want = forward(params, cfg, False)
     rel_k, agree_k = _agreement(got, truth)
     rel_p, agree_p = _agreement(want, truth)
     rel, agree = _agreement(got, want)
     limit = max(LOGITS_REL_L2, 1.25 * rel_p)
-    log(f"[{tag}] bf16 lm_forward, {got.shape[1]} positions, against the "
-        f"fp32 plain route: kernel route rel_l2 {rel_k:.3e} top1 "
+    log(f"[{tag}] bf16 {what}, {tuple(got.shape[:-1])} positions, against "
+        f"the fp32 plain route: kernel route rel_l2 {rel_k:.3e} top1 "
         f"{agree_k:.4f} (<= {limit:.3e}), plain route rel_l2 {rel_p:.3e} "
         f"top1 {agree_p:.4f}; kernel vs plain route rel_l2 {rel:.3e} top1 "
         f"{agree:.4f} (reported)")
     if not bool(torch.isfinite(got).all()) or rel_k > limit:
         failures.append(f"{tag} bf16 kernel route: rel_l2 {rel_k:.3e} from "
                         f"fp32 > {limit:.3e}")
+
+
+def lm_logits(prompt: list[int]):
+    """``forward_gate``'s forward for a decoder LM over one prompt."""
+    from repro_torch.models.transformer import lm_forward
+    tokens = torch.tensor([prompt], device="cuda")
+    return lambda p, c, k: lm_forward(p, tokens, c, k, with_cache=False)[0]
 
 
 def phase_rwkv(seed: int) -> dict:
@@ -2999,10 +3053,11 @@ def phase_rwkv(seed: int) -> dict:
     # bf16: each block on identical inputs, then the whole model against
     # the fp32 plain route beside the bf16 plain route
     for s in prompts:
-        block_gate("rwkv", cfg, params, s["prompt"], failures)
+        block_gate("rwkv", _dt(cfg.dtype), *lm_blocks(cfg, params,
+                                                      s["prompt"]), failures)
     for s in prompts:
-        forward_gate("rwkv", cfg, params, cfg32, params32, s["prompt"],
-                     failures)
+        forward_gate("rwkv", "lm_forward", lm_logits(s["prompt"]), cfg,
+                     params, cfg32, params32, failures)
     del params32
     tick = _decode_tick("dense", engine(cfg, params)(False), specs, "rwkv")
     # the longest prompt's prefill: every rwkv6 launch on the chunked route
@@ -3106,7 +3161,8 @@ def serve_arch(tag: str, cfg, params, seed: int, specs: list[dict],
     model, plain = Model(cfg, use_kernels=True), Model(cfg, use_kernels=False)
     for s in prompts:
         if bf16_blocks:
-            block_gate(tag, cfg, params, s["prompt"], failures)
+            block_gate(tag, _dt(cfg.dtype), *lm_blocks(cfg, params,
+                                                       s["prompt"]), failures)
             continue
         tokens = torch.tensor([s["prompt"]], device="cuda")
         got, _ = lm_forward(params, tokens, cfg, True, with_cache=False)
@@ -3134,8 +3190,8 @@ def serve_arch(tag: str, cfg, params, seed: int, specs: list[dict],
     if fp32_serve or bf16_blocks:
         for s in prompts:
             if bf16_blocks:
-                forward_gate(tag, cfg, params, cfg32, params32, s["prompt"],
-                             failures)
+                forward_gate(tag, "lm_forward", lm_logits(s["prompt"]),
+                             cfg, params, cfg32, params32, failures)
             tokens = torch.tensor([s["prompt"]], device="cuda")
             got, _ = lm_forward(params32, tokens, cfg32, True,
                                 with_cache=False)
@@ -3179,7 +3235,7 @@ def phase_dense_archs(seed: int) -> dict:
     for name in DENSE_ARCHS:
         tag = name.split("-")[0].replace(".", "")
         cfg, params = _init_full(tag, name, seed)
-        graph = op_graph_path(tag, cfg, params, seed, 800)
+        graph = lm_graph_path(tag, cfg, params, seed, 800)
         specs = serve_specs(cfg.vocab_size, seed)
         by_len = sorted(specs, key=lambda s: len(s["prompt"]))
         serve = serve_arch(tag, cfg, params, seed, specs, paged=True,
@@ -3226,7 +3282,7 @@ def phase_hymba(seed: int) -> dict:
     cfg, params = _init_full(tag, "hymba-1.5b", seed)
     if (cfg.window, cfg.meta_tokens) != (HYMBA_WINDOW, HYMBA_META):
         raise AssertionError("hymba's window or meta tokens moved")
-    graph = op_graph_path(tag, cfg, params, seed, 900)
+    graph = lm_graph_path(tag, cfg, params, seed, 900)
     mamba_scan_share(tag, cfg, graph["graph"], graph["lanes"]["lanes_graph"])
     specs = serve_specs(cfg.vocab_size, seed)
     rng = np.random.default_rng(seed + 980)
@@ -3261,6 +3317,352 @@ def phase_hymba(seed: int) -> dict:
     return {"graph": graph["launches"], "serve": serve["launches"]}
 
 
+# =============================================================================
+# 13. whisper-medium
+# =============================================================================
+
+# Whisper's default sample length (n_text_ctx 448 / 2): the op graph's
+# decoder tokens, and the facade's prompt plus its greedy ticks
+WHISPER_DEC_SEQ, WHISPER_CACHE = 224, 448
+# start of transcript, English, transcribe, no timestamps
+WHISPER_PROMPT = (50258, 50259, 50359, 50363)
+WHISPER_ROWS = 8                # audio segments of 1500 frames
+WHISPER_TICKS = WHISPER_DEC_SEQ - len(WHISPER_PROMPT)
+# fp32 kernel route vs plain route over the greedy streams: the routes
+# differ in summation order only (flash and decode kernels vs the einsums)
+FP32_LOGITS_REL_L2 = 1e-4
+
+
+def whisper_frames(cfg, rows: int, seed: int, salt: int) -> torch.Tensor:
+    fe = cfg.frontend
+    g = torch.Generator(device="cuda").manual_seed(seed * 1000 + salt)
+    return torch.randn((rows, fe.n_tokens, fe.feat_dim), generator=g,
+                       device="cuda").to(cfg.dtype)
+
+
+def whisper_graph(cfg, params, seed: int) -> dict:
+    """The encoder-decoder op graph (1500 frames, 224 decoder tokens, batch
+    1) with phase 3's gates: the 48 cross-attention K/V GEMMs read the
+    encoder output alone, beside the decoder chain; the sequential CUDA
+    Graph timed beside the plan on one stream and on its lanes."""
+    from repro_torch.models.opgraph_export import build_encdec_opgraph
+    t0 = time.perf_counter()
+    graph = build_encdec_opgraph(cfg, batch=1, dec_seq=WHISPER_DEC_SEQ,
+                                 params=params)
+    cross = [n.op_id for n in graph
+             if n.name.endswith((".cross_wk", ".cross_wv"))]
+    log(f"[whisper] op graph: {len(graph)} ops, {len(cross)} cross-attention "
+        f"K/V GEMMs of {cfg.frontend.n_tokens} rows on the encoder output, "
+        f"export {time.perf_counter() - t0:.2f} s")
+
+    def make(i):
+        g = torch.Generator(device="cuda").manual_seed(seed * 1000 + 1300 + i)
+        fe = cfg.frontend
+        return {"frames": torch.randn((1, fe.n_tokens, fe.feat_dim),
+                                      generator=g, device="cuda").to(cfg.dtype),
+                "tokens": torch.randint(0, cfg.vocab_size,
+                                        (1, WHISPER_DEC_SEQ), generator=g,
+                                        device="cuda")}
+
+    def check(exe, recorded):
+        # the route of every step holding a cross K/V GEMM
+        steps = [(s.route, len(s.op_ids), s.lane) for s in exe.steps
+                 if set(s.op_ids) & set(cross)]
+        log(f"[whisper] cross K/V GEMMs in {len(steps)} steps (route, "
+            f"branches, lane): {steps}")
+        if sum(n for _, n, _ in steps) != len(cross):
+            raise AssertionError("a cross K/V GEMM is in no step")
+
+    out = op_graph_path("whisper", graph, make,
+                        (1, WHISPER_DEC_SEQ, cfg.vocab_size), check=check)
+    inputs, outs = out.pop("first")
+    free_card()
+    three_way("whisper", graph, inputs, outs[-1], out["lanes"])
+    return out
+
+
+def whisper_greedy(model, params, inputs: dict, ticks: int,
+                   record: bool) -> dict:
+    """Prefill (cache 448), then ``ticks`` greedy decode ticks, each tick
+    eager or (``record``) a replay of one CUDA graph of the step recorded
+    at the first tick.  Returns the token streams [rows, 1 + ticks], each
+    step's logits, the caches, the replay and the ticks' host time."""
+    from repro_torch.core.capture import CudaGraphReplay
+    logits, caches = model.prefill(params, inputs, cache_len=WHISPER_CACHE)
+    tok = logits.argmax(-1)
+    pos = torch.full((tok.shape[0],), inputs["tokens"].shape[1],
+                     dtype=torch.int32, device="cuda")
+    steps, out = [tok], [logits]
+    replay = None
+
+    def tick(token, p):
+        return [model.decode(params, token, caches, p)[0]]
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ticks):
+        if record and replay is None:
+            replay = CudaGraphReplay(tick, [tok, pos])
+        logits = replay([tok, pos])[0] if record else tick(tok, pos)[0]
+        tok = logits.argmax(-1)
+        pos = pos + 1
+        steps.append(tok)
+        out.append(logits)
+    torch.cuda.synchronize()
+    return {"tokens": torch.stack(steps, 1), "logits": out, "caches": caches,
+            "replay": replay, "tick": tick, "last": (tok, pos - 1),
+            "seconds": time.perf_counter() - t0}
+
+
+def whisper_blocks(cfg, params, frames, tokens) -> tuple:
+    """``block_gate``'s input and blocks for the decoder: the embedded
+    ``tokens``, each decoder block's pass over them (its cross-attention on
+    the encoded ``frames``) and its decode step after them.  The encoder
+    runs the same code on both routes (no kernel)."""
+    from repro_torch.models import encdec
+    from repro_torch.models.layers import embed
+    from repro_torch.models.transformer import layer_params
+    enc = encdec.encode(params, frames, cfg)
+    b, s = tokens.shape
+    x = embed(params["embed"], tokens) + params["dec_pos"][None, :s]
+    positions = torch.arange(s, device="cuda")[None].expand(b, s)
+    pos = torch.full((b,), s, dtype=torch.int32, device="cuda")
+
+    def block(p):
+        def seq(h, route):
+            return encdec.decoder_block_seq(p, h, enc, cfg, positions, route)
+
+        def step(h, cache, route):
+            self_kv, ckv = cache
+            return encdec.decoder_block_step(p, h, (_one_longer(self_kv), ckv),
+                                             pos, cfg, route)[0]
+        return seq, step
+
+    return x, [block(layer_params(params["dec_blocks"], li))
+               for li in range(cfg.n_dec_layers)]
+
+
+def whisper_route_gate(cfg, params, inputs: dict, run: dict,
+                       failures: list) -> None:
+    """bf16 kernel route vs plain route at the facade's own shapes: the
+    prefill (flash over the 4-token prompt, less than one 64-row tile, 16/16
+    heads of 64) by its last-token logits and its self K/V over the prompt;
+    then every tick of the run, from copies of the kernel prefill's caches
+    and fed the same tokens (the run's stream), the kernel route through the
+    run's recorded CUDA graph, the plain route eagerly (the decode pair over
+    5 .. 224 valid positions of the 448-position cache).  Relative L2 <=
+    2e-2 at each.  Also reports the first tick at which the plain route's
+    greedy choice leaves the stream: before it both routes' free-running
+    greedy streams are the same, so it is where they part."""
+    from repro_torch.models import Model
+    s = inputs["tokens"].shape[1]
+    logits_k, caches = Model(cfg, use_kernels=True).prefill(
+        params, inputs, cache_len=WHISPER_CACHE)
+    plain = Model(cfg, use_kernels=False)
+    logits_p, caches_p = plain.prefill(params, inputs, cache_len=WHISPER_CACHE)
+    rel_prefill = _agreement(logits_k, logits_p)[0]
+    rel_kv = max(_agreement(a[:, :, :s], b[:, :, :s])[0]
+                 for a, b in zip(caches[0], caches_p[0]))
+    del caches_p
+    # the recorded graph reads and writes the run's caches: reset them to
+    # the kernel prefill's, which the plain route then takes as its own
+    for dst, src in zip(_param_leaves(run["caches"]), _param_leaves(caches)):
+        dst.copy_(src)
+    stream = run["tokens"]
+    worst, parted = 0.0, None
+    if not torch.equal(logits_p.argmax(-1), stream[:, 0]):
+        parted = 0
+    for t in range(stream.shape[1] - 1):
+        tok = stream[:, t]
+        pos = torch.full_like(run["last"][1], s + t)
+        got = run["replay"]([tok, pos])[0]
+        want = plain.decode(params, tok, caches, pos)[0]
+        worst = max(worst, _agreement(got, want)[0])
+        if parted is None and not torch.equal(want.argmax(-1),
+                                              stream[:, t + 1]):
+            parted = t + 1
+    log(f"[whisper] bf16 facade, kernel route vs plain route at the path's "
+        f"shapes: prefill ({stream.shape[0]} rows x {s} tokens, cache "
+        f"{WHISPER_CACHE}) last-token logits rel_l2 {rel_prefill:.3e}, self "
+        f"K/V over the prompt {rel_kv:.3e}; {stream.shape[1] - 1} ticks from "
+        f"the same caches fed the same tokens (graph vs eager), worst tick "
+        f"logits rel_l2 {worst:.3e} (all <= {LOGITS_REL_L2}); the plain "
+        f"route's greedy choice first leaves the stream at step {parted} "
+        f"(0 = the prefill's token, None = never)")
+    if max(rel_prefill, rel_kv, worst) > LOGITS_REL_L2:
+        failures.append(f"whisper bf16 facade kernel vs plain route: rel_l2 "
+                        f"prefill {rel_prefill:.3e}, self K/V {rel_kv:.3e}, "
+                        f"worst tick {worst:.3e}")
+
+
+def cross_attention_share(cfg, params, caches, tick_ms: float) -> None:
+    """The plain cross-attention (``_sdpa`` of one query over each decoder
+    layer's 1500-position K/V, the wq / wo GEMMs left out) of one tick,
+    recorded alone into a CUDA graph, against the tick's graph time; beside
+    it the bytes the fp32 casts move."""
+    from repro_torch.core.capture import CudaGraphReplay
+    from repro_torch.core.profiler import detect_hardware
+    from repro_torch.models.attention import _sdpa
+    from repro_torch.models.transformer import _layer_cache
+    ckv = caches[1]
+    rows = ckv[0].shape[1]
+    g = torch.Generator(device="cuda").manual_seed(13)
+    q = torch.randn((rows, 1, cfg.n_heads, cfg.head_dim), generator=g,
+                    device="cuda").to(cfg.dtype)
+
+    def attend(query):
+        return [_sdpa(query, *_layer_cache(ckv, li), None)
+                for li in range(cfg.n_dec_layers)]
+
+    rep = CudaGraphReplay(attend, [q])
+    ms = cuda_ms(rep.graph.replay)
+    # each layer reads K and V in bf16, writes them in fp32 and reads the
+    # fp32 copies back in the einsums
+    kv_elems = 2 * ckv[0][0].numel()
+    est_bytes = cfg.n_dec_layers * kv_elems * (2 + 4 + 4)
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in _param_leaves(params["dec_blocks"]))
+    table = params["embed"]["table"]
+    weight_bytes += table.numel() * table.element_size()
+    hw = detect_hardware()
+    log(f"[whisper] plain cross-attention of a tick ({cfg.n_dec_layers} "
+        f"layers x {rows} rows x {ckv[0].shape[2]} positions, recorded "
+        f"alone) {ms:.3f} ms, {ms / tick_ms:.3f} of the tick graph's "
+        f"{tick_ms:.3f} ms; from the code, its fp32 casts move "
+        f"{est_bytes / 1e9:.2f} GB a tick ({est_bytes / hw.hbm_bw * 1e3:.3f} "
+        f"ms at {hw.hbm_bw / 1e12:.2f} TB/s) against the tick's "
+        f"{weight_bytes / 1e9:.2f} GB of "
+        f"decoder and head weights")
+
+
+def whisper_facade(cfg, params, seed: int) -> dict:
+    """The facade at 8 segments of 1500 frames: the Whisper prompt, prefill
+    (cache 448), 220 greedy ticks through one CUDA graph of the decode
+    step; the graph tick bit-equal to the eager tick; every bf16 flash
+    launch on wgmma and decode launch on mma; kernel route vs plain route
+    (fp32: equal streams, logits within 1e-4; bf16: each decoder block on
+    identical inputs, the prefill and every tick at the path's shapes, the
+    whole model against the fp32 plain route); times of encode, prefill and
+    the tick, tokens/s, the cross-attention's share of a tick."""
+    from repro_torch.models import Model, encdec
+    frames = whisper_frames(cfg, WHISPER_ROWS, seed, 1400)
+    prompt = torch.tensor([WHISPER_PROMPT] * WHISPER_ROWS, device="cuda")
+    inputs = {"frames": frames, "tokens": prompt}
+    model = Model(cfg, use_kernels=True)
+    # -- the facade's run: launch counts from 0 ----------------------------------
+    reset_launches()
+    run = whisper_greedy(model, params, inputs, WHISPER_TICKS, record=True)
+    launches = read_launches("flash_attention", "decode_attention")
+    check_flash_wgmma_only("whisper")
+    check_decode_mma_only("whisper", paged=False)
+    # -- end of the facade's run ---------------------------------------------------
+    replay = run["replay"]
+    log(f"[whisper] facade: {WHISPER_ROWS} rows x {cfg.frontend.n_tokens} "
+        f"frames, prompt {list(WHISPER_PROMPT)}, {WHISPER_TICKS} greedy "
+        f"ticks through one CUDA graph of the decode step ({replay.n_lanes} "
+        f"stream, launches recorded {replay.recorded_launches}); wrapper "
+        f"launches over the run {launches}; "
+        f"{WHISPER_ROWS * WHISPER_TICKS / run['seconds']:.1f} tokens/s over "
+        f"the ticks ({run['seconds']:.3f} s, host clock, the recording "
+        f"included)")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"the Whisper facade launched no {name}")
+    streams = run["tokens"]
+    if tuple(streams.shape) != (WHISPER_ROWS, 1 + WHISPER_TICKS) or not all(
+            bool(torch.isfinite(x).all()) for x in run["logits"]):
+        raise AssertionError(f"bad streams {tuple(streams.shape)} or logits")
+    # the graph tick against the eager tick at the last position (the
+    # self K/V write there is idempotent)
+    tok, pos = run["last"]
+    graph_logits = replay([tok, pos])[0]
+    eager_logits = run["tick"](tok, pos)[0]
+    if not torch.equal(graph_logits, eager_logits):
+        raise AssertionError("whisper: CUDA-graph decode tick differs from "
+                             "the eager tick")
+    graph_ms = cuda_ms(lambda: replay([tok, pos]))
+    eager_ms = cuda_ms(lambda: run["tick"](tok, pos), iters=10)
+    encode_ms = cuda_ms(lambda: encdec.encode(params, frames, cfg), iters=5)
+    prefill_ms = cuda_ms(lambda: model.prefill(params, inputs,
+                                               cache_len=WHISPER_CACHE),
+                         iters=5)
+    log(f"[whisper] encode {encode_ms:.3f} ms, prefill (encode + 4-token "
+        f"decoder pass) {prefill_ms:.3f} ms (median of 5); decode tick at "
+        f"{WHISPER_ROWS} rows: CUDA-graph replay {graph_ms:.3f} ms (host "
+        f"copies included), eager {eager_ms:.3f} ms; graph logits bit-equal "
+        f"to eager")
+    profile_replay(lambda: replay([tok, pos]), n=5,
+                   what="decode tick (graph)", tag="whisper-profile")
+    cross_attention_share(cfg, params, run["caches"], graph_ms)
+    failures: list[str] = []
+    # bf16: the facade's prefill and ticks at the path's own shapes, each
+    # decoder block on identical inputs, then the whole model against the
+    # fp32 plain route beside the bf16 plain route, both over the prompt
+    # and the kernel route's greedy tokens (224 positions)
+    whisper_route_gate(cfg, params, inputs, run, failures)
+    forced = torch.cat([prompt, streams[:, :-1]], dim=1)
+    block_gate("whisper", "bf16 decoder (the encoder has no kernel)",
+               *whisper_blocks(cfg, params, frames, forced), failures)
+    del run, replay
+    free_card()
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params32 = _cast(params, torch.float32)
+    frames32 = frames.float()
+
+    def logits(p, c, use_kernels):
+        enc = encdec.encode(p, frames.to(c.dtype), c)
+        return encdec.decode_seq(p, forced, enc, c, use_kernels)[0]
+
+    forward_gate("whisper", "encode + decode_seq", logits, cfg, params, cfg32,
+                 params32, failures)
+    free_card()
+    # fp32: the kernel route's greedy streams (graph ticks) equal the plain
+    # route's (eager ticks), logits within 1e-4 at every step
+    inputs32 = {"frames": frames32, "tokens": prompt}
+    runs = [whisper_greedy(Model(cfg32, use_kernels=k), params32, inputs32,
+                           WHISPER_TICKS, record=k) for k in (True, False)]
+    same = torch.equal(runs[0]["tokens"], runs[1]["tokens"])
+    worst = max(_agreement(a, b)[0] for a, b in zip(runs[0]["logits"],
+                                                     runs[1]["logits"]))
+    log(f"[whisper] fp32 greedy streams, kernel route (graph ticks) vs plain "
+        f"route (eager): {WHISPER_ROWS} streams of {1 + WHISPER_TICKS} tokens "
+        f"identical {same}; worst step logits rel_l2 {worst:.3e} (<= "
+        f"{FP32_LOGITS_REL_L2})")
+    if not same or worst > FP32_LOGITS_REL_L2:
+        failures.append(f"whisper fp32 kernel route: streams identical "
+                        f"{same}, rel_l2 {worst:.3e}")
+    del runs, params32
+    free_card()
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return {"launches": launches, "graph_ms": graph_ms,
+            "prefill_ms": prefill_ms}
+
+
+def phase_whisper(seed: int) -> dict:
+    """Whisper-medium at full width and depth (24 + 24 layers, bf16): the
+    op graph (phase 3's gates, the sequential CUDA Graph beside it), then
+    the model facade."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    cfg = get_config("whisper-medium")
+    t0 = time.perf_counter()
+    params = Model(cfg).init(torch.Generator(device="cuda").manual_seed(seed),
+                             "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _param_leaves(params))
+    log(f"[whisper] {cfg.name}: {cfg.n_layers} encoder + {cfg.n_dec_layers} "
+        f"decoder layers d={cfg.d_model} heads={cfg.n_heads}/"
+        f"{cfg.n_kv_heads} head_dim={cfg.head_dim} d_ff={cfg.d_ff} vocab="
+        f"{cfg.vocab_size} frames={cfg.frontend.n_tokens} {_dt(cfg.dtype)}: "
+        f"{n_params / 1e9:.3f} B params (dec_pos {cfg.max_seq_len} rows), "
+        f"init {time.perf_counter() - t0:.2f} s")
+    graph = whisper_graph(cfg, params, seed)
+    free_card()
+    facade = whisper_facade(cfg, params, seed)
+    return {"graph": graph["launches"], "facade": facade["launches"]}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3293,6 +3695,8 @@ def main() -> int:
     dense = phase_dense_archs(args.seed)
     free_card()
     hymba = phase_hymba(args.seed)
+    free_card()
+    whisper = phase_whisper(args.seed)
 
     for path, launches in (("main", main_path["launches"]["branch_gemm"]),
                            ("ragged", ragged["launches"]["grouped_gemm"]),
@@ -3305,7 +3709,12 @@ def main() -> int:
                            ("rwkv graph", rwkv["graph"]["launches"]["rwkv6"]),
                            *((f"{name} graph", d["graph"]["branch_gemm"])
                              for name, d in dense.items()),
-                           ("hymba graph", hymba["graph"]["branch_gemm"])):
+                           ("hymba graph", hymba["graph"]["branch_gemm"]),
+                           ("whisper graph", whisper["graph"]["branch_gemm"]),
+                           ("whisper facade (flash_attention)",
+                            whisper["facade"]["flash_attention"]),
+                           ("whisper facade (decode_attention)",
+                            whisper["facade"]["decode_attention"])):
         if launches <= 0:
             raise AssertionError(f"the {path} path launched no kernel")
     bf16 = torch.bfloat16

@@ -32,10 +32,11 @@ _ARCH_MODULES = {
     "minicpm-2b": "minicpm_2b",
     "glm4-9b": "glm4_9b",
     "hymba-1.5b": "hymba_1_5b",
+    "whisper-medium": "whisper_medium",
 }
 
 # registered in the JAX package, not ported yet (ROADMAP queue A6/A7)
-_NOT_PORTED = ("whisper-medium", "llava-next-mistral-7b")
+_NOT_PORTED = ("llava-next-mistral-7b",)
 
 
 def list_archs() -> list[str]:

@@ -8,7 +8,9 @@ The JAX package's ``launch/serve.py`` with the same options, plus
 ``--arch`` takes any registered architecture (its smoke config): qwen2-0.5b,
 llama3.2-1b, minicpm-2b, glm4-9b, kimi-k2-1t-a32b (MoE), deepseek-v3-671b
 (MLA), rwkv6-1.6b (recurrent state, dense slab) or hymba-1.5b (attention
-beside a Mamba head, meta tokens, dense slab).
+beside a Mamba head, meta tokens, dense slab); the engine serves decoder
+LMs only, so whisper-medium (encoder-decoder) is refused, as the JAX
+package's engine has no path for it.
 The model runs its kernel route (``use_kernels=True``).  Multi-tenant
 overload mode: ``--tenants N`` spreads the requests over N tenants, each
 with its own isolated :class:`repro_torch.core.Session`, and ``--overload``
@@ -48,6 +50,9 @@ def serve(arch: str, n_requests: int, max_tokens: int, slots: int = 4,
           device: str = "cuda") -> dict:
     dev = check_device(device)
     cfg = get_config(arch, smoke=True)
+    if cfg.family == "encdec":
+        raise ValueError(f"{arch} is an encoder-decoder model; the serving "
+                         "engine serves decoder LMs")
     model = Model(cfg, use_kernels=True)
     params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
     # one Session for the serving process, and an isolated one per tenant

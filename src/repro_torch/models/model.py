@@ -8,15 +8,17 @@
 as the JAX package's ``models/model.py`` does for the decoder LM (dense,
 MoE, hybrid and RWKV-6 stacks, GQA or MLA attention; RWKV keeps recurrent
 state instead of KV, a hybrid (Hymba) stack KV beside its Mamba state, MLA
-a compressed latent cache).  The
+a compressed latent cache) and for the encoder-decoder family (Whisper:
+``prefill`` reads ``inputs["frames"]`` and ``inputs["tokens"]``, the caches
+are the decoder's self K/V and the cross-attention K/V, see
+:mod:`.encdec`).  The
 tensors' device is the device: params, inputs and caches stay where the
 caller put them, and nothing moves to the CPU on its own.  Decode writes
 the caches in place (what a CUDA graph of the step needs) and returns them.
 
 Not ported: ``loss`` (training, ROADMAP A9) and the dry-run helpers
 ``input_specs``, ``decode_state_specs`` and ``init_shapes`` (ROADMAP A10);
-they raise.  Encoder-decoder and multimodal models raise in the
-transformer (ROADMAP A6/A7).
+they raise.  Multimodal prefill (``extra_embeds``) raises (ROADMAP A6/A7).
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from typing import Any, Mapping
 import torch
 
 from ..configs.base import ModelConfig
+from . import encdec as ed
 from . import transformer as tf
 
 
@@ -36,11 +39,18 @@ class Model:
     # -- params ---------------------------------------------------------------
     def init(self, generator: torch.Generator,
              device: torch.device | str = "cuda") -> Any:
+        if self.cfg.family == "encdec":
+            return ed.init_encdec(self.cfg, generator, device)
         return tf.init_lm(self.cfg, generator, device)
 
     # -- steps ------------------------------------------------------------------
     def prefill(self, params, inputs: Mapping[str, Any],
                 cache_len: int | None = None):
+        if self.cfg.family == "encdec":
+            return ed.encdec_prefill(params, inputs["frames"],
+                                     inputs["tokens"], self.cfg,
+                                     cache_len or inputs["tokens"].shape[1],
+                                     self.use_kernels)
         if "extra_embeds" in inputs:
             raise NotImplementedError("multimodal prefill is not ported yet "
                                       "(ROADMAP A6/A7)")
@@ -49,12 +59,16 @@ class Model:
 
     def decode(self, params, token: torch.Tensor, caches,
                pos: torch.Tensor):
+        if self.cfg.family == "encdec":
+            return ed.encdec_decode(params, token, caches, pos, self.cfg,
+                                    self.use_kernels)
         return tf.lm_decode(params, token, caches, pos, self.cfg,
                             self.use_kernels)
 
     # -- paged decode ------------------------------------------------------------
     def supports_paged(self) -> bool:
-        """Paged KV applies to pure-attention decoder stacks only."""
+        """Paged KV applies to pure-attention decoder stacks only (the
+        encoder-decoder's caches stay dense, as in the reference)."""
         return self.cfg.family in ("dense", "moe", "vlm")
 
     def init_paged_caches(self, num_pages: int, page_size: int,
@@ -69,6 +83,9 @@ class Model:
 
     # -- training and dry-run: not ported ------------------------------------------
     def loss(self, *args, **kwargs):
+        if self.cfg.family == "encdec":
+            raise NotImplementedError("the encoder-decoder loss (encdec_loss) "
+                                      "is not ported yet (ROADMAP A9)")
         return tf.lm_loss(*args, **kwargs)
 
     def init_shapes(self, *args, **kwargs):

@@ -37,8 +37,13 @@ RoPE on the shared rope key), the same decomposed attention stages with one
 latent KV head (Dk = rank + rope, Dv = rank), then the per-head ``wv_b``
 up-projection and ``wo``.
 
-The encoder-decoder export is not ported yet (ROADMAP A6/A7) and raises
-``NotImplementedError``.
+The encoder-decoder export (:func:`build_encdec_opgraph`, Whisper) has two
+inputs, the frames and the tokens: the encoder chain (frontend projection,
+learned positions, bidirectional attention stages, GELU MLP) and the
+decoder chain (embedding, learned positions, causal self-attention, a
+cross-attention whose K/V GEMMs read the encoder output, GELU MLP).  Norms
+and the MLP activation declare their shapes, so capture never stacks an
+encoder stage (1500 rows at full width) with a decoder one.
 """
 from __future__ import annotations
 
@@ -59,7 +64,7 @@ from ..core.profiler import (
 )
 from .attention import NEG_INF, causal_window_mask, value_up
 from .export_costs import act_gemm_cost, stream_cost
-from .layers import apply_norm, apply_rope, rmsnorm
+from .layers import apply_norm, apply_rope, gelu, rmsnorm
 from .ssm import RWKV_LORA, _mamba_conv_seq, mamba_scan
 from .transformer import layer_params, stack_meta
 
@@ -71,11 +76,6 @@ def _w(params, *path):
     for p in path:
         out = out[p]
     return out
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} export is not ported yet "
-                               "(ROADMAP A6/A7)")
 
 
 def build_lm_opgraph(cfg: ModelConfig, batch: int, seq: int,
@@ -101,7 +101,8 @@ def build_lm_opgraph(cfg: ModelConfig, batch: int, seq: int,
     if moe_dispatch not in ("auto", "ragged", "uniform"):
         raise ValueError(f"unknown moe_dispatch {moe_dispatch!r}")
     if cfg.family == "encdec":
-        raise _not_ported("encoder-decoder")
+        raise NotImplementedError(f"{cfg.name} is an encoder-decoder model: "
+                                  "export it with build_encdec_opgraph")
     g = OpGraph(cfg.name)
     d = cfg.d_model
     b, s = batch, seq
@@ -147,7 +148,10 @@ def build_lm_opgraph(cfg: ModelConfig, batch: int, seq: int,
 
 
 def _norm_node(g, name, inp, p, kind, numel, out_shape=None):
-    """Pre/post-norm node."""
+    """Pre/post-norm node.  ``out_shape`` should be declared wherever the
+    graph mixes sequence lengths (encoder vs decoder): capture's stacking
+    check can only veto a mixed-shape fusion group it can SEE (see
+    ``capture._can_stack``)."""
     return g.add(name, OpKind.NORM, [inp],
                  fn=(lambda h: apply_norm(p, h, kind)) if p is not None else None,
                  cost=norm_cost(numel), out_shape=out_shape)
@@ -904,6 +908,154 @@ def _hybrid_layer(g, cfg, x, b, s, tag, pl, window, root):
                  cost=elementwise_cost(b * s * d, n_in=2))
 
 
+# -- encoder-decoder (Whisper) ------------------------------------------------
+
+def _encdec_attn(g, pre, src_q, src_kv, ap, cfg, b, s, t, causal):
+    """Projection GEMMs + decomposed stages for one (self or cross)
+    attention; ``src_q``/``src_kv`` may differ (cross-attention reads the
+    encoder output for K/V — the parallel branch the paper highlights for
+    T5, Fig. 7a)."""
+    d, nh, kvh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = _gemm_node(g, f"{pre}wq", src_q, ap and ap["wq"],
+                   b * s, d, nh * hd, cfg.qkv_bias)
+    k = _gemm_node(g, f"{pre}wk", src_kv, ap and ap["wk"],
+                   b * t, d, kvh * hd, cfg.qkv_bias)
+    v = _gemm_node(g, f"{pre}wv", src_kv, ap and ap["wv"],
+                   b * t, d, kvh * hd, cfg.qkv_bias)
+    mrg = _attn_stages(g, pre, q, k, v, b, s, t, nh, kvh, hd,
+                       causal=causal, with_fn=ap is not None)
+    return _gemm_node(g, f"{pre}wo", mrg, ap and ap["wo"],
+                      b * s, nh * hd, d)
+
+
+def _encdec_ffn(g, pre, r_in, n2_src, root, ffn_p, cfg, b, t):
+    """norm2 → FF (gelu: up→act→down; swiglu: gate∥up→glu→down) → res.
+
+    Shapes are declared on the activation node: encoder and decoder FF
+    stages share fuse signatures but differ in sequence length, and capture
+    must SEE that to keep them out of one stacked kernel."""
+    d, dff = cfg.d_model, cfg.d_ff
+    m = b * t
+    with_fn = ffn_p is not None
+    if cfg.act == "swiglu":
+        gate = _ffn_gemm(g, f"{pre}gate", n2_src, root,
+                         ffn_p and ffn_p["gate"], m, d, dff)
+        up = _ffn_gemm(g, f"{pre}up", n2_src, root,
+                       ffn_p and ffn_p["up"], m, d, dff)
+        act = g.add(f"{pre}glu", OpKind.ELEMENTWISE, [gate, up],
+                    fn=_glu if with_fn else None,
+                    cost=elementwise_cost(m * dff, n_in=2, flops_per_elem=5),
+                    out_shape=(b, t, dff))
+    else:
+        up = _ffn_gemm(g, f"{pre}up", n2_src, root,
+                       ffn_p and ffn_p["up"], m, d, dff)
+        act = g.add(f"{pre}act", OpKind.ELEMENTWISE, [up],
+                    fn=gelu if with_fn else None,
+                    cost=elementwise_cost(m * dff, n_in=1, flops_per_elem=8),
+                    out_shape=(b, t, dff))
+    dn = _ffn_gemm(g, f"{pre}down", act, root, ffn_p and ffn_p["down"],
+                   m, dff, d)
+    return g.add(f"{pre}res2", OpKind.ELEMENTWISE, [r_in, dn],
+                 fn=_add if with_fn else None,
+                 cost=elementwise_cost(m * d, n_in=2))
+
+
+def _enc_layer(g, cfg, enc, b, es, l, pl, root):
+    d = cfg.d_model
+    n1 = _norm_node(g, f"e{l}.norm1", enc, pl and pl["norm1"], cfg.norm,
+                    b * es * d, out_shape=(b, es, d))
+    o = _encdec_attn(g, f"e{l}.", n1, n1, pl and pl["attn"], cfg,
+                     b, es, es, causal=False)
+    r1 = g.add(f"e{l}.res1", OpKind.ELEMENTWISE, [enc, o],
+               fn=_add if pl else None,
+               cost=elementwise_cost(b * es * d, n_in=2))
+    n2 = _norm_node(g, f"e{l}.norm2", r1, pl and pl["norm2"], cfg.norm,
+                    b * es * d, out_shape=(b, es, d))
+    return _encdec_ffn(g, f"e{l}.", r1, n2, root, pl and pl["ffn"], cfg,
+                       b, es)
+
+
+def _dec_layer(g, cfg, dec, enc_out, b, s, es, l, pl, root):
+    """Mirrors encdec.decoder_block_seq: self-attn → cross-attn (K/V from
+    the encoder, a branch parallel to the self-attention chain) → FFN."""
+    d = cfg.d_model
+    n1 = _norm_node(g, f"d{l}.norm1", dec, pl and pl["norm1"], cfg.norm,
+                    b * s * d, out_shape=(b, s, d))
+    o = _encdec_attn(g, f"d{l}.", n1, n1, pl and pl["self_attn"], cfg,
+                     b, s, s, causal=True)
+    r1 = g.add(f"d{l}.res1", OpKind.ELEMENTWISE, [dec, o],
+               fn=_add if pl else None,
+               cost=elementwise_cost(b * s * d, n_in=2))
+    nx = _norm_node(g, f"d{l}.norm_x", r1, pl and pl["norm_x"], cfg.norm,
+                    b * s * d, out_shape=(b, s, d))
+    co = _encdec_attn(g, f"d{l}.cross_", nx, enc_out,
+                      pl and pl["cross_attn"], cfg, b, s, es, causal=False)
+    rx = g.add(f"d{l}.res_x", OpKind.ELEMENTWISE, [r1, co],
+               fn=_add if pl else None,
+               cost=elementwise_cost(b * s * d, n_in=2))
+    n2 = _norm_node(g, f"d{l}.norm2", rx, pl and pl["norm2"], cfg.norm,
+                    b * s * d, out_shape=(b, s, d))
+    return _encdec_ffn(g, f"d{l}.", rx, n2, root, pl and pl["ffn"], cfg,
+                       b, s)
+
+
 def build_encdec_opgraph(cfg: ModelConfig, batch: int, dec_seq: int,
-                         params: Any = None, **kwargs: Any) -> OpGraph:
-    raise _not_ported("encoder-decoder")
+                         params: Any = None,
+                         n_layers: int | None = None) -> OpGraph:
+    """Whisper/T5-style encoder-decoder DAG at traced-kernel granularity:
+    the encoder chain and the decoder's cross-attention K/V projections are
+    parallel branches until the first cross-attend — the operator-diversity
+    case the paper highlights for T5 (Fig. 7a).  Two INPUT nodes, ``frames``
+    (float ``[B, T_frames, feat_dim]``) and ``tokens`` (int ``[B,
+    dec_seq]``).  ``params`` (an :func:`~.encdec.init_encdec` tree) threads
+    real payloads through every node, mirroring ``encdec.encode`` /
+    ``decode_seq`` prefill math; ``n_layers`` trims both stacks."""
+    g = OpGraph(cfg.name)
+    d = cfg.d_model
+    b = batch
+    fe = cfg.frontend
+    L = n_layers if n_layers is not None else cfg.n_layers
+    Ld = n_layers if n_layers is not None else (cfg.n_dec_layers
+                                                or cfg.n_layers)
+    es = fe.n_tokens if fe else 1500
+    feat = fe.feat_dim if fe else d
+    with_fn = params is not None
+
+    frames = g.add("frames", OpKind.INPUT, out_shape=(b, es, feat))
+    # the conv-style audio frontend lowered as one GEMM with bias, through
+    # _gemm_node like every projection
+    enc = _gemm_node(g, "frontend_proj", frames,
+                     params and params["frontend_proj"],
+                     b * es, feat, d, bias=True)
+    pe = _w(params, "enc_pos")
+    enc = g.add("enc_pos", OpKind.ELEMENTWISE, [enc],
+                fn=(lambda h: h + pe[None, : h.shape[1]].to(h.dtype))
+                if with_fn else None,
+                cost=elementwise_cost(b * es * d))
+    for l in range(L):
+        pl = layer_params(params["enc_blocks"], l) if with_fn else None
+        enc = _enc_layer(g, cfg, enc, b, es, l, pl, frames)
+    enc = _norm_node(g, "enc_norm", enc, _w(params, "enc_norm"), cfg.norm,
+                     b * es * d, out_shape=(b, es, d))
+
+    tokens = g.add("tokens", OpKind.INPUT, out_shape=(b, dec_seq))
+    et = _w(params, "embed", "table")
+    dec = g.add("dec_embed", OpKind.GATHER, [tokens],
+                fn=(lambda t: et[t]) if with_fn else None,
+                cost=gather_cost(b * dec_seq, d))
+    dp = _w(params, "dec_pos")
+    s = dec_seq
+    dec = g.add("dec_pos", OpKind.ELEMENTWISE, [dec],
+                fn=(lambda h: h + dp[None, : h.shape[1]].to(h.dtype))
+                if with_fn else None,
+                cost=elementwise_cost(b * s * d))
+    for l in range(Ld):
+        pl = layer_params(params["dec_blocks"], l) if with_fn else None
+        dec = _dec_layer(g, cfg, dec, enc, b, s, es, l, pl, tokens)
+    dec = _norm_node(g, "dec_norm", dec, _w(params, "dec_norm"), cfg.norm,
+                     b * s * d)
+    g.add("logits", OpKind.GEMM, [dec],
+          fn=(lambda h: h @ et.t()) if with_fn else None,
+          cost=gemm_cost(b * s, d, cfg.vocab_size))
+    g.validate()
+    return g

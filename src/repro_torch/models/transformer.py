@@ -20,7 +20,8 @@ A config with meta tokens (Hymba) gets the reference's learned ``meta``
 rows, prepended to every prompt; decode positions are offset by their
 count.  An MTP config gets the reference's ``mtp`` subtree (projection,
 one block, norm); nothing at serving reads it, and its loss is training's.
-Encoder-decoder stacks and modality frontends raise, naming ROADMAP A6/A7.
+Encoder-decoder models live in :mod:`.encdec` and raise here; modality
+frontends raise, naming ROADMAP A6/A7.
 Training (``lm_loss``, the MTP loss) is ROADMAP A9.
 """
 from __future__ import annotations
@@ -146,11 +147,15 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator,
 
 
 def _check_supported(cfg: ModelConfig) -> None:
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            f"{cfg.name} is an encoder-decoder model: its stack is "
+            "models/encdec.py (Model routes it there)")
     if (cfg.family not in ("dense", "moe", "ssm", "hybrid")
             or cfg.frontend is not None):
         raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) needs an encoder-decoder stack or a "
-            "modality frontend; not ported yet (ROADMAP A6/A7)")
+            f"{cfg.name} ({cfg.family}) needs a modality frontend; not "
+            "ported yet (ROADMAP A6/A7)")
 
 
 def layer_params(tree: Any, li: int) -> Any:

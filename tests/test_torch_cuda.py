@@ -1318,3 +1318,96 @@ def test_deepseek_paged_decode_step_graph_is_bit_equal_to_the_eager_step(
         engine.run(200)
         outputs[paged] = [tuple(r.output) for r in reqs]
     assert outputs[True] == outputs[False]
+
+
+# ---- the encoder-decoder facade (Whisper) -----------------------------------------------
+
+def _whisper_case(cuda, dtype, batch=3, prompt=4, cache_len=32):
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    cfg = dataclasses.replace(get_config("whisper-medium", smoke=True),
+                              dtype=dtype)
+    g = torch.Generator(device=cuda).manual_seed(22)
+    params = Model(cfg).init(g, cuda)
+    fe = cfg.frontend
+    inputs = {"frames": torch.randn(batch, fe.n_tokens, fe.feat_dim,
+                                    generator=g, device=cuda).to(dtype),
+              "tokens": torch.randint(1, cfg.vocab_size, (batch, prompt),
+                                      generator=g, device=cuda)}
+    return cfg, params, inputs, cache_len
+
+
+def _rel_l2(got, want):
+    return float((got.float() - want.float()).norm()
+                 / want.float().norm().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_whisper_kernel_route_matches_the_plain_route(cuda, dtype):
+    """The smoke Whisper facade: prefill (the decoder's causal
+    self-attention through flash_attention) and 6 decode ticks (its
+    self-attention through decode_attention) on the kernel route against
+    the plain route, both fed the plain route's greedy tokens: fp32 the
+    same greedy tokens and logits within 1e-5 of max|plain|, bf16 relative
+    L2 <= 2e-2.  Prints the step at which the two routes' greedy choices
+    first differ, where free-running greedy streams would part."""
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.models import Model
+    cfg, params, inputs, cache_len = _whisper_case(cuda, dtype)
+    flash0, dec0 = fops.launches, dops.launches
+    kernel, plain = Model(cfg, use_kernels=True), Model(cfg, use_kernels=False)
+    got, k_caches = kernel.prefill(params, inputs, cache_len=cache_len)
+    want, p_caches = plain.prefill(params, inputs, cache_len=cache_len)
+    pairs = [(got, want)]
+    for i in range(6):
+        tok = want.argmax(-1)
+        pos = torch.full((tok.shape[0],), inputs["tokens"].shape[1] + i,
+                         dtype=torch.int32, device=cuda)
+        got, k_caches = kernel.decode(params, tok, k_caches, pos)
+        want, p_caches = plain.decode(params, tok, p_caches, pos)
+        pairs.append((got, want))
+    assert fops.launches - flash0 == cfg.n_dec_layers
+    assert dops.launches - dec0 == 6 * cfg.n_dec_layers
+    # before this step the two routes' free-running greedy streams agree
+    parted = next((i for i, (got, want) in enumerate(pairs)
+                   if not torch.equal(got.argmax(-1), want.argmax(-1))), None)
+    print(f"whisper smoke {dtype}: per-step rel_l2 "
+          f"{[round(_rel_l2(*p), 6) for p in pairs]}; the kernel route's "
+          f"greedy choice first differs at step {parted} (0 = prefill)")
+    for got, want in pairs:
+        assert bool(torch.isfinite(got).all())
+        if dtype == torch.float32:
+            assert torch.equal(got.argmax(-1), want.argmax(-1))
+            _assert_kernel_close(got, want)
+        else:
+            assert _rel_l2(got, want) <= 2e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_whisper_decode_step_graph_is_bit_equal_to_the_eager_step(cuda,
+                                                                  dtype):
+    """The smoke Whisper decode step recorded into a CUDA graph (token and
+    position as its inputs, the caches written in place) gives the eager
+    step's logits and self K/V bit for bit, at two positions."""
+    from repro_torch.models import Model
+    cfg, params, inputs, cache_len = _whisper_case(cuda, dtype)
+    model = Model(cfg, use_kernels=True)
+    logits, caches = model.prefill(params, inputs, cache_len=cache_len)
+    tok = logits.argmax(-1)
+    b = tok.shape[0]
+
+    def step(token, pos):
+        return [model.decode(params, token, caches, pos)[0]]
+
+    pos = torch.full((b,), 4, dtype=torch.int32, device=cuda)
+    replay = CudaGraphReplay(step, [tok, pos])
+    for p in (4, 5):
+        pos = torch.full((b,), p, dtype=torch.int32, device=cuda)
+        graph_logits = replay([tok, pos])[0]
+        k_graph = caches[0][0][:, :, p].clone()
+        eager = model.decode(params, tok, caches, pos)[0]
+        assert torch.equal(graph_logits, eager)
+        assert torch.equal(k_graph, caches[0][0][:, :, p])
+        tok = eager.argmax(-1)

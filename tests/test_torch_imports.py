@@ -82,12 +82,16 @@ def _entry_points():
         "Session": lambda: Session(),
         "bridge": lambda: bridge.from_numpy({"w": np.zeros(2, np.float32)}),
         "Model.init": lambda: Model(cfg).init(torch.Generator().manual_seed(0)),
+        "Model.init encdec": lambda: Model(
+            get_config("whisper-medium", smoke=True)).init(
+                torch.Generator().manual_seed(0)),
         "serve": lambda: serve.main(["--requests", "1"]),
     }
 
 
 @pytest.mark.parametrize("entry", ["init_lm", "Session", "bridge",
-                                   "Model.init", "serve"])
+                                   "Model.init", "Model.init encdec",
+                                   "serve"])
 def test_entry_points_raise_without_a_card_unless_asked_for_cpu(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the entry point runs on it")

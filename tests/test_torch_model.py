@@ -176,9 +176,11 @@ def test_model_facade_raises_for_what_is_not_ported():
                  model.init_shapes):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
+    # the vlm frontend (llava) is the family still to port
     with pytest.raises(NotImplementedError, match="A6"):
-        Model(dataclasses.replace(tcfg, family="encdec")).prefill(
-            {}, {"tokens": torch.zeros((1, 2), dtype=torch.long)})
+        Model(dataclasses.replace(tcfg, family="vlm")).prefill(
+            {}, {"tokens": torch.zeros((1, 2), dtype=torch.long),
+                 "extra_embeds": torch.zeros((1, 2, tcfg.d_model))})
 
 
 def test_model_init_matches_the_reference_tree():
