@@ -4,8 +4,7 @@
     cfg = get_config("qwen2-0.5b")           # full production config
     cfg = get_config("qwen2-0.5b", smoke=True)
 
-Only the architectures whose exporter path is ported are registered; the
-JAX package's other architectures raise a ``KeyError`` that says so.
+Every architecture of the JAX package is registered.
 """
 from __future__ import annotations
 
@@ -33,10 +32,8 @@ _ARCH_MODULES = {
     "glm4-9b": "glm4_9b",
     "hymba-1.5b": "hymba_1_5b",
     "whisper-medium": "whisper_medium",
+    "llava-next-mistral-7b": "llava_next_mistral_7b",
 }
-
-# registered in the JAX package, not ported yet (ROADMAP queue A6/A7)
-_NOT_PORTED = ("llava-next-mistral-7b",)
 
 
 def list_archs() -> list[str]:
@@ -45,9 +42,6 @@ def list_archs() -> list[str]:
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:
     if arch not in _ARCH_MODULES:
-        if arch in _NOT_PORTED:
-            raise KeyError(f"arch {arch!r} is not ported to repro_torch yet "
-                           f"(ROADMAP A6); ported: {list(_ARCH_MODULES)}")
         raise KeyError(f"unknown arch {arch!r}; known: {list(_ARCH_MODULES)}")
     mod = importlib.import_module(f".{_ARCH_MODULES[arch]}", __package__)
     return mod.SMOKE if smoke else mod.CONFIG

@@ -11,19 +11,22 @@ kernel on its paged decode only (the MLA form of the paged-decode kernel);
 its prefill and dense decode are the plain latent attention, and
 ``use_kernels`` routes its two norms through the rmsnorm kernel.  Each
 wrapper runs its plain version on CPU tensors.  Otherwise the plain math of
-:func:`_sdpa` runs.
+:func:`_sdpa` runs, and above ``CHUNK_THRESHOLD`` (s·s) the plain GQA
+prefill and the MLA prefill on either route run
+:func:`chunked_attention`, the JAX package's flash-structured forward, so
+no ``[S, T]`` buffer is made for a long prompt.
 
 Caches are written in place (``index_put_`` on the preallocated tensors)
 and returned: a CUDA graph replays against fixed addresses, so the decode
 step must update the static cache rather than build a new one.  MLA caches
 the compressed latent: ``(c_kv [.., rank], k_rope [.., rope])`` per layer.
 
-Not ported: the flash-structured ``chunked_attention`` of long prefill (its
-custom VJP comes with training, A9; the plain path raises above its
-threshold instead) and the JAX package's ``REPRO_*`` performance flags
-(their defaults are what runs here: the where-style cache update, and no
-int8 latent cache, so the JAX engine's refusal of ``kv_quant`` on paged MLA
-has nothing to refuse here).
+Not ported: ``chunked_attention``'s backward (its custom VJP comes with
+training, A9), the roofline hook that forces one chunk (A10) and the JAX
+package's ``REPRO_*`` performance flags (their defaults are what runs here:
+no causal chunk skip, the where-style cache update, and no int8 latent
+cache, so the JAX engine's refusal of ``kv_quant`` on paged MLA has nothing
+to refuse here).
 """
 from __future__ import annotations
 
@@ -33,8 +36,8 @@ from ..configs.base import ModelConfig
 from .layers import apply_norm, apply_rope, init_linear, init_norm, linear
 
 NEG_INF = -1e30
-# s·t above which the JAX package's plain path switches to
-# chunked_attention (not ported); the port's plain path raises there
+# s·t above which the plain path never makes an [S, T] buffer and runs
+# chunked_attention instead
 CHUNK_THRESHOLD = 1 << 22
 
 
@@ -45,10 +48,6 @@ def causal_window_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
     if window is not None:
         m &= k_pos[None, :] > (q_pos[:, None] - window)
     return m
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
 def init_gqa(generator: torch.Generator, cfg: ModelConfig, *,
@@ -84,6 +83,94 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, s, h, dv).to(q.dtype)
 
 
+# -- chunked flash-structured attention (plain torch, long prompts) ----------
+
+def _chunk_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
+                window: float) -> torch.Tensor:
+    """[qc, kc] boolean from absolute positions: causal, and within
+    ``window`` when it is > 0 (compared in fp32, as the JAX package
+    compares)."""
+    mask = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                      device=q_pos.device)
+    if causal:
+        mask = mask & (k_pos[None, :] <= q_pos[:, None])
+    if window > 0:
+        mask = mask & (k_pos[None, :].float()
+                       > q_pos[:, None].float() - window)
+    return mask
+
+
+def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               window: float, *, causal: bool, scale: float, qc: int,
+               kc: int):
+    """Online-softmax forward over ``q [B,S,H,Dk]``, ``k [B,T,KVH,Dk]``,
+    ``v [B,T,KVH,Dv]`` in chunks of ``qc`` queries and ``kc`` keys (the
+    last of each may be short) → (out [B,S,H,Dv] in q's dtype, lse [B,H,S]
+    fp32).  The query heads are grouped ``[KVH, G]`` over their shared KV
+    head, so no repeated K/V is made; logits accumulate in fp32 over the
+    operands' own values, and the unnormalised probabilities are rounded
+    to v's dtype before the PV product, as the JAX package's ``_flash_fwd``
+    does (ROADMAP C8)."""
+    b, s, h, dk = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    g = h // kvh
+    dev = q.device
+    outs, lses = [], []
+    for q0 in range(0, s, qc):
+        n = min(qc, s - q0)
+        qblk = q[:, q0:q0 + n].reshape(b, n, kvh, g, dk).float()
+        q_pos = torch.arange(q0, q0 + n, device=dev)
+        m = torch.full((b, kvh, g, n), NEG_INF, device=dev)
+        l = torch.zeros((b, kvh, g, n), device=dev)
+        acc = torch.zeros((b, kvh, g, n, dv), device=dev)
+        for k0 in range(0, t, kc):
+            k_pos = torch.arange(k0, min(k0 + kc, t), device=dev)
+            logits = torch.einsum("bckgd,btkd->bkgct", qblk,
+                                  k[:, k0:k0 + kc].float()) * scale
+            mask = _chunk_mask(q_pos, k_pos, causal, window)
+            logits = torch.where(mask, logits, NEG_INF)
+            m_new = torch.maximum(m, logits.amax(-1))
+            p = torch.exp(logits - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1)
+            pv = torch.einsum("bkgct,btkd->bkgcd", p.to(v.dtype).float(),
+                              v[:, k0:k0 + kc].float())
+            acc = acc * alpha[..., None] + pv
+            m = m_new
+        # a row that sees no key (its window starting past the last key)
+        # weighs every key alike; the JAX package pads K/V to a chunk
+        # multiple, so it divides by the padded length
+        l = torch.where(m == NEG_INF, l + (-t % kc), l)
+        l_safe = l.clamp_min(1e-30)
+        out = acc / l_safe[..., None]                     # [b,kvh,g,n,dv]
+        outs.append(out.permute(0, 3, 1, 2, 4).reshape(b, n, h, dv)
+                    .to(q.dtype))
+        lses.append((m + torch.log(l_safe)).reshape(b, h, n))
+    return torch.cat(outs, 1), torch.cat(lses, 2)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: int | None = None,
+                      scale: float | None = None, q_chunk: int = 2048,
+                      kv_chunk: int = 2048) -> torch.Tensor:
+    """The JAX package's flash-structured attention forward in plain torch:
+    O(S·chunk) memory, the whole ``[S, T]`` logits never made.
+
+    q: [B,S,H,Dk]; k: [B,T,KVH,Dk]; v: [B,T,KVH,Dv] → [B,S,H,Dv].  The
+    last Q and KV chunks are short where S, T are no chunk multiple;
+    ``window`` <= 0 or >= 2^29 (or None) disables the window."""
+    s, dk = q.shape[1], q.shape[-1]
+    t = k.shape[1]
+    scale = dk ** -0.5 if scale is None else scale
+    w = 0.0 if window is None else float(window)
+    if w >= float(1 << 29):
+        w = 0.0
+    out, _ = _flash_fwd(q, k, v, w, causal=causal, scale=float(scale),
+                        qc=min(q_chunk, s), kc=min(kv_chunk, t))
+    return out
+
+
 def _qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,
          positions: torch.Tensor):
     b, s, _ = x.shape
@@ -107,8 +194,7 @@ def gqa_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig,
         from ..kernels.flash_attention import flash_attention
         out = flash_attention(q, k, v, causal=True, window=window or 0)
     elif s * s > CHUNK_THRESHOLD:
-        raise _not_ported(f"prefill of {s} tokens (s·s > 2^22 runs the JAX "
-                          "package's chunked_attention)", "A9")
+        out = chunked_attention(q, k, v, causal=True, window=window)
     else:
         mask = causal_window_mask(positions[0], positions[0], window)
         out = _sdpa(q, k, v, mask)
@@ -258,18 +344,24 @@ def _mla_scale(cfg: ModelConfig) -> float:
 
 def mla_attention(p: dict, q_nope: torch.Tensor, q_rope: torch.Tensor,
                   c_kv: torch.Tensor, k_rope: torch.Tensor, cfg: ModelConfig,
-                  mask: torch.Tensor | None = None) -> torch.Tensor:
+                  mask: torch.Tensor | None = None,
+                  chunked: bool = False) -> torch.Tensor:
     """Latent attention in the absorbed form: MLA is GQA with ONE shared
     latent KV head.  ``q_lat = q_nope · W_kbᵀ`` per head, then
     ``[q_lat ‖ q_rope]`` attends ``[c_kv ‖ k_rope]`` with ``V = c_kv``
     (Dk = rank + rope, Dv = rank) and the output goes up through ``wv_b``
-    and ``wo``."""
+    and ``wo``.  ``chunked`` runs the causal :func:`chunked_attention`
+    instead of ``_sdpa`` under ``mask``."""
     from ..kernels.paged_decode.ref import absorb_query
     q_lat = absorb_query(q_nope, _wk_b(p, cfg))
     q_cat = torch.cat([q_lat, q_rope], dim=-1)            # [B,S,H,rank+rope]
     k_cat = torch.cat([c_kv, k_rope], dim=-1)[:, :, None, :]
-    lat = _sdpa(q_cat, k_cat, c_kv[:, :, None, :], mask,
-                scale=_mla_scale(cfg))                    # [B,S,H,rank]
+    if chunked:
+        lat = chunked_attention(q_cat, k_cat, c_kv[:, :, None, :],
+                                causal=True, scale=_mla_scale(cfg))
+    else:
+        lat = _sdpa(q_cat, k_cat, c_kv[:, :, None, :], mask,
+                    scale=_mla_scale(cfg))                # [B,S,H,rank]
     return _mla_out(p, lat, cfg)
 
 
@@ -277,14 +369,14 @@ def mla_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig,
                 positions: torch.Tensor, use_kernels: bool = False):
     """Returns (attn_out [B,S,d_model], (c_kv [B,S,rank], k_rope
     [B,S,rope])).  Plain latent attention on either route, as in the JAX
-    package."""
+    package: chunked above ``CHUNK_THRESHOLD``."""
     s = x.shape[1]
-    if s * s > CHUNK_THRESHOLD:
-        raise _not_ported(f"MLA prefill of {s} tokens (s·s > 2^22 runs the "
-                          "JAX package's chunked_attention)", "A9")
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, cfg, positions, use_kernels)
-    mask = causal_window_mask(positions[0], positions[0], None)
-    y = mla_attention(p, q_nope, q_rope, c_kv, k_rope, cfg, mask=mask)
+    if s * s > CHUNK_THRESHOLD:
+        y = mla_attention(p, q_nope, q_rope, c_kv, k_rope, cfg, chunked=True)
+    else:
+        mask = causal_window_mask(positions[0], positions[0], None)
+        y = mla_attention(p, q_nope, q_rope, c_kv, k_rope, cfg, mask=mask)
     return y, (c_kv, k_rope)
 
 

@@ -8,7 +8,9 @@
 as the JAX package's ``models/model.py`` does for the decoder LM (dense,
 MoE, hybrid and RWKV-6 stacks, GQA or MLA attention; RWKV keeps recurrent
 state instead of KV, a hybrid (Hymba) stack KV beside its Mamba state, MLA
-a compressed latent cache) and for the encoder-decoder family (Whisper:
+a compressed latent cache; a vlm's (llava) ``prefill`` also reads
+precomputed patch embeddings ``inputs["extra_embeds"]``) and for the
+encoder-decoder family (Whisper:
 ``prefill`` reads ``inputs["frames"]`` and ``inputs["tokens"]``, the caches
 are the decoder's self K/V and the cross-attention K/V, see
 :mod:`.encdec`).  The
@@ -18,7 +20,7 @@ the caches in place (what a CUDA graph of the step needs) and returns them.
 
 Not ported: ``loss`` (training, ROADMAP A9) and the dry-run helpers
 ``input_specs``, ``decode_state_specs`` and ``init_shapes`` (ROADMAP A10);
-they raise.  Multimodal prefill (``extra_embeds``) raises (ROADMAP A6/A7).
+they raise.
 """
 from __future__ import annotations
 
@@ -51,11 +53,8 @@ class Model:
                                      inputs["tokens"], self.cfg,
                                      cache_len or inputs["tokens"].shape[1],
                                      self.use_kernels)
-        if "extra_embeds" in inputs:
-            raise NotImplementedError("multimodal prefill is not ported yet "
-                                      "(ROADMAP A6/A7)")
         return tf.lm_prefill(params, inputs["tokens"], self.cfg, cache_len,
-                             self.use_kernels)
+                             self.use_kernels, inputs.get("extra_embeds"))
 
     def decode(self, params, token: torch.Tensor, caches,
                pos: torch.Tensor):

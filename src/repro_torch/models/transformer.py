@@ -20,8 +20,11 @@ A config with meta tokens (Hymba) gets the reference's learned ``meta``
 rows, prepended to every prompt; decode positions are offset by their
 count.  An MTP config gets the reference's ``mtp`` subtree (projection,
 one block, norm); nothing at serving reads it, and its loss is training's.
-Encoder-decoder models live in :mod:`.encdec` and raise here; modality
-frontends raise, naming ROADMAP A6/A7.
+A vision-language config (llava) gets the reference's ``frontend``
+projector (two linears with a tanh GELU between): prefill takes
+precomputed patch embeddings ``extra_embeds`` and prepends their
+projection to the text, positions running over ``[image ‖ text]``.
+Encoder-decoder models live in :mod:`.encdec` and raise here.
 Training (``lm_loss``, the MTP loss) is ROADMAP A9.
 """
 from __future__ import annotations
@@ -34,8 +37,8 @@ from ..configs.base import ModelConfig
 from .attention import (attn_decode, attn_paged_decode, attn_prefill,
                         init_attention, init_cache, init_paged_cache)
 from .ffn import ffn, init_ffn, init_mlp, mlp
-from .layers import (apply_norm, check_device, embed, init_embedding,
-                     init_linear, init_norm, unembed)
+from .layers import (apply_norm, check_device, embed, gelu, init_embedding,
+                     init_linear, init_norm, linear, unembed)
 from .ssm import (init_mamba, init_rwkv_channel_mix, init_rwkv_time_mix,
                   mamba_seq, mamba_state_init, rwkv_channel_mix,
                   rwkv_state_init, rwkv_time_mix_seq)
@@ -143,6 +146,15 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator,
                                 device=device),
             "norm": init_norm(d, cfg.norm, cfg.dtype, device=device),
         }
+    if cfg.frontend is not None:
+        # llava's 2-layer projector from the patch features to d_model
+        fe = cfg.frontend
+        p["frontend"] = {
+            "proj1": init_linear(generator, fe.feat_dim, cfg.d_model, True,
+                                 cfg.dtype, device=device),
+            "proj2": init_linear(generator, cfg.d_model, cfg.d_model, True,
+                                 cfg.dtype, device=device),
+        }
     return p
 
 
@@ -151,11 +163,6 @@ def _check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name} is an encoder-decoder model: its stack is "
             "models/encdec.py (Model routes it there)")
-    if (cfg.family not in ("dense", "moe", "ssm", "hybrid")
-            or cfg.frontend is not None):
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) needs a modality frontend; not "
-            "ported yet (ROADMAP A6/A7)")
 
 
 def layer_params(tree: Any, li: int) -> Any:
@@ -283,10 +290,25 @@ def _layer_cache(cache, li: int):
     return cache[li]
 
 
-def _embed_inputs(params: dict, tokens: torch.Tensor,
-                  cfg: ModelConfig) -> torch.Tensor:
-    """tokens [B,S] → [B,S',d], the meta rows (if any) prepended."""
+def _project_frontend(fe: dict, e: torch.Tensor) -> torch.Tensor:
+    """``proj2(gelu(proj1(e)))`` in the promoted dtype of ``e`` and the
+    weights (the JAX package's mixed-dtype einsums promote so)."""
+    dt = torch.promote_types(e.dtype, fe["proj1"]["w"].dtype)
+
+    def lin(p, h):
+        return linear({k: w.to(dt) for k, w in p.items()}, h)
+    return lin(fe["proj2"], gelu(lin(fe["proj1"], e.to(dt))))
+
+
+def _embed_inputs(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+                  extra_embeds: torch.Tensor | None = None) -> torch.Tensor:
+    """tokens [B,S] → [B,S',d]: the projected modality embeddings
+    ``extra_embeds`` [B,N,feat] (if any) prepended, then the meta rows (if
+    any) before everything."""
     x = embed(params["embed"], tokens)
+    if extra_embeds is not None:
+        e = _project_frontend(params["frontend"], extra_embeds)
+        x = torch.cat([e.to(x.dtype), x], dim=1)
     if cfg.meta_tokens:
         meta = params["meta"].to(x.dtype).expand(x.shape[0], -1, -1)
         x = torch.cat([meta, x], dim=1)
@@ -294,13 +316,15 @@ def _embed_inputs(params: dict, tokens: torch.Tensor,
 
 
 def lm_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
-               use_kernels: bool = False, with_cache: bool = True):
+               use_kernels: bool = False, with_cache: bool = True,
+               extra_embeds: torch.Tensor | None = None):
     """Prefill forward → (logits [B,S',V] fp32, caches): per stack ``(k,
     v)`` each ``[L,B,S',KVH,D]``, the hybrid dict of those and the Mamba
     state, or the RWKV state leaves ``[L,B,...]`` (None without
-    ``with_cache``).  S' counts the meta tokens."""
+    ``with_cache``).  S' counts the meta tokens and the ``extra_embeds``
+    rows."""
     _check_supported(cfg)
-    x = _embed_inputs(params, tokens, cfg)
+    x = _embed_inputs(params, tokens, cfg, extra_embeds)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     caches = []
@@ -321,10 +345,12 @@ def lm_loss(*args, **kwargs):
 
 
 def lm_prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
-               cache_len: int | None = None, use_kernels: bool = False):
+               cache_len: int | None = None, use_kernels: bool = False,
+               extra_embeds: torch.Tensor | None = None):
     """Prefill → (last-token logits [B,V], caches): KV caches zero-padded to
     ``cache_len``; recurrent state (no sequence axis) as it is."""
-    logits, caches = lm_forward(params, tokens, cfg, use_kernels)
+    logits, caches = lm_forward(params, tokens, cfg, use_kernels,
+                                extra_embeds=extra_embeds)
     if cache_len is not None:
         caches = [_pad_cache(c, cache_len) for c in caches]
     return logits[:, -1], caches

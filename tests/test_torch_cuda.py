@@ -1411,3 +1411,83 @@ def test_whisper_decode_step_graph_is_bit_equal_to_the_eager_step(cuda,
         assert torch.equal(graph_logits, eager)
         assert torch.equal(k_graph, caches[0][0][:, :, p])
         tok = eager.argmax(-1)
+
+
+# ---- chunked_attention and the vision-language facade (llava) -----------------------------
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h, kvh, dk, dv", [(32, 8, 128, 128),
+                                            (16, 1, 576, 512)],
+                         ids=["gqa", "mla"])
+def test_chunked_attention_matches_sdpa_on_the_card(cuda, h, kvh, dk, dv,
+                                                    dtype):
+    """The plain route's long-prompt attention against ``_sdpa`` (the
+    [S, T] route) on the same inputs, causal over 300 positions in chunks
+    of 64 (padding, several KV chunks): fp32 within 1e-5 of max|_sdpa|;
+    bf16 relative L2 <= 2e-2 (the probabilities are rounded unnormalised,
+    ROADMAP C8)."""
+    from repro_torch.models.attention import (_sdpa, causal_window_mask,
+                                              chunked_attention)
+    g = torch.Generator(device=cuda).manual_seed(h)
+    s = 300
+    q = torch.randn(2, s, h, dk, generator=g, device=cuda).to(dtype)
+    k = torch.randn(2, s, kvh, dk, generator=g, device=cuda).to(dtype)
+    v = torch.randn(2, s, kvh, dv, generator=g, device=cuda).to(dtype)
+    i = torch.arange(s, device=cuda)
+    for window in (None, 100):
+        got = chunked_attention(q, k, v, causal=True, window=window,
+                                q_chunk=64, kv_chunk=64)
+        want = _sdpa(q, k, v, causal_window_mask(i, i, window))
+        assert bool(torch.isfinite(got).all())
+        if dtype == torch.float32:
+            _assert_kernel_close(got, want)
+        else:
+            assert _rel_l2(got, want) <= 2e-2
+
+
+def _llava_case(cuda, dtype, patches, prompt, batch=2):
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    cfg = dataclasses.replace(get_config("llava-next-mistral-7b", smoke=True),
+                              dtype=dtype)
+    g = torch.Generator(device=cuda).manual_seed(23)
+    params = Model(cfg).init(g, cuda)
+    inputs = {"extra_embeds": torch.randn(
+                  batch, patches, cfg.frontend.feat_dim, generator=g,
+                  device=cuda).to(dtype),
+              "tokens": torch.randint(1, cfg.vocab_size, (batch, prompt),
+                                      generator=g, device=cuda)}
+    return cfg, params, inputs
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("patches, prompt", [(8, 7), (2040, 64)],
+                         ids=["short", "past-2048"])
+def test_llava_smoke_prefill_kernel_route_matches_the_plain_route(
+        cuda, dtype, patches, prompt):
+    """The smoke llava facade's prefill with patch embeddings: the kernel
+    route (flash on every layer) against the plain route (``_sdpa``, or
+    past 2048 positions ``chunked_attention``), last-token logits and K/V;
+    fp32 within 1e-5 of max|plain|, bf16 relative L2 <= 2e-2; then one
+    decode tick each from its own caches."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.models import Model
+    cfg, params, inputs = _llava_case(cuda, dtype, patches, prompt)
+    s = patches + prompt
+    kernel, plain = Model(cfg, use_kernels=True), Model(cfg, use_kernels=False)
+    flash0 = fops.launches
+    got, k_caches = kernel.prefill(params, inputs, cache_len=s + 4)
+    assert fops.launches - flash0 == cfg.n_layers
+    want, p_caches = plain.prefill(params, inputs, cache_len=s + 4)
+    pairs = [(got, want)] + list(zip(k_caches[0], p_caches[0]))
+    tok = want.argmax(-1)
+    pos = torch.full((tok.shape[0],), s, dtype=torch.int32, device=cuda)
+    pairs.append((kernel.decode(params, tok, k_caches, pos)[0],
+                  plain.decode(params, tok, p_caches, pos)[0]))
+    for got, want in pairs:
+        assert bool(torch.isfinite(got).all())
+        if dtype == torch.float32:
+            _assert_kernel_close(got, want)
+        else:
+            assert _rel_l2(got, want) <= 2e-2

@@ -117,8 +117,10 @@ def test_config_is_registered_and_matches_the_reference():
             full.n_heads, full.head_dim, full.d_ff, full.vocab_size,
             full.frontend.n_tokens) == ("encdec", 24, 24, 1024, 16, 64, 4096,
                                         51865, 1500)
-    with pytest.raises(KeyError, match="not ported"):
-        get_config("llava-next-mistral-7b")
+    # every architecture of the JAX package is registered, llava the last
+    assert get_config("llava-next-mistral-7b").family == "vlm"
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("llava-next")
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))

@@ -176,11 +176,18 @@ def test_model_facade_raises_for_what_is_not_ported():
                  model.init_shapes):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
-    # the vlm frontend (llava) is the family still to port
-    with pytest.raises(NotImplementedError, match="A6"):
-        Model(dataclasses.replace(tcfg, family="vlm")).prefill(
-            {}, {"tokens": torch.zeros((1, 2), dtype=torch.long),
-                 "extra_embeds": torch.zeros((1, 2, tcfg.d_model))})
+    # the vlm prefill (llava) passes its patch embeddings through: they are
+    # projected and prepended, one cache row each
+    vcfg = dataclasses.replace(get_config("llava-next-mistral-7b",
+                                          smoke=True), dtype=torch.float32)
+    vlm = Model(vcfg)
+    params = vlm.init(torch.Generator().manual_seed(0), "cpu")
+    images = torch.randn((1, 3, vcfg.frontend.feat_dim))
+    logits, caches = vlm.prefill(
+        params, {"tokens": torch.ones((1, 2), dtype=torch.long),
+                 "extra_embeds": images})
+    assert tuple(logits.shape) == (1, vcfg.vocab_size)
+    assert caches[0][0].shape[2] == 3 + 2
 
 
 def test_model_init_matches_the_reference_tree():
