@@ -162,7 +162,20 @@ Phases (any failure raises and the script exits non-zero):
      identical inputs, the whole model against the fp32 plain route, fp32 greedy
      choices never parting), prefill times on both routes, tick time and
      idle shares; then phase 6's serve trace dense and paged (text
-     prompts, as the reference's engine serves), held as GLM-4's.
+     prompts, as the reference's engine serves), held as GLM-4's;
+ 15. training (no kernel: the loss runs the plain route): the
+     ``chunked_attention`` backward at S = T = 2304 in chunks of 2048
+     against ``_sdpa``'s autograd at Qwen2-0.5B's, llava's and MLA's heads
+     (fp32 rtol = atol = 1e-4, bf16 relative L2 <= 2e-2; time and peak
+     memory of each route); one fp32 step of full-width Qwen2-0.5B at 2
+     layers on the card against the same step on the CPU (loss 1e-5, grad
+     leaves 1e-4, new params 1e-5); 30 steps of full-width, full-depth
+     Qwen2-0.5B through ``launch/train.py`` (batch 8, seq 512, bf16
+     params, fp32 moments: finite, falling loss; step ms, its split at the
+     grads, tokens/s, peak memory, idle share, model-FLOP share); one
+     step at seq 2304 (the chunked backward in every layer); a restart
+     at 2 layers (12 steps with checkpoints, resumed to 18, within 5e-3 of
+     18 uninterrupted steps).
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
 package; needs the repository's ``src/`` next to this file and a CUDA card.
@@ -175,6 +188,7 @@ import gc
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -212,6 +226,14 @@ HOLD_CYCLES = 1_000_000         # about 0.5 ms at the H100's clocks
 # the calibration disk tier stays inside the checkout (git-ignored)
 CALIB_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                          "calib")
+
+# calibration repeats of the routed MoE op graphs (phases 8 and 9): at full
+# width the repacked candidates give each expert GEMM a wave of its own (its
+# resource demand alone exceeds the cap), so they fuse nothing, and their
+# estimated makespans trail the fusing candidates' by 0.3-1%; the default 3
+# repeats leave per-op times noisy enough to flip that near-tie (ROADMAP
+# C17)
+MOE_CALIB_REPEATS = 20
 
 # fp32 CUDA-core peak (FLOP/s) per H100 part, NVIDIA H100 data sheet; bf16
 # peaks and memory bandwidth come from repro_torch.core.profiler's specs
@@ -2251,6 +2273,18 @@ def kimi_rounding_point(cfg, params, prompt: list[int],
         f"moved at {float((routed & ~kept).float().mean()):.4f}")
 
 
+def plan_choice(plan, stats: dict) -> str:
+    """The autotuner's pick, every candidate's estimated makespan and the
+    fused GEMM groups of the captured program, on one line."""
+    cands = ", ".join(f"{a}/{o}/{'repack' if r else 'plain'} {est:.3f}"
+                      for a, o, r, est in plan.candidates)
+    return (f"picked alloc {plan.alloc_policy} order {plan.order_policy} "
+            f"repack {plan.repacked} est {plan.est_makespan_us:.3f} us of "
+            f"n_candidates {plan.n_candidates} [{cands}]; n_branch_gemm "
+            f"{int(stats['n_branch_gemm'])} n_grouped_gemm "
+            f"{int(stats['n_grouped_gemm'])} of {int(stats['n_steps'])} steps")
+
+
 def moe_graph(cfg, params, seed: int, tag: str) -> dict:
     """The routed-MoE op graph (16 expert branches) through Session.compile
     into one CUDA graph, held against eager per-op execution."""
@@ -2275,12 +2309,18 @@ def moe_graph(cfg, params, seed: int, tag: str) -> dict:
     reset_launches()
     sess = Session(SessionConfig(autotune=True,
                                  sim_cfg=SimConfig(head_of_line=True),
+                                 calibration_repeats=MOE_CALIB_REPEATS,
                                  calib_dir=CALIB_DIR))
     t0 = time.perf_counter()
     model = sess.compile(graph, inputs={root: tokens(0)})
     compile_s = time.perf_counter() - t0
     exe = model.executable
     stats = exe.program_stats()
+    choice = plan_choice(model.plan, stats)
+    log(f"[{tag}] compile: {choice}")
+    if not stats["n_branch_gemm"] and not stats["n_grouped_gemm"]:
+        raise AssertionError(f"[{tag}] the autotuned plan fused no GEMM "
+                             f"group: {choice}")
     outputs = []
     for i in range(3):
         inputs = {"tokens": tokens(100 + i)}
@@ -2809,7 +2849,7 @@ def deepseek_long_prefill(cfg, params, seed: int, failures: list) -> None:
                                      _agreement(a_k, a_p)[0])
             x = x + a_p * cfg.residual_scale
             h = apply_norm(p["norm2"], x, cfg.norm, False)
-            f_k, f_p = (_ffn(p["ffn"], h, cfg, route, kind)
+            f_k, f_p = (_ffn(p["ffn"], h, cfg, route, kind)[0]
                         for route in (True, False))
             worst["ffn"] = max(worst["ffn"], _agreement(f_k, f_p)[0])
             x = x + f_p * cfg.residual_scale
@@ -3096,7 +3136,7 @@ def lm_blocks(cfg, params, prompt, extra_embeds=None) -> tuple:
 
     def block(p, window):
         def seq(h, route):
-            return block_seq(p, h, cfg, positions, window, route, kind)
+            return block_seq(p, h, cfg, positions, window, route, kind)[:2]
 
         def step(h, cache, route):
             cache = (_one_longer(cache) if isinstance(cache, tuple) else
@@ -4042,6 +4082,310 @@ def phase_llava(seed: int) -> dict:
             "serve": serve["launches"]}
 
 
+# =============================================================================
+# 15. training
+# =============================================================================
+
+# chunked_attention's backward past 2048 positions: S = T = 2304 in chunks
+# of 2048 (the last one short), at Qwen2-0.5B's, llava's and MLA's heads
+CHUNK_S, CHUNK = 2304, 2048
+CHUNK_HEADS = (("qwen2 14/2x64", 14, 2, 64, 64),
+               ("llava 32/8x128", 32, 8, 128, 128),
+               ("mla 128/1x576/512", 128, 1, 576, 512))
+# the reference's grad tolerance for chunked_attention against the naive
+# route (tests/test_kernels.py), fp32; bf16 by relative L2
+CHUNK_GRAD_TOL = 1e-4
+CHUNK_GRAD_REL_L2 = 2e-2
+# Qwen2-0.5B at full width: one fp32 step on the card against the same step
+# on the card machine's CPU (2 layers, batch 2, seq 256), then the trainer
+# at full depth (batch 8, seq 512, 30 steps, bf16 params, fp32 moments),
+# one step past 2048 positions (batch 1, seq 2304) and a restart (2
+# layers, 12 steps with a checkpoint every 6, resumed to 18, against 18
+# uninterrupted steps)
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 30, 8, 512
+TRAIN_TIMED = slice(10, 30)
+RESTART_BATCH, RESTART_SEQ = 4, 256
+# the reference's restart rule (tests/test_system.py)
+RESTART_TOL = 5e-3
+CKPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "train_ckpt")
+
+
+def chunked_backward_checks(gen: torch.Generator) -> None:
+    """chunked_attention's flash backward against the autograd of _sdpa on
+    the same inputs and output grads, causal at S = T = 2304: each route's
+    forward + backward time and peak memory."""
+    from repro_torch.models.attention import (_sdpa, causal_window_mask,
+                                              chunked_attention)
+    s = CHUNK_S
+    pos = torch.arange(s, device="cuda")
+    mask = causal_window_mask(pos, pos, None)
+    routes = {
+        "chunked": lambda q, k, v: chunked_attention(
+            q, k, v, causal=True, q_chunk=CHUNK, kv_chunk=CHUNK),
+        "sdpa": lambda q, k, v: _sdpa(q, k, v, mask)}
+    for label, h, kvh, dk, dv in CHUNK_HEADS:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, dout = (
+                torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                for shape in ((1, s, h, dk), (1, s, kvh, dk),
+                              (1, s, kvh, dv), (1, s, h, dv)))
+            grads, info = {}, {}
+            for name, fn in routes.items():
+                def fwd_bwd(fn=fn):
+                    tq, tk, tv = (t.detach().requires_grad_(True)
+                                  for t in (q, k, v))
+                    return torch.autograd.grad(fn(tq, tk, tv), (tq, tk, tv),
+                                               dout)
+                free_card()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                grads[name] = fwd_bwd()
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated() - base
+                info[name] = (cuda_ms(fwd_bwd, iters=3, warmup=1), peak)
+            errs = []
+            for got, want, what in zip(grads["chunked"], grads["sdpa"],
+                                       ("dq", "dk", "dv")):
+                if not bool(torch.isfinite(got).all()):
+                    raise AssertionError(f"[train-chunked] {label} "
+                                         f"{_dt(dtype)} {what} not finite")
+                if dtype == torch.float32:
+                    err = (got - want).abs()
+                    errs.append(f"{what} max|err| {float(err.max()):.3e}")
+                    if bool((err > CHUNK_GRAD_TOL
+                             + CHUNK_GRAD_TOL * want.abs()).any()):
+                        raise AssertionError(
+                            f"[train-chunked] {label} fp32 {what} past "
+                            f"rtol = atol = {CHUNK_GRAD_TOL}")
+                else:
+                    rel = _agreement(got, want)[0]
+                    errs.append(f"{what} rel_l2 {rel:.3e}")
+                    if not rel <= CHUNK_GRAD_REL_L2:
+                        raise AssertionError(
+                            f"[train-chunked] {label} bf16 {what} rel_l2 "
+                            f"{rel:.3e} > {CHUNK_GRAD_REL_L2}")
+            log(f"[train-chunked] {label} {_dt(dtype)} S=T={s} chunks of "
+                f"{CHUNK}: {', '.join(errs)}; forward+backward chunked "
+                f"{info['chunked'][0]:.3f} ms peak "
+                f"{info['chunked'][1] / 2**20:.0f} MiB, _sdpa "
+                f"{info['sdpa'][0]:.3f} ms peak "
+                f"{info['sdpa'][1] / 2**20:.0f} MiB (median of 3)")
+            del q, k, v, dout, grads
+    free_card()
+
+
+def fp32_step_card_vs_cpu(seed: int) -> None:
+    """One fp32 train step of full-width Qwen2-0.5B cut to 2 layers, from
+    the same params and batch, on the card and on this machine's CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.data import make_dataset
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw_init
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    cfg = dataclasses.replace(get_config("qwen2-0.5b"), n_layers=2,
+                              dtype=torch.float32)
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(seed), "cpu")
+    batch = {k: torch.from_numpy(v).long() for k, v in
+             make_dataset(cfg.vocab_size, 256, 2).batch_at(0).items()}
+    step = make_train_step(model, ParallelConfig(remat="none"),
+                           base_lr=1e-3, warmup=0, total_steps=10)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        t0 = time.perf_counter()
+        p = tree_map(lambda t: t.to(dev), params)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        loss, _, grads = loss_and_grads(model, p, b, seed)
+        new, _, _ = step(p, adamw_init(p), b, seed)
+        runs[dev] = (float(loss), [t.cpu() for t in tree_leaves(grads)],
+                     [t.cpu() for t in tree_leaves(new)])
+        log(f"[train-fp32] {dev}: loss {float(loss):.6f}, loss+grads and "
+            f"one step {time.perf_counter() - t0:.2f} s")
+        del p, b, grads, new
+    (l_cpu, g_cpu, p_cpu), (l_gpu, g_gpu, p_gpu) = runs["cpu"], runs["cuda"]
+    loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    grad_rel = max(_agreement(a, b)[0] for a, b in zip(g_gpu, g_cpu))
+    # the new params as one vector: a leaf that starts at zero (Qwen2's
+    # q/k/v biases) holds just AdamW's first update, lr·g/(|g|+eps), whose
+    # entries with grads near eps carry the grads' last bits, so that
+    # leaf's own relative error is reported beside the gate
+    param_rel = _agreement(torch.cat([t.reshape(-1) for t in p_gpu]),
+                           torch.cat([t.reshape(-1) for t in p_cpu]))[0]
+    leaf_rel = max(_agreement(a, b)[0] for a, b in zip(p_gpu, p_cpu))
+    log(f"[train-fp32] {cfg.name} d={cfg.d_model} 2 layers fp32 batch 2 seq "
+        f"256, card vs CPU: loss rel {loss_rel:.3e} (<= 1e-5), worst grad "
+        f"leaf rel_l2 {grad_rel:.3e} (<= 1e-4), new params rel_l2 "
+        f"{param_rel:.3e} (<= 1e-5; worst leaf {leaf_rel:.3e})")
+    if not (loss_rel <= 1e-5 and grad_rel <= 1e-4 and param_rel <= 1e-5):
+        raise AssertionError("[train-fp32] the card's step disagrees with "
+                             "the CPU's")
+    del runs, params
+    free_card()
+
+
+def profile_train_step(seed: int) -> None:
+    """The idle share of one full-depth bf16 train step (batch 8, seq 512)
+    from torch.profiler: device busy as the union of kernel intervals
+    against the step's wall time, and the largest kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.data import make_dataset
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw_init
+    cfg = get_config("qwen2-0.5b")
+    model = Model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed),
+                        "cuda")
+    opt = adamw_init(params)
+    step = make_train_step(model, ParallelConfig(remat="none"),
+                           base_lr=1e-3, warmup=10, total_steps=1000)
+    data = make_dataset(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH)
+
+    def one(i):
+        batch = {k: torch.from_numpy(v).to("cuda", torch.long)
+                 for k, v in data.batch_at(i).items()}
+        return step(params, opt, batch, i)
+    for i in range(2):
+        params, opt, metrics = one(i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt, metrics = one(2)
+        float(metrics["loss"])
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        log("[train-profile] torch.profiler recorded no device time")
+        return
+    busy_us, _ = busy_and_overlap([(e.time_range.start, e.time_range.end)
+                                   for e in kernels])
+    busy = busy_us / 1e3
+    log(f"[train-profile] one full-depth bf16 step (batch {TRAIN_BATCH}, seq "
+        f"{TRAIN_SEQ}): device busy {busy:.3f} ms of wall {wall_ms:.3f} ms "
+        f"(idle share {max(0.0, 1 - busy / wall_ms):.3f}), "
+        f"{len(kernels)} device events")
+    rows: dict = {}
+    for e in kernels:
+        ms, n = rows.get(e.name, (0.0, 0))
+        rows[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3,
+                        n + 1)
+    for name, (ms, n) in sorted(rows.items(), key=lambda r: -r[1][0])[:10]:
+        log(f"[train-profile] {ms:8.3f} ms {n:5d}x  {name[:90]}")
+    del params, opt
+    free_card()
+
+
+def phase_training(env: dict, gen: torch.Generator, seed: int) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+    from repro_torch.models import attention
+
+    chunked_backward_checks(gen)
+    fp32_step_card_vs_cpu(seed)
+
+    # -- the slice: the trainer at full width and depth ------------------------
+    cfg = get_config("qwen2-0.5b")
+    t0 = time.perf_counter()
+    res = train("qwen2-0.5b", smoke=False, steps=TRAIN_STEPS,
+                batch=TRAIN_BATCH, seq=TRAIN_SEQ, ckpt_dir=None, resume=False,
+                log_every=10, device="cuda")
+    wall_s = time.perf_counter() - t0
+    losses, norms = res["losses"], res["grad_norms"]
+    if len(losses) != TRAIN_STEPS or not all(
+            np.isfinite(losses)) or not all(np.isfinite(norms)):
+        raise AssertionError(f"[train] a loss or grad norm is not finite: "
+                             f"{losses} {norms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"[train] the loss did not fall: {losses}")
+    n_params = res["n_params"]
+    free_card()
+    step_ms = statistics.median(res["step_ms"][TRAIN_TIMED])
+    fb_ms = statistics.median(res["fwd_bwd_ms"][TRAIN_TIMED])
+    opt_ms = statistics.median(res["opt_ms"][TRAIN_TIMED])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = 6 * n_params * tokens
+    peak = env["hw"].peak_flops
+    log(f"[train] {cfg.name} full width and depth ({cfg.n_layers} layers, "
+        f"d={cfg.d_model}, vocab {cfg.vocab_size}, {n_params / 1e6:.1f} M "
+        f"params, {_dt(cfg.dtype)} params, fp32 moments), batch "
+        f"{TRAIN_BATCH} seq {TRAIN_SEQ}, {TRAIN_STEPS} steps in {wall_s:.1f} "
+        f"s: loss {losses[0]:.4f} -> {losses[-1]:.4f}, grad norm "
+        f"{norms[0]:.3f} -> {norms[-1]:.3f}")
+    log(f"[train] step ms over steps 10-29 (CUDA events, median): "
+        f"{step_ms:.3f} (forward+backward {fb_ms:.3f}, optimizer "
+        f"{opt_ms:.3f}); mean "
+        f"{statistics.mean(res['step_ms'][TRAIN_TIMED]):.3f}; "
+        f"{tokens / step_ms * 1e3:.0f} training tokens/s; peak memory "
+        f"{res['peak_mem_bytes'] / 2**30:.2f} GiB; 6*N*tokens "
+        f"{flops / 1e12:.2f} TFLOP a step, bound {flops / peak * 1e3:.3f} "
+        f"ms at {peak / 1e12:.0f} TFLOP/s, model-FLOP share "
+        f"{flops / peak / (step_ms / 1e3):.3f}")
+    profile_train_step(seed)
+
+    # -- one step past 2048 positions: chunked_attention in the model ----------
+    calls = {"bwd": 0}
+    flash_bwd = attention._flash_bwd
+
+    def counted(*args, **kwargs):
+        calls["bwd"] += 1
+        return flash_bwd(*args, **kwargs)
+    attention._flash_bwd = counted
+    try:
+        long = train("qwen2-0.5b", smoke=False, steps=1, batch=1,
+                     seq=CHUNK_S, ckpt_dir=None, resume=False,
+                     log_every=10, device="cuda")
+    finally:
+        attention._flash_bwd = flash_bwd
+    if not (np.isfinite(long["losses"][0])
+            and np.isfinite(long["grad_norms"][0])):
+        raise AssertionError(f"[train-long] not finite: {long['losses']} "
+                             f"{long['grad_norms']}")
+    if calls["bwd"] != cfg.n_layers:
+        raise AssertionError(f"[train-long] chunked backward ran "
+                             f"{calls['bwd']} times, {cfg.n_layers} layers")
+    log(f"[train-long] batch 1 seq {CHUNK_S}, full depth: loss "
+        f"{long['losses'][0]:.4f}, grad norm {long['grad_norms'][0]:.3f} "
+        f"(finite, so every grad is), chunked backward in "
+        f"{calls['bwd']} layers; the step {long['step_ms'][0]:.3f} ms "
+        f"(forward+backward {long['fwd_bwd_ms'][0]:.3f}; first step, CUDA "
+        f"events), peak memory {long['peak_mem_bytes'] / 2**30:.2f} GiB")
+    free_card()
+
+    # -- restart: 12 steps with checkpoints, resumed to 18, against 18 --------
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    kw = dict(smoke=False, batch=RESTART_BATCH, seq=RESTART_SEQ,
+              log_every=100, device="cuda", n_layers=2)
+    try:
+        t0 = time.perf_counter()
+        train("qwen2-0.5b", steps=12, ckpt_dir=CKPT_DIR, resume=False,
+              ckpt_every=6, **kw)
+        resumed = train("qwen2-0.5b", steps=18, ckpt_dir=CKPT_DIR,
+                        resume=True, ckpt_every=6, **kw)
+        restart_s = time.perf_counter() - t0
+        full = train("qwen2-0.5b", steps=18, ckpt_dir=None, resume=False,
+                     **kw)
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    gap = abs(resumed["last_loss"] - full["last_loss"])
+    log(f"[train-restart] full width, 2 layers, batch {RESTART_BATCH} seq "
+        f"{RESTART_SEQ}: 12 steps (checkpoints at 6 and 12) + resumed to 18 "
+        f"in {restart_s:.1f} s; last loss resumed {resumed['last_loss']:.6f} "
+        f"vs uninterrupted {full['last_loss']:.6f}: |diff| {gap:.3e} (<= "
+        f"{RESTART_TOL})")
+    if not gap <= RESTART_TOL:
+        raise AssertionError("[train-restart] the resumed run departs from "
+                             "the uninterrupted one")
+    free_card()
+    return {"step_ms": step_ms, "losses": losses}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4078,6 +4422,8 @@ def main() -> int:
     whisper = phase_whisper(args.seed)
     free_card()
     llava = phase_llava(args.seed)
+    free_card()
+    phase_training(env, gen, args.seed)
 
     for path, launches in (("main", main_path["launches"]["branch_gemm"]),
                            ("ragged", ragged["launches"]["grouped_gemm"]),

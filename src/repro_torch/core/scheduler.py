@@ -1,7 +1,10 @@
 """End-to-end Opara pipeline (paper Fig. 4) plus the autotune loop.
 
 A copy of the JAX package's ``core/scheduler.py``; only
-:func:`compile_plan` differs, calling this package's capturer.
+:func:`compile_plan` differs, calling this package's capturer, and
+:func:`autotune` also keeps every candidate's estimate on the plan
+(``SchedulePlan.candidates``) so a caller can log why it picked what it
+did.
 
 DNN model + inputs → Stream Allocator → Model Profiler → Operator Launcher
 → Wave (Re)packer → Graph Capturer → parallelized executable.
@@ -75,6 +78,9 @@ class SchedulePlan:
     est_makespan_us: float | None = None    # winning candidate's estimate
     autotune_ms: float = 0.0                # search wall time (0 = no search)
     n_candidates: int = 1                   # schedules evaluated
+    # autotune's static sweep, one (alloc, order, repacked, est µs) row per
+    # candidate in evaluation order (port only: the pick is logged with it)
+    candidates: tuple[tuple[str, str, bool, float], ...] = ()
     # -- iterative refinement provenance (:func:`refine`) -------------------
     refined: bool = False                   # refinement improved the plan
     refine_ms: float = 0.0                  # refinement wall time
@@ -554,10 +560,12 @@ def autotune(
     # whenever a repacked non-winner order would have beaten it).
     best: tuple[float, str, str, bool, Any, list[int], WaveSchedule | None] | None = None
     n_candidates = 0
+    candidates: list[tuple[str, str, bool, float]] = []
 
     def consider(est, ap, op_, rp, splan, cand_order, waves) -> None:
         nonlocal best, n_candidates
         n_candidates += 1
+        candidates.append((ap, op_, rp, est))
         if best is None or est < best[0]:
             best = (est, ap, op_, rp, splan, cand_order, waves)
 
@@ -593,7 +601,7 @@ def autotune(
         profile_time_ms=t_profile, wave_time_ms=t_waves,
         repacked=rp, sim_cfg=cfg, est_makespan_us=est,
         autotune_ms=(time.perf_counter() - t_search0) * 1e3,
-        n_candidates=n_candidates)
+        n_candidates=n_candidates, candidates=tuple(candidates))
     rcfg = _normalize_refine(refine)
     if rcfg is not None:
         plan = _refine_plan(plan, cfg=cfg, refine_cfg=rcfg,

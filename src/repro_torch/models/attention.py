@@ -21,12 +21,13 @@ and returned: a CUDA graph replays against fixed addresses, so the decode
 step must update the static cache rather than build a new one.  MLA caches
 the compressed latent: ``(c_kv [.., rank], k_rope [.., rope])`` per layer.
 
-Not ported: ``chunked_attention``'s backward (its custom VJP comes with
-training, A9), the roofline hook that forces one chunk (A10) and the JAX
-package's ``REPRO_*`` performance flags (their defaults are what runs here:
-no causal chunk skip, the where-style cache update, and no int8 latent
-cache, so the JAX engine's refusal of ``kv_quant`` on paged MLA has nothing
-to refuse here).
+``chunked_attention`` has the reference's flash backward (a
+``torch.autograd.Function``), so the training loss differentiates through
+long prompts in O(S·chunk) memory.  Not ported: the roofline hook that
+forces one chunk (A10) and the JAX package's ``REPRO_*`` performance
+flags (their defaults are what runs here: no causal chunk skip, the
+where-style cache update, and no int8 latent cache, so the JAX engine's
+refusal of ``kv_quant`` on paged MLA has nothing to refuse here).
 """
 from __future__ import annotations
 
@@ -150,12 +151,88 @@ def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat(outs, 1), torch.cat(lses, 2)
 
 
+def _flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+               window: float, *, causal: bool, scale: float, qc: int,
+               kc: int):
+    """FlashAttention backward, the JAX package's ``_flash_bwd_impl``:
+    ``D = rowsum(dout ⊙ out)``, then per (query chunk, key chunk) p is
+    recomputed from the saved ``lse`` and the ``ds``, ``dv``, ``dk`` and
+    ``dq`` contractions run in fp32, with p rounded to dout's dtype before
+    the dv product and ds to q's / k's before the dk / dq products, where
+    the reference rounds them.  The query heads stay grouped ``[KVH, G]``,
+    so the dk and dv contractions fold them onto their KV head (GQA, and
+    MLA's heads over one latent head).  Memory: fp32 dq, dk, dv and one
+    chunk pair's ``[B,H,qc,kc]`` buffers, O(S·chunk).
+    → (dq, dk, dv) in q's, k's and v's dtypes."""
+    b, s, h, dk = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    dv_dim = v.shape[-1]
+    g = h // kvh
+    dev = q.device
+    dsum = (dout.float() * out.float()).sum(-1)            # [b,s,h]
+    dq = torch.zeros((b, s, kvh, g, dk), device=dev)
+    dk_acc = torch.zeros((b, t, kvh, dk), device=dev)
+    dv_acc = torch.zeros((b, t, kvh, dv_dim), device=dev)
+    for q0 in range(0, s, qc):
+        n = min(qc, s - q0)
+        qblk = q[:, q0:q0 + n].reshape(b, n, kvh, g, dk)
+        doblk = dout[:, q0:q0 + n].reshape(b, n, kvh, g, dv_dim)
+        lse_i = lse[:, :, q0:q0 + n].reshape(b, kvh, g, n, 1)
+        dsum_i = dsum[:, q0:q0 + n].reshape(b, n, kvh, g).permute(
+            0, 2, 3, 1)[..., None]                          # [b,kvh,g,n,1]
+        q_pos = torch.arange(q0, q0 + n, device=dev)
+        qf, dof = qblk.float(), doblk.float()
+        for k0 in range(0, t, kc):
+            k_pos = torch.arange(k0, min(k0 + kc, t), device=dev)
+            kf = k[:, k0:k0 + kc].float()
+            logits = torch.einsum("bckgd,btkd->bkgct", qf, kf) * scale
+            mask = _chunk_mask(q_pos, k_pos, causal, window)
+            logits = torch.where(mask, logits, NEG_INF)
+            p = torch.exp(logits - lse_i)                   # [b,kvh,g,n,kc]
+            dp = torch.einsum("bckgd,btkd->bkgct", dof,
+                              v[:, k0:k0 + kc].float())
+            ds = p * (dp - dsum_i) * scale
+            dv_acc[:, k0:k0 + kc] += torch.einsum(
+                "bkgct,bckgd->btkd", p.to(dout.dtype).float(), dof)
+            dk_acc[:, k0:k0 + kc] += torch.einsum(
+                "bkgct,bckgd->btkd", ds.to(q.dtype).float(), qf)
+            dq[:, q0:q0 + n] += torch.einsum(
+                "bkgct,btkd->bckgd", ds.to(k.dtype).float(), kf)
+    return (dq.reshape(b, s, h, dk).to(q.dtype), dk_acc.to(k.dtype),
+            dv_acc.to(v.dtype))
+
+
+class _ChunkedAttention(torch.autograd.Function):
+    """:func:`_flash_fwd` forward saving ``out`` and ``lse``,
+    :func:`_flash_bwd` backward: the reference's flash custom VJP."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window: float, causal: bool, scale: float,
+                qc: int, kc: int):
+        out, lse = _flash_fwd(q, k, v, window, causal=causal, scale=scale,
+                              qc=qc, kc=kc)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (window, causal, scale, qc, kc)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        window, causal, scale, qc, kc = ctx.args
+        dq, dk, dv = _flash_bwd(q, k, v, out, lse, dout.contiguous(), window,
+                                causal=causal, scale=scale, qc=qc, kc=kc)
+        return dq, dk, dv, None, None, None, None, None
+
+
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, window: int | None = None,
                       scale: float | None = None, q_chunk: int = 2048,
                       kv_chunk: int = 2048) -> torch.Tensor:
-    """The JAX package's flash-structured attention forward in plain torch:
-    O(S·chunk) memory, the whole ``[S, T]`` logits never made.
+    """The JAX package's flash-structured attention in plain torch, with its
+    flash backward: O(S·chunk) memory forward and backward, the whole
+    ``[S, T]`` logits never made (p is recomputed from the saved
+    log-sum-exp).
 
     q: [B,S,H,Dk]; k: [B,T,KVH,Dk]; v: [B,T,KVH,Dv] → [B,S,H,Dv].  The
     last Q and KV chunks are short where S, T are no chunk multiple;
@@ -166,9 +243,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     w = 0.0 if window is None else float(window)
     if w >= float(1 << 29):
         w = 0.0
-    out, _ = _flash_fwd(q, k, v, w, causal=causal, scale=float(scale),
-                        qc=min(q_chunk, s), kc=min(kv_chunk, t))
-    return out
+    return _ChunkedAttention.apply(q, k, v, w, causal, float(scale),
+                                   min(q_chunk, s), min(kv_chunk, t))
 
 
 def _qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,

@@ -25,19 +25,23 @@ cross-attention are the plain :func:`~.attention._sdpa`, on either route.
 
 Reproduced on purpose (ROADMAP C15): :func:`encdec_decode` adds
 ``dec_pos[pos[0]]`` to every row, so a batch whose rows sit at different
-positions gives them all row 0's learned position.  Not ported: the
-training loss ``encdec_loss`` (ROADMAP A9).
+positions gives them all row 0's learned position.  :func:`encdec_loss`
+is the reference's training loss, with ``remat`` recomputing each layer in
+the backward.
 """
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from ..configs.base import ModelConfig
 from .attention import _sdpa, gqa_decode, gqa_prefill, init_gqa
 from .ffn import init_mlp, mlp
 from .layers import (_normal, apply_norm, check_device, embed, init_embedding,
                      init_linear, init_norm, linear, unembed)
-from .transformer import _layer_cache, _stack_caches, layer_params
+from .losses import softmax_xent
+from .transformer import (_layer_cache, _stack_caches, layer_list,
+                          layer_params)
 
 
 def init_encoder_block(generator: torch.Generator, cfg: ModelConfig, *,
@@ -161,32 +165,59 @@ def _n_layers(stack: dict) -> int:
     return stack["norm1"]["scale"].shape[0]
 
 
-def encode(params: dict, frames: torch.Tensor,
-           cfg: ModelConfig) -> torch.Tensor:
+def _run_layer(fn, remat: bool, *args):
+    """``fn(*args)``, its activations recomputed in the backward when
+    ``remat`` (the reference's ``jax.checkpoint`` around its scan body)."""
+    if remat:
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
+
+
+def encode(params: dict, frames: torch.Tensor, cfg: ModelConfig, *,
+           remat: bool = False) -> torch.Tensor:
     """frames: [B, T_frames, feat_dim] (precomputed stub embeddings) →
     the normed encoder output [B, T_frames, d]."""
     x = linear(params["frontend_proj"], frames)
     x = x + params["enc_pos"][None, : x.shape[1]]
     stack = params["enc_blocks"]
-    for li in range(_n_layers(stack)):
-        x = encoder_block(layer_params(stack, li), x, cfg)
+    for p_l in layer_list(stack, _n_layers(stack)):
+        x = _run_layer(lambda p_l, x: encoder_block(p_l, x, cfg), remat,
+                       p_l, x)
     return apply_norm(params["enc_norm"], x, cfg.norm)
 
 
 def decode_seq(params: dict, tokens: torch.Tensor, enc_out: torch.Tensor,
-               cfg: ModelConfig, use_kernels: bool = False):
+               cfg: ModelConfig, use_kernels: bool = False, *,
+               remat: bool = False):
     """Teacher-forced decoder pass → (logits [B,S,V] fp32, caches)."""
     b, s = tokens.shape
     x = embed(params["embed"], tokens) + params["dec_pos"][None, :s]
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     stack = params["dec_blocks"]
     caches = []
-    for li in range(_n_layers(stack)):
-        x, cache = decoder_block_seq(layer_params(stack, li), x, enc_out, cfg,
-                                     positions, use_kernels)
+    for p_l in layer_list(stack, _n_layers(stack)):
+        x, cache = _run_layer(
+            lambda p_l, x: decoder_block_seq(p_l, x, enc_out, cfg, positions,
+                                             use_kernels),
+            remat, p_l, x)
         caches.append(cache)
     x = apply_norm(params["dec_norm"], x, cfg.norm)
     return unembed(params["embed"], x), _stack_caches(caches)
+
+
+def encdec_loss(params: dict, batch: dict, cfg: ModelConfig,
+                generator: torch.Generator | None = None,
+                use_kernels: bool = False, remat: bool = False):
+    """Teacher-forced decoder CE over ``batch = {frames, tokens, labels}``
+    → (loss, ``{ce}``), the reference's ``encdec_loss``."""
+    from .transformer import _check_differentiable
+    _check_differentiable(batch["tokens"], use_kernels)
+    enc_out = encode(params, batch["frames"], cfg, remat=remat)
+    logits, _ = decode_seq(params, batch["tokens"], enc_out, cfg, use_kernels,
+                           remat=remat)
+    ce = softmax_xent(logits, batch["labels"])
+    return ce, {"ce": ce}
 
 
 def encdec_prefill(params: dict, frames: torch.Tensor, tokens: torch.Tensor,

@@ -24,8 +24,7 @@ import itertools
 import torch
 
 from ..configs.base import ModelConfig
-from ..kernels.moe_gemm.ref import bmm_f32
-from .layers import check_device, gelu, init_linear, linear
+from .layers import check_device, gelu, init_linear, linear, matmul_f32
 
 
 # -- dense MLP ----------------------------------------------------------------
@@ -144,9 +143,9 @@ def _expert_mlp(p_experts: dict, buf: torch.Tensor,
         return moe_mlp(buf, p_experts["gate"], p_experts["up"],
                        p_experts["down"])
     dt = buf.dtype
-    h = torch.nn.functional.silu(bmm_f32(buf, p_experts["gate"]).to(dt))
-    h = h * bmm_f32(buf, p_experts["up"]).to(dt)
-    return bmm_f32(h, p_experts["down"]).to(dt)
+    h = torch.nn.functional.silu(matmul_f32(buf, p_experts["gate"]).to(dt))
+    h = h * matmul_f32(buf, p_experts["up"]).to(dt)
+    return matmul_f32(h, p_experts["down"]).to(dt)
 
 
 def _one_hot(idx: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:

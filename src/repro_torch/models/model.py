@@ -1,6 +1,7 @@
 """Model facade: one object per architecture exposing
 
     init(generator, device)              → params
+    loss(params, batch)                  → (loss, metrics)
     prefill(params, inputs, cache_len)   → (last_logits, caches)
     decode(params, token, caches, pos)   → (logits, caches)
     init_paged_caches / paged_decode     → the paged-KV decode step
@@ -18,9 +19,9 @@ tensors' device is the device: params, inputs and caches stay where the
 caller put them, and nothing moves to the CPU on its own.  Decode writes
 the caches in place (what a CUDA graph of the step needs) and returns them.
 
-Not ported: ``loss`` (training, ROADMAP A9) and the dry-run helpers
-``input_specs``, ``decode_state_specs`` and ``init_shapes`` (ROADMAP A10);
-they raise.
+``loss(params, batch, generator, remat)`` is the training loss of every
+family.  Not ported: the dry-run helpers ``input_specs``,
+``decode_state_specs`` and ``init_shapes`` (ROADMAP A10); they raise.
 """
 from __future__ import annotations
 
@@ -80,12 +81,22 @@ class Model:
         return tf.lm_paged_decode(params, token, caches, block_tables, pos,
                                   self.cfg, self.use_kernels)
 
-    # -- training and dry-run: not ported ------------------------------------------
-    def loss(self, *args, **kwargs):
+    # -- training -----------------------------------------------------------------
+    def loss(self, params, batch: Mapping[str, Any],
+             generator: torch.Generator | None = None, remat: bool = False):
+        """→ (loss, metrics) on ``batch`` (``tokens``, ``labels``; the
+        encoder-decoder's ``frames``, a vlm's ``extra_embeds``).  The CUDA
+        kernels have no backward: on the card the loss needs a model built
+        with ``use_kernels=False``, as the trainer builds it, and raises
+        otherwise.  ``generator`` feeds the router noise, ``remat``
+        recomputes each layer in the backward."""
         if self.cfg.family == "encdec":
-            raise NotImplementedError("the encoder-decoder loss (encdec_loss) "
-                                      "is not ported yet (ROADMAP A9)")
-        return tf.lm_loss(*args, **kwargs)
+            return ed.encdec_loss(params, batch, self.cfg, generator,
+                                  self.use_kernels, remat)
+        return tf.lm_loss(params, batch, self.cfg, generator,
+                          self.use_kernels, remat)
+
+    # -- dry-run: not ported ----------------------------------------------------------
 
     def init_shapes(self, *args, **kwargs):
         raise NotImplementedError("dry-run param shapes are not ported yet "

@@ -24,6 +24,8 @@ The scan has no kernel in either package.  :func:`mamba_scan_ref` is the
 per-token loop of the JAX package; :func:`mamba_scan` computes the same
 recurrence with the discretised terms of every step made ahead of the loop
 and one in-place update of h a step, then contracts C after the loop.
+Serving runs :func:`mamba_scan`; when a grad is wanted (the training loss)
+:func:`mamba_seq` runs :func:`mamba_scan_ref`, whose steps are out of place.
 """
 from __future__ import annotations
 
@@ -263,7 +265,12 @@ def mamba_seq(p: dict, x: torch.Tensor, state, cfg: ModelConfig):
     delta = F.softplus(dt_raw.float()) + 1e-4                 # [B,T,1]
     a = -torch.exp(p["a_log"])                                # [di,N]
     xf = xi.float()
-    h_final, ys = mamba_scan(delta, xf, bmat.float(), cmat.float(), a, h0)
+    operands = (delta, xf, bmat.float(), cmat.float(), a, h0)
+    # mamba_scan updates its state history in place, which autograd
+    # refuses; under a loss the out-of-place per-token loop runs
+    scan = (mamba_scan_ref if torch.is_grad_enabled()
+            and any(t.requires_grad for t in operands) else mamba_scan)
+    h_final, ys = scan(*operands)
     y = ys + xf * p["d_skip"]
     y = y.to(x.dtype) * F.silu(z)
     return linear(p["out_proj"], y), (conv_state, h_final)

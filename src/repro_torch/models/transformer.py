@@ -25,13 +25,17 @@ projector (two linears with a tanh GELU between): prefill takes
 precomputed patch embeddings ``extra_embeds`` and prepends their
 projection to the text, positions running over ``[image ‖ text]``.
 Encoder-decoder models live in :mod:`.encdec` and raise here.
-Training (``lm_loss``, the MTP loss) is ROADMAP A9.
+Training: :func:`lm_loss` is the reference's next-token cross-entropy plus
+0.01 times the MoE layers' load-balancing loss, plus 0.3 times the MTP
+head's loss for MTP configs; ``remat`` recomputes each layer in the
+backward.
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 
 from ..configs.base import ModelConfig
 from .attention import (attn_decode, attn_paged_decode, attn_prefill,
@@ -39,9 +43,12 @@ from .attention import (attn_decode, attn_paged_decode, attn_prefill,
 from .ffn import ffn, init_ffn, init_mlp, mlp
 from .layers import (apply_norm, check_device, embed, gelu, init_embedding,
                      init_linear, init_norm, linear, unembed)
+from .losses import softmax_xent
 from .ssm import (init_mamba, init_rwkv_channel_mix, init_rwkv_time_mix,
                   mamba_seq, mamba_state_init, rwkv_channel_mix,
                   rwkv_state_init, rwkv_time_mix_seq)
+
+MTP_LOSS_WEIGHT = 0.3
 
 
 def layer_kinds(cfg: ModelConfig) -> list[tuple[str, int]]:
@@ -172,6 +179,18 @@ def layer_params(tree: Any, li: int) -> Any:
     return tree[li]
 
 
+def layer_list(tree: Any, n: int) -> list:
+    """The ``n`` layers of a stacked ``[L, ...]`` param tree as views, one
+    ``torch.unbind`` a leaf: under autograd each leaf's layer grads are
+    stacked once, where indexing layer by layer would scatter every
+    layer's grad into a zero tensor of the whole stack and add the L of
+    them."""
+    if isinstance(tree, dict):
+        parts = {k: layer_list(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
 def _window(w: int) -> int | None:
     return w if w > 0 else None
 
@@ -179,10 +198,12 @@ def _window(w: int) -> int | None:
 # ============================ block =========================================
 
 def _ffn(p: dict, x: torch.Tensor, cfg: ModelConfig, use_kernels: bool,
-         layer_kind: str) -> torch.Tensor:
+         layer_kind: str, generator: torch.Generator | None = None):
+    """→ (out, aux loss or None): the MoE layer's load-balancing loss."""
     if layer_kind == "dense_prefix":
-        return mlp(p, x, cfg.act)
-    return ffn(p, x, cfg, None, use_kernels)[0]
+        return mlp(p, x, cfg.act), None
+    out, aux = ffn(p, x, cfg, generator, use_kernels)
+    return out, aux.get("aux_loss")
 
 
 def _rwkv_block(p: dict, x: torch.Tensor, state: dict, cfg: ModelConfig,
@@ -199,14 +220,17 @@ def _rwkv_block(p: dict, x: torch.Tensor, state: dict, cfg: ModelConfig,
 
 def block_seq(p: dict, x: torch.Tensor, cfg: ModelConfig,
               positions: torch.Tensor, window: int | None,
-              use_kernels: bool = False, layer_kind: str = "dense"):
-    """Full-sequence block (prefill). Returns (x', cache): ``(k, v)``, the
-    hybrid ``{kv, mamba_conv, mamba_h}``, or the RWKV state ``{tm_x, tm_s,
-    cm_x}`` after the sequence."""
+              use_kernels: bool = False, layer_kind: str = "dense",
+              generator: torch.Generator | None = None):
+    """Full-sequence block (prefill and the training loss). Returns (x',
+    cache, aux): the cache ``(k, v)``, the hybrid ``{kv, mamba_conv,
+    mamba_h}``, or the RWKV state ``{tm_x, tm_s, cm_x}`` after the
+    sequence; ``aux`` the MoE layer's load-balancing loss, None for the
+    other kinds.  ``generator`` feeds the router noise."""
     if layer_kind == "rwkv":
         state = rwkv_state_init(cfg, x.shape[0], device=x.device)
         x, (tm_x, tm_s, cm_x) = _rwkv_block(p, x, state, cfg, use_kernels)
-        return x, {"tm_x": tm_x, "tm_s": tm_s, "cm_x": cm_x}
+        return x, {"tm_x": tm_x, "tm_s": tm_s, "cm_x": cm_x}, None
     h = apply_norm(p["norm1"], x, cfg.norm, use_kernels)
     attn_out, kv = attn_prefill(p["attn"], h, cfg, positions, window,
                                 use_kernels)
@@ -217,8 +241,8 @@ def block_seq(p: dict, x: torch.Tensor, cfg: ModelConfig,
         kv = {"kv": kv, "mamba_conv": conv, "mamba_h": m_h}
     x = x + attn_out * cfg.residual_scale
     h2 = apply_norm(p["norm2"], x, cfg.norm, use_kernels)
-    f_out = _ffn(p["ffn"], h2, cfg, use_kernels, layer_kind)
-    return x + f_out * cfg.residual_scale, kv
+    f_out, aux = _ffn(p["ffn"], h2, cfg, use_kernels, layer_kind, generator)
+    return x + f_out * cfg.residual_scale, kv, aux
 
 
 def block_step(p: dict, x: torch.Tensor, cache, pos: torch.Tensor,
@@ -245,7 +269,7 @@ def block_step(p: dict, x: torch.Tensor, cache, pos: torch.Tensor,
                                       use_kernels)
     x = x + attn_out * cfg.residual_scale
     h2 = apply_norm(p["norm2"], x, cfg.norm, use_kernels)
-    f_out = _ffn(p["ffn"], h2, cfg, use_kernels, layer_kind)
+    f_out, _ = _ffn(p["ffn"], h2, cfg, use_kernels, layer_kind)
     return x + f_out * cfg.residual_scale, cache
 
 
@@ -259,17 +283,20 @@ def block_step_paged(p: dict, x: torch.Tensor, pages,
                                         pos, cfg, window, use_kernels)
     x = x + attn_out * cfg.residual_scale
     h2 = apply_norm(p["norm2"], x, cfg.norm, use_kernels)
-    f_out = _ffn(p["ffn"], h2, cfg, use_kernels, layer_kind)
+    f_out, _ = _ffn(p["ffn"], h2, cfg, use_kernels, layer_kind)
     return x + f_out * cfg.residual_scale, pages
 
 
 # ============================ LM facade =====================================
 
+def _head_table(params: dict, cfg: ModelConfig) -> dict:
+    return params["embed"] if cfg.tie_embeddings else params["head"]
+
+
 def _head(params: dict, x: torch.Tensor, cfg: ModelConfig,
           use_kernels: bool) -> torch.Tensor:
     x = apply_norm(params["final_norm"], x, cfg.norm, use_kernels)
-    return unembed(params["embed"] if cfg.tie_embeddings else params["head"],
-                   x)
+    return unembed(_head_table(params, cfg), x)
 
 
 def _stack_caches(caches: list):
@@ -315,6 +342,44 @@ def _embed_inputs(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     return x
 
 
+def lm_hidden(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+              use_kernels: bool = False, with_cache: bool = True,
+              extra_embeds: torch.Tensor | None = None, *,
+              remat: bool = False,
+              generator: torch.Generator | None = None):
+    """The stacks over the embedded inputs → (hidden [B,S',d] before the
+    final norm, aux, caches): ``aux`` the sum of the MoE layers'
+    load-balancing losses (fp32, 0 without MoE layers), the caches as
+    :func:`lm_forward` returns them (None without ``with_cache``).
+    ``remat`` recomputes each layer's activations in the backward
+    (``torch.utils.checkpoint``, where the reference wraps its scan body in
+    ``jax.checkpoint``)."""
+    _check_supported(cfg)
+    x = _embed_inputs(params, tokens, cfg, extra_embeds)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    caches = []
+    for stack, (kind, n, windows) in zip(params["stacks"], stack_meta(cfg)):
+        layer_caches = []
+        for li, p_l in enumerate(layer_list(stack, n)):
+            def layer(p_l, x, window=_window(windows[li]), kind=kind):
+                x, cache, aux = block_seq(p_l, x, cfg, positions, window,
+                                          use_kernels, kind, generator)
+                return x, (cache if with_cache else None), aux
+            if remat:
+                x, cache, aux = torch.utils.checkpoint.checkpoint(
+                    layer, p_l, x, use_reentrant=False)
+            else:
+                x, cache, aux = layer(p_l, x)
+            if aux is not None:
+                aux_total = aux_total + aux
+            if with_cache:
+                layer_caches.append(cache)
+        caches.append(_stack_caches(layer_caches) if with_cache else None)
+    return x, aux_total, caches
+
+
 def lm_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
                use_kernels: bool = False, with_cache: bool = True,
                extra_embeds: torch.Tensor | None = None):
@@ -323,25 +388,61 @@ def lm_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     state, or the RWKV state leaves ``[L,B,...]`` (None without
     ``with_cache``).  S' counts the meta tokens and the ``extra_embeds``
     rows."""
-    _check_supported(cfg)
-    x = _embed_inputs(params, tokens, cfg, extra_embeds)
-    b, s, _ = x.shape
-    positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    caches = []
-    for stack, (kind, n, windows) in zip(params["stacks"], stack_meta(cfg)):
-        layer_caches = []
-        for li in range(n):
-            x, cache = block_seq(layer_params(stack, li), x, cfg, positions,
-                                 _window(windows[li]), use_kernels, kind)
-            if with_cache:
-                layer_caches.append(cache)
-        caches.append(_stack_caches(layer_caches) if with_cache else None)
+    x, _, caches = lm_hidden(params, tokens, cfg, use_kernels, with_cache,
+                             extra_embeds)
     return _head(params, x, cfg, use_kernels), caches
 
 
-def lm_loss(*args, **kwargs):
-    raise NotImplementedError("the training loss (with its MTP head) is not "
-                              "ported yet (ROADMAP A9)")
+def _check_differentiable(x: torch.Tensor, use_kernels: bool) -> None:
+    if use_kernels and x.is_cuda:
+        raise ValueError("the port's CUDA kernels have no backward: take "
+                         "the loss on the plain route (use_kernels=False), "
+                         "as the reference's trainer does")
+
+
+def lm_loss(params: dict, batch: dict, cfg: ModelConfig,
+            generator: torch.Generator | None = None,
+            use_kernels: bool = False, remat: bool = False):
+    """Next-token CE + 0.01·aux (+ 0.3·MTP CE for MTP configs) → (loss,
+    metrics ``{ce, aux[, mtp_ce]}``).  batch: ``{tokens, labels[,
+    extra_embeds]}``; the logits of the prepended rows (meta tokens, image
+    embeddings) are not scored."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    _check_differentiable(tokens, use_kernels)
+    hidden, aux, _ = lm_hidden(params, tokens, cfg, use_kernels,
+                               with_cache=False,
+                               extra_embeds=batch.get("extra_embeds"),
+                               remat=remat, generator=generator)
+    # the reference's chunked_ce flag is off by default (ROADMAP A7)
+    logits = _head(params, hidden, cfg, use_kernels)
+    # align: logits predict the NEXT token; labels = tokens shifted by 1
+    prefix = logits.shape[1] - labels.shape[1]
+    ce = softmax_xent(logits[:, prefix:], labels)
+    loss = ce + 0.01 * aux
+    metrics = {"ce": ce, "aux": aux}
+    if cfg.mtp_heads:
+        mtp_ce = _mtp_loss(params, tokens, labels, cfg)
+        loss = loss + MTP_LOSS_WEIGHT * mtp_ce
+        metrics["mtp_ce"] = mtp_ce
+    return loss, metrics
+
+
+def _mtp_loss(params: dict, tokens: torch.Tensor, labels: torch.Tensor,
+              cfg: ModelConfig) -> torch.Tensor:
+    """DeepSeek-V3 multi-token prediction, as the reference's single head:
+    one extra block fed ``[embed(t) ‖ embed(t+1)]`` projected back to d,
+    predicting t+2."""
+    x = embed(params["embed"], tokens)
+    x_next = embed(params["embed"], labels)
+    h = torch.cat([x[:, :-1], x_next[:, :-1]], dim=-1)
+    h = linear(params["mtp"]["proj"], h)
+    b, s, _ = h.shape
+    positions = torch.arange(s, device=h.device)[None].expand(b, s)
+    kind = "dense" if cfg.moe is None else "moe"
+    h, _, _ = block_seq(params["mtp"]["block"], h, cfg, positions, None,
+                        False, kind)
+    h = apply_norm(params["mtp"]["norm"], h, cfg.norm)
+    return softmax_xent(unembed(_head_table(params, cfg), h), labels[:, 1:])
 
 
 def lm_prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,

@@ -1,3 +1,11 @@
+from .fault_tolerance import (
+    ElasticController,
+    FailureDetector,
+    HeartbeatMonitor,
+    HostState,
+    RestorePlan,
+    StragglerDetector,
+)
 from .faults import FaultInjected, FaultPlan, FaultSpec, activate, maybe_fire
 from .guard import (
     Degradation,
@@ -6,7 +14,9 @@ from .guard import (
     retry_with_backoff,
 )
 
-__all__ = ["FaultInjected", "FaultPlan", "FaultSpec", "activate",
+__all__ = ["ElasticController", "FailureDetector", "HeartbeatMonitor",
+           "HostState", "RestorePlan", "StragglerDetector",
+           "FaultInjected", "FaultPlan", "FaultSpec", "activate",
            "maybe_fire",
            "Degradation", "DegradationLog", "DegradationWarning",
            "retry_with_backoff"]

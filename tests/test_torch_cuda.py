@@ -1491,3 +1491,81 @@ def test_llava_smoke_prefill_kernel_route_matches_the_plain_route(
             _assert_kernel_close(got, want)
         else:
             assert _rel_l2(got, want) <= 2e-2
+
+
+# ---- training: the chunked backward and one train step, card against CPU ------------------
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h, kvh, dk, dv", [(14, 2, 64, 64),
+                                            (16, 1, 576, 512)],
+                         ids=["gqa", "mla"])
+def test_chunked_attention_backward_matches_sdpa_autograd_on_the_card(
+        cuda, h, kvh, dk, dv, dtype):
+    """``chunked_attention``'s flash backward against the autograd of
+    ``_sdpa`` on the same inputs and output grads, causal over 300
+    positions in chunks of 128 (the last one short), with and without a
+    window: fp32 dq, dk, dv within 1e-4 of max|_sdpa's|; bf16 relative L2
+    <= 2e-2."""
+    from repro_torch.models.attention import (_sdpa, causal_window_mask,
+                                              chunked_attention)
+    g = torch.Generator(device=cuda).manual_seed(h + 1)
+    s = 300
+    q = torch.randn(2, s, h, dk, generator=g, device=cuda).to(dtype)
+    k = torch.randn(2, s, kvh, dk, generator=g, device=cuda).to(dtype)
+    v = torch.randn(2, s, kvh, dv, generator=g, device=cuda).to(dtype)
+    dout = torch.randn(2, s, h, dv, generator=g, device=cuda).to(dtype)
+    i = torch.arange(s, device=cuda)
+    for window in (None, 100):
+        grads = []
+        for chunked in (True, False):
+            tq, tk, tv = (a.clone().requires_grad_(True) for a in (q, k, v))
+            out = (chunked_attention(tq, tk, tv, causal=True, window=window,
+                                     q_chunk=128, kv_chunk=128) if chunked
+                   else _sdpa(tq, tk, tv, causal_window_mask(i, i, window)))
+            grads.append(torch.autograd.grad(out, (tq, tk, tv), dout))
+        for got, want in zip(*grads):
+            assert bool(torch.isfinite(got).all())
+            if dtype == torch.float32:
+                err = (got - want).abs().max().item()
+                assert err <= 1e-4 * want.abs().max().item()
+            else:
+                assert _rel_l2(got, want) <= 2e-2
+
+
+def test_one_fp32_train_step_on_the_card_matches_the_cpu(cuda):
+    """One ``make_train_step`` step of the fp32 smoke Qwen2 from the same
+    params and batch on the card and on the CPU: loss within 1e-5
+    relative, each grad leaf within 1e-4 relative L2, the new params (all
+    leaves as one vector) within 1e-5 relative L2 (TF32 off: the same fp32
+    math in another order; a leaf that starts at zero, the q/k/v biases,
+    holds only AdamW's first update, sensitive to grads near eps)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.data import make_dataset
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw_init
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    cfg = dataclasses.replace(get_config("qwen2-0.5b", smoke=True),
+                              dtype=torch.float32)
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    batch = {k: torch.from_numpy(v).long() for k, v in
+             make_dataset(cfg.vocab_size, 32, 4).batch_at(0).items()}
+    runs = {}
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda t: t.to(dev), params)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        loss, _, grads = loss_and_grads(model, p, b)
+        step = make_train_step(model, ParallelConfig(remat="none"),
+                               base_lr=1e-3, warmup=0, total_steps=10)
+        new, _, _ = step(p, adamw_init(p), b, 0)
+        runs[str(dev)] = (float(loss), [t.cpu() for t in tree_leaves(grads)],
+                          [t.cpu() for t in tree_leaves(new)])
+    (l_cpu, g_cpu, p_cpu), (l_gpu, g_gpu, p_gpu) = runs.values()
+    assert l_gpu == pytest.approx(l_cpu, rel=1e-5)
+    for got, want in zip(g_gpu, g_cpu):
+        assert _rel_l2(got, want) <= 1e-4
+    assert _rel_l2(torch.cat([t.reshape(-1) for t in p_gpu]),
+                   torch.cat([t.reshape(-1) for t in p_cpu])) <= 1e-5

@@ -288,11 +288,18 @@ def test_decode_gives_every_row_the_first_rows_position():
 
 
 def test_the_lm_paths_refuse_the_encoder_decoder():
-    _, cfg, _, params, _, _ = _setup("float32")
+    _, cfg, _, params, frames, tokens = _setup("float32")
     model = Model(cfg)
     assert not model.supports_paged()
-    with pytest.raises(NotImplementedError, match="A9"):
-        model.loss(params, {})
+    # the facade's loss is the encoder-decoder's own; the LM loss refuses
+    batch = {"frames": torch.from_numpy(frames),
+             "tokens": torch.from_numpy(tokens).long(),
+             "labels": torch.from_numpy(tokens).long()}
+    loss, metrics = model.loss(params, batch)
+    assert set(metrics) == {"ce"} and bool(torch.isfinite(loss))
+    from repro_torch.models.transformer import lm_loss
+    with pytest.raises(NotImplementedError, match="models/encdec.py"):
+        lm_loss(params, batch, cfg)
     with pytest.raises(NotImplementedError, match="models/encdec.py"):
         init_lm(cfg, torch.Generator(), "cpu")
     with pytest.raises(NotImplementedError, match="build_encdec_opgraph"):

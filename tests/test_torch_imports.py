@@ -33,7 +33,13 @@ def test_importing_every_port_module_loads_no_jax_or_repro():
                 "repro_torch.kernels.rmsnorm.ops",
                 "repro_torch.kernels.flash_attention.ops",
                 "repro_torch.kernels.decode_attention.ops",
-                "repro_torch.kernels.paged_decode.ops"):
+                "repro_torch.kernels.paged_decode.ops",
+                "repro_torch.optim.adamw", "repro_torch.optim.schedule",
+                "repro_torch.optim.compression", "repro_torch.data.pipeline",
+                "repro_torch.checkpoint.checkpointer",
+                "repro_torch.runtime.fault_tolerance",
+                "repro_torch.models.losses", "repro_torch.launch.steps",
+                "repro_torch.launch.train", "repro_torch.utils.tree"):
         assert mod in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -74,7 +80,7 @@ def _entry_points():
     from repro_torch.core import Session
     from repro_torch.models.transformer import init_lm
     import numpy as np
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.models import Model
     cfg = get_config("qwen2-0.5b", smoke=True)
     return {
@@ -86,12 +92,13 @@ def _entry_points():
             get_config("whisper-medium", smoke=True)).init(
                 torch.Generator().manual_seed(0)),
         "serve": lambda: serve.main(["--requests", "1"]),
+        "train": lambda: train.main(["--steps", "1"]),
     }
 
 
 @pytest.mark.parametrize("entry", ["init_lm", "Session", "bridge",
                                    "Model.init", "Model.init encdec",
-                                   "serve"])
+                                   "serve", "train"])
 def test_entry_points_raise_without_a_card_unless_asked_for_cpu(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the entry point runs on it")

@@ -170,12 +170,17 @@ def test_windowed_kernel_route_keeps_the_window(dtype):
 
 
 def test_model_facade_raises_for_what_is_not_ported():
-    _, tcfg, *_ = _setup("float32")
+    _, tcfg, _, _, tparams, tokens, _ = _setup("float32")
     model = Model(tcfg)
-    for call in (model.loss, model.input_specs, model.decode_state_specs,
+    for call in (model.input_specs, model.decode_state_specs,
                  model.init_shapes):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
+    # the training loss is ported (tests/test_torch_train.py holds it
+    # against the reference)
+    tok = torch.from_numpy(tokens).long()
+    loss, metrics = model.loss(tparams, {"tokens": tok, "labels": tok})
+    assert set(metrics) == {"ce", "aux"} and bool(torch.isfinite(loss))
     # the vlm prefill (llava) passes its patch embeddings through: they are
     # projected and prepended, one cache row each
     vcfg = dataclasses.replace(get_config("llava-next-mistral-7b",
