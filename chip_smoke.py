@@ -175,7 +175,29 @@ Phases (any failure raises and the script exits non-zero):
      grads, tokens/s, peak memory, idle share, model-FLOP share); one
      step at seq 2304 (the chunked backward in every layer); a restart
      at 2 layers (12 steps with checkpoints, resumed to 18, within 5e-3 of
-     18 uninterrupted steps).
+     18 uninterrupted steps);
+ 16. the ``REPRO_*`` performance flags (no kernel: each variable is set
+     and restored around its own run, and a fresh graph or engine is
+     built for each setting, since a recorded graph keeps its flags):
+     ``causal_skip`` on ``chunked_attention``'s forward at Qwen2's, MLA's
+     and llava's heads (2304 and 2944 positions, chunks of 2048), on
+     DeepSeek-V3's 2304-token plain prefill (4 layers) and on a Qwen2-0.5B
+     training step at 1 x 2304 (fp32 within 1e-5, bf16 relative L2 <=
+     2e-2, both found bit-equal; times both ways); ``chunked_ce`` on that
+     step (fp32 loss 1e-5, grad leaves 1e-4; step time and peak memory
+     both ways); the cache-update modes on Qwen2-0.5B's 8 x 1024 decode
+     tick (bit-equal); ``window_slice_decode`` on Hymba-1.5B, 8 rows of a
+     3000-token prompt in 4096 + 128 slots, both routes (fp32 within 1e-5
+     and top-1 equal; bf16 plain route 2e-2 and each bf16 tick against
+     the fp32 plain tick; no decode kernel launched under the flag; graph
+     tick == eager tick; ticks timed); ``kv_quant`` on DeepSeek-V3's dense
+     decode at 8 rows after 1024 positions (logits within 5% of the bf16
+     cache's, int8 / fp16 leaves, cache bytes 0.557 of bf16 from
+     ``decode_state_specs``; ticks timed) and its engine (paged degrades
+     to the dense slab, whose first admission raises, ROADMAP C19, no
+     leaf written); ``[roofline]`` lines: ``cell_cost`` with the H100's
+     terms beside the measured Qwen2 training step, Qwen2 tick and
+     DeepSeek ticks.
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
 package; needs the repository's ``src/`` next to this file and a CUDA card.
@@ -183,6 +205,7 @@ package; needs the repository's ``src/`` next to this file and a CUDA card.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -193,6 +216,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -4386,6 +4410,558 @@ def phase_training(env: dict, gen: torch.Generator, seed: int) -> dict:
     return {"step_ms": step_ms, "losses": losses}
 
 
+# =============================================================================
+# 16. the REPRO_* performance flags, and bounds from the cost model
+# =============================================================================
+
+FLAG_VARS = {"causal_skip": "REPRO_CAUSAL_SKIP",
+             "chunked_ce": "REPRO_CHUNKED_CE",
+             "window_slice": "REPRO_WINDOW_SLICE_DECODE",
+             "kv_quant": "REPRO_KV_QUANT",
+             "cache_update": "REPRO_CACHE_UPDATE"}
+# Hymba-1.5B's sliced decode: window 1024 + 1 + 128 meta slots must be
+# below the cache length for the slice to engage (phase 12's 1152-slot slab
+# never does), so a 4096 + 128-slot cache after a 3000-token prompt
+HYMBA_SLICE_CACHE, HYMBA_SLICE_PROMPT = 4096, 3000
+# DeepSeek-V3's kv_quant decode: 8 rows after a 1024-position prefill, a
+# 1152-slot slab (1024 + 128)
+KVQ_PROMPT, KVQ_CACHE = 1024, 1152
+# the reference's rule for the int8 latent (tests/test_flag_equivalence.py)
+KVQ_REL = 0.05
+
+
+@contextlib.contextmanager
+def flag_set(name: str, value: str):
+    """Set one REPRO_* variable around a measurement, then restore it."""
+    var = FLAG_VARS[name]
+    old = os.environ.get(var)
+    os.environ[var] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(var, None)
+        else:
+            os.environ[var] = old
+
+
+def _max_diff(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def _roofline(env: dict, what: str, cfg, cell, remat: bool,
+              measured_ms: float, card: str) -> float:
+    """``cell_cost`` with the H100's terms beside a measured time."""
+    from repro_torch.launch.analytic_cost import cell_cost
+    from repro_torch.launch.roofline import roofline_terms
+    cost = cell_cost(cfg, cell, remat=remat)
+    terms = roofline_terms(cost.flops, cost.bytes, 0.0, 1, hw=env["hw"])
+    bound = terms["step_time_lower_bound_s"] * 1e3
+    log(f"[roofline] {what}: cell_cost {cost.flops / 1e12:.4f} TFLOP, "
+        f"{cost.bytes / 1e9:.4f} GB -> compute {terms['compute_s'] * 1e3:.4f}"
+        f" ms, memory {terms['memory_s'] * 1e3:.4f} ms on {env['hw'].name} "
+        f"({terms['dominant'].removesuffix('_s')} bound {bound:.4f} ms); "
+        f"measured {measured_ms:.4f} ms, share of the bound "
+        f"{bound / measured_ms:.4f} | {card}")
+    return bound
+
+
+def flags_chunked_attention(gen: torch.Generator, say) -> None:
+    """``causal_skip`` on ``chunked_attention``'s forward at the heads the
+    long prefills run (chunks of 2048, the last short): on vs off bit-equal
+    in fp32 and bf16 (a skipped chunk adds exact zeros), the bf16 forward
+    timed both ways."""
+    from repro_torch.models.attention import chunked_attention
+    for label, h, kvh, dk, dv, s in (
+            ("qwen2 14/2x64", 14, 2, 64, 64, CHUNK_S),
+            ("deepseek mla 128/1x576/512", 128, 1, 576, 512, CHUNK_S),
+            ("llava 32/8x128", 32, 8, 128, 128, LLAVA_S)):
+        skipped = (s - CHUNK) * CHUNK / (s * s)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+                       .to(dtype)
+                       for shape in ((1, s, h, dk), (1, s, kvh, dk),
+                                     (1, s, kvh, dv)))
+            outs, ms = {}, {}
+            for value in ("0", "1"):
+                with flag_set("causal_skip", value):
+                    outs[value] = chunked_attention(q, k, v, causal=True)
+                    ms[value] = cuda_ms(lambda: chunked_attention(
+                        q, k, v, causal=True), iters=5, warmup=1)
+            diff = _max_diff(outs["1"], outs["0"])
+            say(f"causal_skip chunked_attention {label} {_dt(dtype)} S=T={s}"
+                f": on vs off max|diff| {diff:.3e} (fp32 <= 1e-5, bf16 "
+                f"bit-equal expected: {torch.equal(outs['1'], outs['0'])}); "
+                f"forward off {ms['0']:.3f} ms, on {ms['1']:.3f} ms "
+                f"({1 - ms['1'] / ms['0']:+.4f} of it; the skipped pair is "
+                f"{skipped:.4f} of the score rectangle)")
+            bad = (diff > 1e-5 if dtype == torch.float32
+                   else _agreement(outs["1"], outs["0"])[0] > LOGITS_REL_L2)
+            if bad:
+                raise AssertionError(f"[flags] causal_skip {label} "
+                                     f"{_dt(dtype)}: on vs off {diff:.3e}")
+            del q, k, v, outs
+    free_card()
+
+
+def flags_qwen2(env: dict, seed: int, train_step_ms: float, say) -> None:
+    """Qwen2-0.5B at full width and depth: the cache-update modes on a
+    decode tick at 8 x 1024 (bit-equal; the tick beside ``cell_cost``'s
+    bound in scatter mode), ``causal_skip`` and ``chunked_ce`` on a
+    training step at batch 1 x 2304, the 8 x 512 training step of phase 15
+    beside its bound."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.core.capture import CudaGraphReplay
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import Model
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    card = env["smi"].splitlines()[0]
+    cfg = get_config("qwen2-0.5b")
+    params = Model(cfg).init(torch.Generator(device="cuda").manual_seed(seed),
+                             "cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed * 1000 + 925)
+
+    # -- the cache-update modes on a decode tick ------------------------------
+    model = Model(cfg, use_kernels=True)
+    tokens = torch.randint(1, cfg.vocab_size, (SLOTS, MAX_LEN - 1),
+                           generator=g, device="cuda")
+    reset_launches()
+    logits, caches = model.prefill(params, {"tokens": tokens},
+                                   cache_len=MAX_LEN)
+    tok = logits.argmax(-1)
+    pos = torch.full((SLOTS,), MAX_LEN - 1, dtype=torch.int32, device="cuda")
+    ticks, ms = {}, {}
+    for mode in ("where", "scatter"):
+        with flag_set("cache_update", mode):
+            # a recorded graph keeps the flags it saw: one a setting
+            replay = CudaGraphReplay(
+                lambda t, p: [model.decode(params, t, caches, p)[0]],
+                [tok, pos])
+            ticks[mode] = replay([tok, pos])[0].clone()
+            ms[mode] = cuda_ms(lambda: replay([tok, pos]))
+            del replay
+    launches = read_launches("rmsnorm", "flash_attention", "decode_attention")
+    if not torch.equal(ticks["where"], ticks["scatter"]):
+        raise AssertionError("[flags] the scatter decode tick differs from "
+                             "the where tick")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"[flags] qwen2 decode launched no kernel: "
+                             f"{launches}")
+    say(f"cache_update qwen2-0.5b decode tick at {SLOTS} x {MAX_LEN} "
+        f"(kernel route, CUDA graph, median of {TIMING_ITERS}): where "
+        f"{ms['where']:.4f} ms, scatter {ms['scatter']:.4f} ms, logits "
+        f"bit-equal; launches over the prefill and both graphs {launches}")
+    with flag_set("cache_update", "scatter"):
+        _roofline(env, f"qwen2-0.5b decode tick {SLOTS} x {MAX_LEN} "
+                  f"(REPRO_CACHE_UPDATE=scatter, the port's one-slot write)",
+                  cfg, ShapeCell("tick", MAX_LEN, SLOTS, "decode"), False,
+                  ms["scatter"], card)
+    del caches, logits
+    _roofline(env, f"qwen2-0.5b training step {TRAIN_BATCH} x {TRAIN_SEQ} "
+              f"(phase 15's median, remat none)", cfg,
+              ShapeCell("train", TRAIN_SEQ, TRAIN_BATCH, "train"), False,
+              train_step_ms, card)
+    say(f"chunked_ce at {TRAIN_BATCH} x {TRAIN_SEQ}: sequence chunks of 512 "
+        f"make one chunk of {TRAIN_SEQ}, so the flag changes nothing there "
+        f"(not measured)")
+    free_card()
+
+    # -- causal_skip and chunked_ce on a training step at 1 x 2304 -------------
+    batch = {k: torch.randint(0, cfg.vocab_size, (1, CHUNK_S), generator=g,
+                              device="cuda") for k in ("tokens", "labels")}
+    sc = 512
+    while CHUNK_S % sc:
+        sc //= 2
+    logits_gb = CHUNK_S * cfg.vocab_size * 4 / 1e9
+    for dtype in (torch.bfloat16, torch.float32):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        p = params if dtype == torch.bfloat16 else tree_map(
+            lambda t: t.float(), params)
+        m = Model(c)
+        runs = {}
+        for name, value in (("off", None), ("causal_skip", "1"),
+                            ("chunked_ce", "1")):
+            ctx = (flag_set(name, value) if value
+                   else contextlib.nullcontext())
+            with ctx:
+                free_card()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                loss, _, grads = loss_and_grads(m, p, batch)
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated() - base
+                step_ms = cuda_ms(lambda: loss_and_grads(m, p, batch),
+                                  iters=3, warmup=1)
+            runs[name] = (loss, tree_leaves(grads), step_ms, peak)
+            del grads
+        loss0, grads0, ms0, peak0 = runs["off"]
+        for name in ("causal_skip", "chunked_ce"):
+            loss, grads, step_ms, peak = runs[name]
+            loss_rel = abs(float(loss) - float(loss0)) / abs(float(loss0))
+            grad_rel = max(_agreement(a, b)[0] for a, b in zip(grads, grads0))
+            equal = torch.equal(loss, loss0) and all(
+                torch.equal(a, b) for a, b in zip(grads, grads0))
+            if dtype == torch.float32:
+                gate = loss_rel <= 1e-5 and grad_rel <= 1e-4
+                rule = "loss <= 1e-5, grads <= 1e-4"
+            elif name == "causal_skip":
+                gate = loss_rel <= LOGITS_REL_L2 and grad_rel <= LOGITS_REL_L2
+                rule = f"<= {LOGITS_REL_L2}"
+            else:
+                # bf16 leaves take the chunks' grads summed in bf16 (the
+                # tied head table once a chunk): reported, gated in fp32
+                gate = True
+                rule = "reported"
+            extra = (f"; {CHUNK_S // sc} chunks of {sc}, full fp32 logits "
+                     f"{logits_gb:.3f} GB a pass" if name == "chunked_ce"
+                     else "")
+            say(f"{name} qwen2-0.5b training step 1 x {CHUNK_S} "
+                f"{_dt(dtype)}: loss rel {loss_rel:.3e}, worst grad leaf "
+                f"rel_l2 {grad_rel:.3e} ({rule}; bit-equal {equal}); "
+                f"loss+grads off {ms0:.3f} ms peak {peak0 / 2**30:.3f} GiB, "
+                f"on {step_ms:.3f} ms peak {peak / 2**30:.3f} GiB{extra}")
+            if not gate:
+                raise AssertionError(f"[flags] {name} {_dt(dtype)} training "
+                                     f"step departs from the flag off")
+        del runs, p
+        free_card()
+    del params
+    free_card()
+
+
+def flags_hymba(env: dict, seed: int, say) -> None:
+    """Hymba-1.5B at full width and depth, 8 rows of a 3000-token prompt in
+    a 4096 + 128-slot cache (one bf16 kernel-route prefill; the fp32 ticks
+    run on its caches and params cast up, so every tick starts from the
+    same state): ``window_slice_decode`` on vs off on both routes.  fp32:
+    within 1e-5 of max |logits| and top-1 equal.  bf16, where 32 layers
+    carry any rounding difference to about 2e-2 of the logits (the plain
+    route's on vs off, the same math summed in another order, read
+    1.9e-2 and 2.3e-2 on the same inputs in two calls) and the flag swaps
+    the kernel route's decode kernel for the plain attention (~4.7e-2,
+    phase 12): each layer's attention on identical inputs on vs off
+    within 2e-2, and each bf16 tick with the flag on no farther from the
+    fp32 plain tick than max(2e-2, 1.25 x the bf16 plain route's distance
+    without the flag).  Under the flag the
+    kernel route launches no decode kernel; the graph tick recorded under
+    the flag is bit-equal to the eager tick; ticks timed both ways."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.capture import CudaGraphReplay
+    from repro_torch.models import Model
+    from repro_torch.models.transformer import stack_meta
+    from repro_torch.serving.engine import _leaves
+    from repro_torch.utils.tree import tree_map
+    cfg = get_config("hymba-1.5b")
+    t = HYMBA_SLICE_CACHE + cfg.meta_tokens
+    if not cfg.window + 1 + cfg.meta_tokens < t:
+        raise AssertionError("the slice does not engage at this cache")
+    params = Model(cfg).init(torch.Generator(device="cuda").manual_seed(seed),
+                             "cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed * 1000 + 930)
+    tokens = torch.randint(1, cfg.vocab_size, (SLOTS, HYMBA_SLICE_PROMPT),
+                           generator=g, device="cuda")
+    pos = torch.full((SLOTS,), HYMBA_SLICE_PROMPT, dtype=torch.int32,
+                     device="cuda")
+    n_win = sum(w > 0 for _, _, ws in stack_meta(cfg) for w in ws)
+    kernel = Model(cfg, use_kernels=True)
+    reset_launches()
+    t0 = time.perf_counter()
+    logits, caches = kernel.prefill(params, {"tokens": tokens}, cache_len=t)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    flash = read_launches("flash_attention")["flash_attention"]
+    tok = logits.argmax(-1)
+    del logits
+    truth = None
+    for dtype in (torch.float32, torch.bfloat16):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        if dtype == torch.float32:
+            p = tree_map(lambda x: x.float(), params)
+            state = tree_map(lambda x: x.float(), caches)
+        else:
+            p, state = params, caches
+        kept = [x.clone() for x in _leaves(state)]
+
+        def restore():
+            for leaf, k in zip(_leaves(state), kept):
+                leaf.copy_(k)
+        out, dec = {}, {}
+        for route in (True, False):
+            m = Model(c, use_kernels=route)
+            for value in ("0", "1"):
+                with flag_set("window_slice", value):
+                    restore()
+                    reset_launches()
+                    out[route, value] = m.decode(p, tok, state, pos)[0]
+                    dec[route, value] = read_launches(
+                        "rmsnorm", "decode_attention")
+        if dtype == torch.float32:
+            truth = out[False, "0"]
+        else:
+            plain_off = _agreement(out[False, "0"], truth)[0]
+            limit = max(LOGITS_REL_L2, 1.25 * plain_off)
+            restore()
+            blocks = _sliced_attention_blocks(c, p, state, pos, g)
+            say(f"window_slice hymba-1.5b bf16 attention of each of the "
+                f"{cfg.n_layers} layers on identical inputs (plain, the "
+                f"prefill's K/V): on vs off worst rel_l2 {blocks:.3e} (<= "
+                f"{LOGITS_REL_L2})")
+            if not blocks <= LOGITS_REL_L2:
+                raise AssertionError("[flags] window_slice bf16 attention "
+                                     "departs from the flag off")
+        for route in (True, False):
+            off, on = out[route, "0"], out[route, "1"]
+            name = "kernel" if route else "plain"
+            if dtype == torch.float32:
+                diff = _max_diff(on, off)
+                scale = float(off.abs().max())
+                top1 = bool(torch.equal(on.argmax(-1), off.argmax(-1)))
+                ok = diff <= FP32_TOL * scale and top1
+                got = (f"max|diff| {diff:.3e} (<= {FP32_TOL} x max|off| "
+                       f"{scale:.3f}), top-1 equal {top1}")
+            else:
+                rel = _agreement(on, off)[0]
+                d_on, d_off = (_agreement(x, truth)[0] for x in (on, off))
+                ok = d_on <= limit
+                rule = ("the flag swaps the decode kernel for the plain "
+                        "attention" if route else "a reduction-order "
+                        "change carried through the bf16 layers")
+                got = (f"rel_l2 {rel:.3e} (reported: {rule}); from the "
+                       f"fp32 plain tick: on {d_on:.3e} (<= {limit:.3e}), "
+                       f"off {d_off:.3e}")
+            say(f"window_slice hymba-1.5b {_dt(dtype)} {name} route, {SLOTS}"
+                f" rows at position {HYMBA_SLICE_PROMPT} + {cfg.meta_tokens}"
+                f" meta of {t} slots: on vs off {got}; launches off "
+                f"{dec[route, '0']}, on {dec[route, '1']}")
+            if not ok:
+                raise AssertionError(f"[flags] window_slice {_dt(dtype)} "
+                                     f"{name} route departs from the flag "
+                                     f"off")
+        if dec[True, "1"]["decode_attention"] != 0 or \
+                dec[True, "0"]["decode_attention"] <= 0 or \
+                dec[True, "1"]["rmsnorm"] <= 0 or flash <= 0:
+            raise AssertionError(f"[flags] hymba launches: prefill flash "
+                                 f"{flash}, decode {dec}")
+        if dtype == torch.float32:
+            del p, state, kept, out
+            free_card()
+            continue
+        ms = {}
+        for value in ("0", "1"):
+            with flag_set("window_slice", value):
+                restore()
+                replay = CudaGraphReplay(
+                    lambda a, b: [kernel.decode(p, a, state, b)[0]],
+                    [tok, pos])
+                restore()
+                graph = replay([tok, pos])[0].clone()
+                restore()
+                eager = kernel.decode(p, tok, state, pos)[0]
+                if not torch.equal(graph, eager):
+                    raise AssertionError(
+                        f"[flags] hymba graph tick differs from the eager "
+                        f"tick (window_slice {value})")
+                ms[value] = cuda_ms(lambda: replay([tok, pos]))
+                del replay
+        say(f"window_slice hymba-1.5b bf16 kernel-route tick at {SLOTS} "
+            f"rows, CUDA graph (median of {TIMING_ITERS}; graph == eager "
+            f"both ways): off {ms['0']:.4f} ms, on {ms['1']:.4f} ms; the "
+            f"{n_win} windowed layers read {cfg.window + 1} of {t} slots, "
+            f"the {cfg.n_layers - n_win} global ones all; prefill {SLOTS} x "
+            f"{HYMBA_SLICE_PROMPT} {prefill_s:.2f} s")
+    del caches, params, kept, out
+    free_card()
+
+
+def _sliced_attention_blocks(cfg, params, caches, pos, g) -> float:
+    """Each layer's decode attention (plain) on one random input and the
+    prefill's K/V, ``window_slice_decode`` on vs off: the worst relative
+    L2."""
+    from repro_torch.models.attention import gqa_decode
+    from repro_torch.models.transformer import (_window, layer_params,
+                                                stack_meta)
+    x = torch.randn((SLOTS, 1, cfg.d_model), generator=g,
+                    device="cuda").to(cfg.dtype)
+    k, v = caches[0]["kv"]
+    worst = 0.0
+    for li, w in enumerate(stack_meta(cfg)[0][2]):
+        attn = layer_params(params["stacks"][0], li)["attn"]
+        outs = []
+        for value in ("0", "1"):
+            with flag_set("window_slice", value):
+                outs.append(gqa_decode(
+                    attn, x, (k[li].clone(), v[li].clone()),
+                    pos + cfg.meta_tokens, cfg, _window(w))[0])
+        worst = max(worst, _agreement(outs[1], outs[0])[0])
+    return worst
+
+
+def _quantise_latent(c: torch.Tensor) -> tuple:
+    """The reference test's recipe: per-token absmax scale / 127 (fp16),
+    the latent rounded to int8."""
+    scale = c.float().abs().amax(-1).clamp_min(1e-6) / 127.0
+    q = torch.clamp(torch.round(c.float() / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale.to(torch.float16)
+
+
+def flags_deepseek(env: dict, seed: int, say) -> None:
+    """DeepSeek-V3 at full width, 4 of 61 layers: ``causal_skip`` on the
+    2304-token plain prefill (bit-equal, timed both ways); ``kv_quant`` on
+    the dense decode at 8 rows after a 1024-position prefill (logits within
+    5% of the bf16-cache tick, int8 / fp16 leaves, the cache bytes from
+    ``decode_state_specs``, ticks timed and beside ``cell_cost``'s bounds),
+    and the engine: paged degrades to the dense slab, whose first admission
+    raises (ROADMAP C19) with no leaf written."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.core.capture import CudaGraphReplay
+    from repro_torch.models import Model
+    from repro_torch.runtime.guard import DegradationWarning
+    from repro_torch.serving import InferenceEngine, Request
+    from repro_torch.serving.engine import _leaves
+    card = env["smi"].splitlines()[0]
+    cfg = dataclasses.replace(get_config("deepseek-v3-671b"),
+                              n_layers=DS_LAYERS)
+    params = Model(cfg).init(torch.Generator(device="cuda").manual_seed(seed),
+                             "cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed * 1000 + 940)
+
+    # -- causal_skip on the 2304-token plain prefill ----------------------------
+    tokens = torch.randint(1, cfg.vocab_size, (1, DS_LONG), generator=g,
+                           device="cuda")
+    plain = Model(cfg, use_kernels=False)
+    out, ms = {}, {}
+    for value in ("0", "1"):
+        with flag_set("causal_skip", value):
+            out[value] = plain.prefill(params, {"tokens": tokens})[0]
+            ms[value] = cuda_ms(lambda: plain.prefill(params,
+                                                      {"tokens": tokens}),
+                                iters=3, warmup=1)
+    rel = _agreement(out["1"], out["0"])[0]
+    say(f"causal_skip deepseek-v3 {DS_LAYERS} layers bf16 {DS_LONG}-token "
+        f"plain prefill (MLA chunked): on vs off max|diff| "
+        f"{_max_diff(out['1'], out['0']):.3e}, rel_l2 {rel:.3e} (<= "
+        f"{LOGITS_REL_L2}; bit-equal {torch.equal(out['1'], out['0'])}); "
+        f"prefill off {ms['0']:.3f} ms, on {ms['1']:.3f} ms (median of 3)")
+    if not rel <= LOGITS_REL_L2:
+        raise AssertionError("[flags] causal_skip deepseek prefill departs")
+    del out
+    free_card()
+
+    # -- kv_quant: dense decode at 8 rows after 1024 positions -----------------
+    model = Model(cfg, use_kernels=True)
+    reset_launches()
+    rows, toks = [], []
+    for _ in range(SLOTS):
+        prompt = torch.randint(1, cfg.vocab_size, (1, KVQ_PROMPT),
+                               generator=g, device="cuda")
+        logits, cache = model.prefill(params, {"tokens": prompt},
+                                      cache_len=KVQ_CACHE)
+        rows.append(cache)
+        toks.append(logits.argmax(-1))
+    caches = [tuple(torch.cat([r[s][i] for r in rows], 1)
+                    for i in range(2)) for s in range(len(rows[0]))]
+    del rows
+    tok = torch.cat(toks)
+    pos = torch.full((SLOTS,), KVQ_PROMPT, dtype=torch.int32, device="cuda")
+    quant = [(*_quantise_latent(ck), rk.clone()) for ck, rk in caches]
+    ticks, tick_ms = {}, {}
+    for value, cache in (("0", caches), ("1", quant)):
+        with flag_set("kv_quant", value), flag_set("cache_update", "scatter"):
+            replay = CudaGraphReplay(
+                lambda a, b: [model.decode(params, a, cache, b)[0]],
+                [tok, pos])
+            ticks[value] = replay([tok, pos])[0].clone()
+            tick_ms[value] = cuda_ms(lambda: replay([tok, pos]))
+            del replay
+    launches = read_launches("rmsnorm", "moe_gemm")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"[flags] deepseek decode launches {launches}")
+    rel = _max_diff(ticks["1"], ticks["0"]) / float(ticks["0"].float().abs()
+                                                   .max())
+    dtypes = [str(leaf.dtype) for leaf in quant[0]]
+    cell = ShapeCell("tick", KVQ_CACHE, SLOTS, "decode")
+    nbytes = {}
+    for value in ("0", "1"):
+        with flag_set("kv_quant", value):
+            specs = Model(cfg).decode_state_specs(cell)
+            nbytes[value] = sum(x.numel() * x.element_size()
+                                for x in _leaves(specs))
+    m = cfg.mla
+    want_ratio = (m.kv_lora_rank + 2 + 2 * m.qk_rope_head_dim) / (
+        2 * (m.kv_lora_rank + m.qk_rope_head_dim))
+    ratio = nbytes["1"] / nbytes["0"]
+    say(f"kv_quant deepseek-v3 {DS_LAYERS} layers bf16 dense decode tick at "
+        f"{SLOTS} rows after {KVQ_PROMPT} positions ({KVQ_CACHE}-slot slab, "
+        f"kernel route, CUDA graph, median of {TIMING_ITERS}): bf16 cache "
+        f"{tick_ms['0']:.4f} ms, int8 cache {tick_ms['1']:.4f} ms; logits "
+        f"max|diff| / max|bf16| {rel:.4f} (< {KVQ_REL}); leaves {dtypes}; "
+        f"cache bytes from decode_state_specs {nbytes['1']} / {nbytes['0']} "
+        f"= {ratio:.4f} (want {want_ratio:.4f}); launches {launches}")
+    if not (rel < KVQ_REL and dtypes[:2] == ["torch.int8", "torch.float16"]
+            and abs(ratio - want_ratio) < 1e-12):
+        raise AssertionError("[flags] kv_quant decode fails its gates")
+    for value in ("0", "1"):
+        with flag_set("kv_quant", value), flag_set("cache_update", "scatter"):
+            _roofline(env, f"deepseek-v3 {DS_LAYERS} layers decode tick "
+                      f"{SLOTS} x {KVQ_CACHE} ({'int8' if value == '1' else 'bf16'}"
+                      f" latent cache, REPRO_CACHE_UPDATE=scatter)", cfg, cell,
+                      False, tick_ms[value], card)
+    del caches, quant, ticks
+    free_card()
+
+    # -- the engine under kv_quant ----------------------------------------------
+    with flag_set("kv_quant", "1"):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            eng = InferenceEngine(Model(cfg, use_kernels=True), params,
+                                  max_slots=SLOTS, max_len=MAX_LEN,
+                                  seed=seed, paged_kv=True, page_size=PAGE)
+        degraded = [str(w.message) for w in caught
+                    if issubclass(w.category, DegradationWarning)]
+        if eng.paged or not degraded:
+            raise AssertionError("[flags] kv_quant paged MLA did not degrade")
+        before = [x.clone() for x in _leaves(eng.caches)]
+        eng.submit(Request(rid=0, prompt=list(range(1, 17)), max_tokens=4))
+        try:
+            eng.step()
+        except ValueError as exc:
+            raised = str(exc)
+        else:
+            raise AssertionError("[flags] the kv_quant dense admission did "
+                                 "not raise (ROADMAP C19)")
+        unchanged = all(torch.equal(a, b)
+                        for a, b in zip(before, _leaves(eng.caches)))
+        if "arity mismatch" not in raised or not unchanged:
+            raise AssertionError(f"[flags] C19: {raised!r}, caches "
+                                 f"unchanged {unchanged}")
+    say(f"kv_quant engine: paged_kv=True degraded to the dense slab "
+        f"({degraded[0][:90]}...); the first dense admission raised "
+        f"ValueError({raised!r}) with every cache leaf unchanged (ROADMAP "
+        f"C19, as the reference's engine raises)")
+    del eng, before, params
+    free_card()
+
+
+def phase_flags(env: dict, gen: torch.Generator, seed: int,
+                train_step_ms: float) -> None:
+    card = env["smi"].splitlines()[0]
+
+    def say(msg: str) -> None:
+        log(f"[flags] {msg} | {card}")
+    for var in FLAG_VARS.values():
+        if var in os.environ:
+            raise AssertionError(f"{var} is set: the earlier phases ran "
+                                 "with a flag on")
+    t0 = time.perf_counter()
+    flags_chunked_attention(gen, say)
+    flags_qwen2(env, seed, train_step_ms, say)
+    flags_hymba(env, seed, say)
+    flags_deepseek(env, seed, say)
+    log(f"[flags] phase took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4423,7 +4999,9 @@ def main() -> int:
     free_card()
     llava = phase_llava(args.seed)
     free_card()
-    phase_training(env, gen, args.seed)
+    training = phase_training(env, gen, args.seed)
+    free_card()
+    phase_flags(env, gen, args.seed, training["step_ms"])
 
     for path, launches in (("main", main_path["launches"]["branch_gemm"]),
                            ("ragged", ragged["launches"]["grouped_gemm"]),

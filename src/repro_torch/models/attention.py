@@ -23,17 +23,25 @@ the compressed latent: ``(c_kv [.., rank], k_rope [.., rope])`` per layer.
 
 ``chunked_attention`` has the reference's flash backward (a
 ``torch.autograd.Function``), so the training loss differentiates through
-long prompts in O(S·chunk) memory.  Not ported: the roofline hook that
-forces one chunk (A10) and the JAX package's ``REPRO_*`` performance
-flags (their defaults are what runs here: no causal chunk skip, the
-where-style cache update, and no int8 latent cache, so the JAX engine's
-refusal of ``kv_quant`` on paged MLA has nothing to refuse here).
+long prompts in O(S·chunk) memory.
+
+The JAX package's performance flags (:mod:`repro_torch.flags`) act where
+they act there: ``causal_skip`` skips the KV chunks that lie wholly in the
+causal future or wholly below the window in ``chunked_attention``'s
+forward (not in its backward, as there); ``window_slice_decode`` makes a
+windowed GQA decode layer gather the ``window + 1`` slots it can attend
+and a global one take the full masked path, both plain; ``kv_quant`` gives
+the dense MLA decode cache an int8 latent with a per-token fp16 scale
+(paged MLA pages stay in the model dtype).  The cache-update mode changes
+nothing here: the new slot is written in place under either value.  Not
+ported: the roofline hook that forces one chunk (ROADMAP A10).
 """
 from __future__ import annotations
 
 import torch
 
 from ..configs.base import ModelConfig
+from ..flags import causal_skip, kv_quant, window_slice_decode
 from .layers import apply_norm, apply_rope, init_linear, init_norm, linear
 
 NEG_INF = -1e30
@@ -111,12 +119,16 @@ def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     head, so no repeated K/V is made; logits accumulate in fp32 over the
     operands' own values, and the unnormalised probabilities are rounded
     to v's dtype before the PV product, as the JAX package's ``_flash_fwd``
-    does (ROADMAP C8)."""
+    does (ROADMAP C8).  Under the ``causal_skip`` flag a causal forward
+    skips each key chunk the query chunk cannot see: chunk positions are
+    Python ints, so the skip is decided on the host and a CUDA graph
+    records it with no sync."""
     b, s, h, dk = q.shape
     t, kvh = k.shape[1], k.shape[2]
     dv = v.shape[-1]
     g = h // kvh
     dev = q.device
+    skip = causal and causal_skip()
     outs, lses = [], []
     for q0 in range(0, s, qc):
         n = min(qc, s - q0)
@@ -125,7 +137,16 @@ def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m = torch.full((b, kvh, g, n), NEG_INF, device=dev)
         l = torch.zeros((b, kvh, g, n), device=dev)
         acc = torch.zeros((b, kvh, g, n, dv), device=dev)
+        pad = 0
         for k0 in range(0, t, kc):
+            if skip and (k0 > q0 + qc - 1 or (
+                    window > 0 and k0 + kc - 1 < q0 - window + 1)):
+                # wholly in the causal future of the (padded) query chunk,
+                # or wholly below its window: the JAX package's test on
+                # chunk multiples, so both skip the same chunks
+                continue
+            if k0 + kc > t:
+                pad = k0 + kc - t
             k_pos = torch.arange(k0, min(k0 + kc, t), device=dev)
             logits = torch.einsum("bckgd,btkd->bkgct", qblk,
                                   k[:, k0:k0 + kc].float()) * scale
@@ -140,9 +161,10 @@ def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             acc = acc * alpha[..., None] + pv
             m = m_new
         # a row that sees no key (its window starting past the last key)
-        # weighs every key alike; the JAX package pads K/V to a chunk
-        # multiple, so it divides by the padded length
-        l = torch.where(m == NEG_INF, l + (-t % kc), l)
+        # weighs every key of the chunks it computed alike; the JAX package
+        # pads K/V to a chunk multiple, so it divides by the padded length
+        # when the short last chunk was computed
+        l = torch.where(m == NEG_INF, l + pad, l)
         l_safe = l.clamp_min(1e-30)
         out = acc / l_safe[..., None]                     # [b,kvh,g,n,dv]
         outs.append(out.permute(0, 3, 1, 2, 4).reshape(b, n, h, dv)
@@ -290,7 +312,15 @@ def gqa_decode(p: dict, x: torch.Tensor, cache_kv, pos: torch.Tensor,
     """One-token decode. x: [B,1,d]; cache_kv: (k, v) [B,T,KVH,D]; pos: [B].
 
     Writes the new K/V at ``pos`` in place and attends over positions
-    <= pos (and within the window).  Cache length T is static."""
+    <= pos (and within the window).  Cache length T is static.
+
+    Under the ``window_slice_decode`` flag, when the config's window ``w``
+    leaves ``w + 1 + meta_tokens < T``, the JAX package's ``lax.cond``
+    becomes a branch on the layer: a windowed layer gathers the ``w + 1``
+    slots from ``clip(pos - w, 0, T - w - 1)`` of each row and a global
+    layer attends the whole cache, both by plain :func:`_sdpa` on either
+    route, as there.  The gather's indices stay on the card, so the step
+    still records into a CUDA graph."""
     k_cache, v_cache = cache_kv
     b, t = k_cache.shape[0], k_cache.shape[1]
     q, k, v = _qkv(p, x, cfg, pos[:, None])
@@ -298,6 +328,20 @@ def gqa_decode(p: dict, x: torch.Tensor, cache_kv, pos: torch.Tensor,
     pos_l = pos.long()
     _write_rows(k_cache, rows, pos_l, k[:, 0])
     _write_rows(v_cache, rows, pos_l, v[:, 0])
+    w = cfg.window
+    if (window_slice_decode() and w is not None
+            and w + 1 + cfg.meta_tokens < t):
+        if window is None:                  # a global layer
+            valid = torch.arange(t, device=x.device)[None, :] <= pos_l[:, None]
+            out = _sdpa(q, k_cache, v_cache, valid[:, None, :])
+        else:
+            start = torch.clamp(pos_l - w, 0, t - w - 1)
+            k_pos = start[:, None] + torch.arange(w + 1, device=x.device)
+            ok = (k_pos <= pos_l[:, None]) & (k_pos > pos_l[:, None] - w)
+            out = _sdpa(q, k_cache[rows[:, None], k_pos],
+                        v_cache[rows[:, None], k_pos], ok[:, None, :])
+        y = linear(p["wo"], out.reshape(b, 1, cfg.n_heads * cfg.head_dim))
+        return y, (k_cache, v_cache)
     k_pos = torch.arange(t, device=x.device)[None, :]
     valid = k_pos <= pos_l[:, None]
     if window is not None:
@@ -410,8 +454,16 @@ def value_up(lat: torch.Tensor, wv_b: torch.Tensor,
     return out.transpose(0, 1).reshape(*lat.shape[:-2], h * v_head)
 
 
-def _mla_out(p: dict, lat: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return linear(p["wo"], value_up(lat, p["wv_b"]["w"], cfg.mla.v_head_dim))
+def _mla_out(p: dict, lat: torch.Tensor, cfg: ModelConfig,
+             dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``wo(value_up(lat))``; with ``dtype`` (the latent cache's, when it
+    differs from the model's: the int8 cache's bf16 dequantised latent in
+    an fp32 model) the value-up output and the result are rounded to it,
+    where the JAX package casts them to the latent's dtype."""
+    up = value_up(lat, p["wv_b"]["w"], cfg.mla.v_head_dim)
+    if dtype is None or dtype == up.dtype:
+        return linear(p["wo"], up)
+    return linear(p["wo"], up.to(dtype).to(up.dtype)).to(dtype)
 
 
 def _mla_scale(cfg: ModelConfig) -> float:
@@ -438,7 +490,7 @@ def mla_attention(p: dict, q_nope: torch.Tensor, q_rope: torch.Tensor,
     else:
         lat = _sdpa(q_cat, k_cat, c_kv[:, :, None, :], mask,
                     scale=_mla_scale(cfg))                # [B,S,H,rank]
-    return _mla_out(p, lat, cfg)
+    return _mla_out(p, lat, cfg, c_kv.dtype)
 
 
 def mla_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -460,19 +512,39 @@ def mla_decode(p: dict, x: torch.Tensor, cache, pos: torch.Tensor,
                cfg: ModelConfig, use_kernels: bool = False):
     """One-token decode against the dense latent slab ``(c_kv [B,T,rank],
     k_rope [B,T,rope])``: writes the new latent at ``pos`` in place and
-    attends positions <= pos."""
-    c_cache, r_cache = cache
-    b, t = c_cache.shape[0], c_cache.shape[1]
+    attends positions <= pos.
+
+    Under the ``kv_quant`` flag the slab is the triple ``(int8 [B,T,rank],
+    fp16 scale [B,T], k_rope)``, as the JAX package's: the new latent is
+    quantised with its own absmax scale, all three leaves are written, and
+    the latent is dequantised as ``int8.bf16 * scale.bf16`` (a bf16 product
+    whatever the model's dtype)."""
+    quant = kv_quant() and len(cache) == 3
+    if quant:
+        c_q, c_scale, r_cache = cache
+    else:
+        c_cache, r_cache = cache
+    b, t = r_cache.shape[0], r_cache.shape[1]
     q_nope, q_rope, c_new, r_new = _mla_qkv(p, x, cfg, pos[:, None],
                                             use_kernels)
     rows = torch.arange(b, device=x.device)
     pos_l = pos.long()
-    _write_rows(c_cache, rows, pos_l, c_new[:, 0])
+    if quant:
+        c1 = c_new[:, 0]
+        scale = c1.abs().amax(-1).clamp_min(1e-6)
+        _write_rows(c_q, rows, pos_l, torch.clamp(
+            torch.round(c1 / scale[:, None] * 127.0), -127, 127).to(
+                torch.int8))
+        _write_rows(c_scale, rows, pos_l, (scale / 127.0).to(torch.float16))
+        c_cache = (c_q.to(torch.bfloat16)
+                   * c_scale[..., None].to(torch.bfloat16))
+    else:
+        _write_rows(c_cache, rows, pos_l, c_new[:, 0])
     _write_rows(r_cache, rows, pos_l, r_new[:, 0])
     valid = torch.arange(t, device=x.device)[None, :] <= pos_l[:, None]
     y = mla_attention(p, q_nope, q_rope, c_cache, r_cache, cfg,
                       mask=valid[:, None, :])
-    return y, (c_cache, r_cache)
+    return y, cache
 
 
 def mla_paged_decode(p: dict, x: torch.Tensor, pages,
@@ -547,16 +619,25 @@ def _cache_shapes(cfg: ModelConfig, lead: tuple[int, int]):
 
 def init_cache(cfg: ModelConfig, batch: int, length: int, dtype=None, *,
                device: torch.device | str):
-    """Empty per-layer KV cache (single layer); transformer stacks [L, ...]."""
+    """Empty per-layer KV cache (single layer); transformer stacks [L, ...].
+    Under the ``kv_quant`` flag an MLA cache is ``(int8 latent, fp16
+    per-token scale [batch, length], k_rope)``."""
     dtype = dtype or cfg.dtype
-    return tuple(torch.zeros(shape, dtype=dtype, device=device)
-                 for shape in _cache_shapes(cfg, (batch, length)))
+    c_shape, r_shape = _cache_shapes(cfg, (batch, length))
+    if cfg.mla is not None and kv_quant():
+        return (torch.zeros(c_shape, dtype=torch.int8, device=device),
+                torch.zeros((batch, length), dtype=torch.float16,
+                            device=device),
+                torch.zeros(r_shape, dtype=dtype, device=device))
+    return (torch.zeros(c_shape, dtype=dtype, device=device),
+            torch.zeros(r_shape, dtype=dtype, device=device))
 
 
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
                      dtype=None, *, device: torch.device | str):
     """Single-layer paged KV pages (page 0 reserved as the null page); MLA
-    pages the compressed latent."""
+    pages the compressed latent, in the model's dtype under ``kv_quant``
+    too (the engine keeps that flag off the paged path)."""
     dtype = dtype or cfg.dtype
     return tuple(torch.zeros(shape, dtype=dtype, device=device)
                  for shape in _cache_shapes(cfg, (num_pages, page_size)))

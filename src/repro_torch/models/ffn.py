@@ -60,8 +60,11 @@ def _expert_stack(generator: torch.Generator, shape: tuple[int, ...],
                   device: torch.device) -> torch.Tensor:
     """Normal(0, scale) weights of ``shape`` = lead + (E, d_in, d_out),
     drawn one expert matrix at a time, so the fp32 draw never holds more
-    than one matrix (a whole fp32 stack of Kimi-K2 is 22.5 GB)."""
+    than one matrix (a whole fp32 stack of Kimi-K2 is 22.5 GB).  On the
+    meta device (the dry-run's shapes) nothing is drawn."""
     out = torch.empty(shape, dtype=dtype, device=device)
+    if out.is_meta:
+        return out
     for idx in itertools.product(*(range(n) for n in shape[:-2])):
         out[idx] = (torch.randn(shape[-2:], generator=generator,
                                 dtype=torch.float32, device=device)

@@ -5,6 +5,9 @@
     prefill(params, inputs, cache_len)   → (last_logits, caches)
     decode(params, token, caches, pos)   → (logits, caches)
     init_paged_caches / paged_decode     → the paged-KV decode step
+    init_shapes()                        → param tree on the meta device
+    input_specs(cell)                    → meta tensors of the cell's inputs
+    decode_state_specs(cell)             → meta tensors of its decode caches
 
 as the JAX package's ``models/model.py`` does for the decoder LM (dense,
 MoE, hybrid and RWKV-6 stacks, GQA or MLA attention; RWKV keeps recurrent
@@ -20,8 +23,10 @@ caller put them, and nothing moves to the CPU on its own.  Decode writes
 the caches in place (what a CUDA graph of the step needs) and returns them.
 
 ``loss(params, batch, generator, remat)`` is the training loss of every
-family.  Not ported: the dry-run helpers ``input_specs``,
-``decode_state_specs`` and ``init_shapes`` (ROADMAP A10); they raise.
+family.  The dry-run helpers build on the ``meta`` device, where a tensor
+has a shape and a dtype and no storage, as ``jax.eval_shape`` gives the
+JAX package's: full configs (DeepSeek-V3's 671 B params) cost nothing, and
+the decode state follows the ``kv_quant`` flag.
 """
 from __future__ import annotations
 
@@ -29,7 +34,7 @@ from typing import Any, Mapping
 
 import torch
 
-from ..configs.base import ModelConfig
+from ..configs.base import ModelConfig, ShapeCell
 from . import encdec as ed
 from . import transformer as tf
 
@@ -45,6 +50,11 @@ class Model:
         if self.cfg.family == "encdec":
             return ed.init_encdec(self.cfg, generator, device)
         return tf.init_lm(self.cfg, generator, device)
+
+    def init_shapes(self) -> Any:
+        """The param tree on the meta device: shapes and dtypes, no
+        storage (the dry-run)."""
+        return self.init(torch.Generator(), "meta")
 
     # -- steps ------------------------------------------------------------------
     def prefill(self, params, inputs: Mapping[str, Any],
@@ -96,19 +106,54 @@ class Model:
         return tf.lm_loss(params, batch, self.cfg, generator,
                           self.use_kernels, remat)
 
-    # -- dry-run: not ported ----------------------------------------------------------
+    # -- dry-run input specs -----------------------------------------------------
+    def input_specs(self, cell: ShapeCell) -> dict[str, torch.Tensor]:
+        """Meta tensors standing in for every model input of this cell."""
+        cfg = self.cfg
+        b, s = cell.global_batch, cell.seq_len
+        i32 = torch.int32
+        if cell.step == "decode":
+            # one new token against a seq_len-long cache
+            return {"token": _spec((b,), i32), "pos": _spec((b,), i32)}
+        fe = cfg.frontend
+        if cfg.family == "encdec":
+            out = {"frames": _spec((b, fe.n_tokens, fe.feat_dim), cfg.dtype),
+                   "tokens": _spec((b, s), i32)}
+        else:
+            out = {"tokens": _spec((b, self._text_len(s)), i32)}
+        if cell.step == "train":
+            out["labels"] = _spec(out["tokens"].shape, i32)
+        if cfg.family == "vlm":
+            out["extra_embeds"] = _spec((b, fe.n_tokens, fe.feat_dim),
+                                        cfg.dtype)
+        return out
 
-    def init_shapes(self, *args, **kwargs):
-        raise NotImplementedError("dry-run param shapes are not ported yet "
-                                  "(ROADMAP A10)")
+    def _text_len(self, s: int) -> int:
+        """VLM text token count: total seq budget minus image patches."""
+        if self.cfg.family == "vlm" and self.cfg.frontend is not None:
+            return max(s - self.cfg.frontend.n_tokens, 16)
+        return s
 
-    def input_specs(self, *args, **kwargs):
-        raise NotImplementedError("dry-run input specs are not ported yet "
-                                  "(ROADMAP A10)")
+    def decode_state_specs(self, cell: ShapeCell) -> Any:
+        """The decode caches of this cell on the meta device: the encoder-
+        decoder's ``(self K/V, cross K/V)``, the LM's per-stack caches
+        (under ``kv_quant`` an MLA stack's int8 triple)."""
+        cfg = self.cfg
+        b = cell.global_batch
+        length = cell.seq_len + cfg.meta_tokens
+        if cfg.family == "encdec":
+            n_dec = cfg.n_dec_layers or cfg.n_layers
+            kvh, hd = cfg.n_kv_heads, cfg.head_dim
 
-    def decode_state_specs(self, *args, **kwargs):
-        raise NotImplementedError("dry-run decode state specs are not ported "
-                                  "yet (ROADMAP A10)")
+            def kv(t):
+                return tuple(_spec((n_dec, b, t, kvh, hd), cfg.dtype)
+                             for _ in range(2))
+            return (kv(length), kv(cfg.frontend.n_tokens))
+        return tf.init_decode_caches(cfg, b, length, device="meta")
+
+
+def _spec(shape: tuple[int, ...], dtype: torch.dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
 
 
 def make_model(cfg: ModelConfig, use_kernels: bool = False) -> Model:

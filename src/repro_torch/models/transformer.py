@@ -28,7 +28,8 @@ Encoder-decoder models live in :mod:`.encdec` and raise here.
 Training: :func:`lm_loss` is the reference's next-token cross-entropy plus
 0.01 times the MoE layers' load-balancing loss, plus 0.3 times the MTP
 head's loss for MTP configs; ``remat`` recomputes each layer in the
-backward.
+backward, and the ``chunked_ce`` flag takes the cross-entropy a sequence
+chunk at a time (:func:`.losses.chunked_softmax_xent`).
 """
 from __future__ import annotations
 
@@ -38,12 +39,13 @@ import torch
 import torch.utils.checkpoint
 
 from ..configs.base import ModelConfig
+from ..flags import chunked_ce
 from .attention import (attn_decode, attn_paged_decode, attn_prefill,
                         init_attention, init_cache, init_paged_cache)
 from .ffn import ffn, init_ffn, init_mlp, mlp
 from .layers import (apply_norm, check_device, embed, gelu, init_embedding,
                      init_linear, init_norm, linear, unembed)
-from .losses import softmax_xent
+from .losses import chunked_softmax_xent, softmax_xent
 from .ssm import (init_mamba, init_rwkv_channel_mix, init_rwkv_time_mix,
                   mamba_seq, mamba_state_init, rwkv_channel_mix,
                   rwkv_state_init, rwkv_time_mix_seq)
@@ -413,11 +415,18 @@ def lm_loss(params: dict, batch: dict, cfg: ModelConfig,
                                with_cache=False,
                                extra_embeds=batch.get("extra_embeds"),
                                remat=remat, generator=generator)
-    # the reference's chunked_ce flag is off by default (ROADMAP A7)
-    logits = _head(params, hidden, cfg, use_kernels)
     # align: logits predict the NEXT token; labels = tokens shifted by 1
-    prefix = logits.shape[1] - labels.shape[1]
-    ce = softmax_xent(logits[:, prefix:], labels)
+    prefix = hidden.shape[1] - labels.shape[1]
+    if chunked_ce():
+        # the head matmul inside a loop over sequence chunks: the full
+        # [B,S,V] fp32 logits never exist
+        hidden = apply_norm(params["final_norm"], hidden, cfg.norm,
+                            use_kernels)
+        ce = chunked_softmax_xent(hidden[:, prefix:],
+                                  _head_table(params, cfg)["table"], labels)
+    else:
+        logits = _head(params, hidden, cfg, use_kernels)
+        ce = softmax_xent(logits[:, prefix:], labels)
     loss = ce + 0.01 * aux
     metrics = {"ce": ce, "aux": aux}
     if cfg.mtp_heads:
@@ -472,7 +481,8 @@ def _pad_cache(cache, length: int):
 def init_decode_caches(cfg: ModelConfig, batch: int, length: int, *,
                        device: torch.device | str):
     """Empty decode caches per stack: ``(k, v)`` ``[L,B,length,KVH,D]``,
-    MLA's ``(c_kv [L,B,length,rank], k_rope [..,rope])``, the hybrid
+    MLA's ``(c_kv [L,B,length,rank], k_rope [..,rope])`` (under
+    ``kv_quant`` the triple of :func:`.attention.init_cache`), the hybrid
     ``{kv, mamba_conv, mamba_h}``, or the RWKV state leaves ``[L,B,...]``."""
     _check_supported(cfg)
     caches = []

@@ -27,6 +27,14 @@ there is no graph: the "compiled" rung is the eager step, and the
 ``decode_step`` fault still fires on it, so fault counters compare with the
 JAX package's.
 
+The ``REPRO_*`` flags (:mod:`repro_torch.flags`) are read when the step
+runs, so the recorded graph keeps the values of its first decode tick:
+set them before the engine serves.  Under ``kv_quant`` an MLA model's
+``paged_kv=True`` degrades to the dense slab as in the JAX package, and
+the dense slab's first admission raises, as there (ROADMAP C19): the
+prefill's bf16 latent does not fit the int8 triple, and the splice checks
+every leaf before it writes one.
+
 The engine's device is its params' device.  Sampling runs there: greedy is
 ``argmax``; temperature / top-k / top-p draw from the engine's
 ``torch.Generator`` (seeded from ``seed``), so sampled streams differ from
@@ -43,6 +51,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..core.capture import CudaGraphReplay
+from ..flags import kv_quant
 from ..models import Model
 from ..runtime.faults import FaultInjected, FaultPlan
 from ..runtime.faults import get_active as _active_faults
@@ -120,10 +129,15 @@ class InferenceEngine:
         self.page_bounce_limit = page_bounce_limit
         self.pool: KVPagePool | None = None
         if paged_kv:
+            reason = None
             if not model.supports_paged():
                 reason = (f"family {self.cfg.family!r} carries recurrent or "
                           "cross-attention state; paged KV needs a "
                           "pure-attention decoder stack")
+            elif kv_quant() and self.cfg.mla is not None:
+                reason = ("kv_quant int8 latent cache is dense-only; "
+                          "paged MLA pages the bf16 latent")
+            if reason is not None:
                 warnings.warn(f"paged_kv unavailable: {reason}; "
                               "using the dense slab cache",
                               DegradationWarning, stacklevel=2)
@@ -522,6 +536,7 @@ class InferenceEngine:
         if (req.eos_id is not None and first == req.eos_id) \
                 or len(req.output) >= req.max_tokens:
             return [self._complete(req)]
+        _check_splice(self.caches, cache)
         for big, small in zip(_leaves(self.caches), _leaves(cache)):
             _splice(big, small, slot)
         self.slots[slot] = req
@@ -887,6 +902,27 @@ def _state_leaves(caches: list) -> list[torch.Tensor]:
     return [leaf for stack in caches if isinstance(stack, dict)
             for key in sorted(stack) if key != "kv"
             for leaf in _leaves(stack[key])]
+
+
+def _check_splice(big, small) -> None:
+    """Raise before any leaf is written when a prefill's cache does not fit
+    the slot cache leaf for leaf: a tuple of another arity (the JAX
+    package's ``tree_map`` raises ``Tuple arity mismatch`` there, ROADMAP
+    C19: the ``kv_quant`` int8 MLA slab against the prefill's bf16 latent)
+    or a leaf of another dtype, which a copy would cast silently."""
+    if isinstance(big, dict):
+        for key in big:
+            _check_splice(big[key], small[key])
+    elif isinstance(big, (list, tuple)):
+        if len(big) != len(small):
+            raise ValueError(f"Tuple arity mismatch: {len(small)} != "
+                             f"{len(big)} (a prefill cache against the slot "
+                             "cache)")
+        for b, s in zip(big, small):
+            _check_splice(b, s)
+    elif big.dtype != small.dtype:
+        raise ValueError(f"cache dtype mismatch: {small.dtype} into "
+                         f"{big.dtype}")
 
 
 def _splice(big: torch.Tensor, small: torch.Tensor, slot: int) -> None:

@@ -1569,3 +1569,80 @@ def test_one_fp32_train_step_on_the_card_matches_the_cpu(cuda):
         assert _rel_l2(got, want) <= 1e-4
     assert _rel_l2(torch.cat([t.reshape(-1) for t in p_gpu]),
                    torch.cat([t.reshape(-1) for t in p_cpu])) <= 1e-5
+
+
+# ---- the REPRO_* performance flags on the card ------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_window_slice_decode_graph_tick_is_bit_equal_to_eager(cuda, dtype,
+                                                              monkeypatch):
+    """Smoke Hymba under ``REPRO_WINDOW_SLICE_DECODE=1`` on the kernel
+    route (the sliced layers run plain ``_sdpa``): the decode step
+    recorded into a CUDA graph after the flag was set gives the eager
+    step's logits and K/V bit for bit, at positions below and past the
+    window."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    monkeypatch.setenv("REPRO_WINDOW_SLICE_DECODE", "1")
+    cfg = dataclasses.replace(get_config("hymba-1.5b", smoke=True),
+                              dtype=dtype)
+    model = Model(cfg, use_kernels=True)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0), cuda)
+    cache_len = 40 + cfg.meta_tokens
+    tokens = torch.randint(1, cfg.vocab_size, (2, 3), device=cuda,
+                           generator=torch.Generator(device=cuda)
+                           .manual_seed(1))
+    logits, caches = model.prefill(params, {"tokens": tokens},
+                                   cache_len=cache_len)
+    tok = logits.argmax(-1)
+    kv = caches[0]["kv"][0]
+
+    def step(token, pos):
+        return [model.decode(params, token, caches, pos)[0]]
+
+    pos = torch.full((2,), 3, dtype=torch.int32, device=cuda)
+    saved = [t.clone() for t in (caches[0]["mamba_conv"],
+                                 caches[0]["mamba_h"])]
+    replay = CudaGraphReplay(step, [tok, pos])
+    for p in (3, 4, 20):
+        pos = torch.full((2,), p, dtype=torch.int32, device=cuda)
+        # the Mamba state advances with every step: put it back between
+        # the graph's tick and the eager one
+        for leaf, kept in zip((caches[0]["mamba_conv"],
+                               caches[0]["mamba_h"]), saved):
+            leaf.copy_(kept)
+        graph_logits = replay([tok, pos])[0].clone()
+        k_graph = kv[:, :, p + cfg.meta_tokens].clone()
+        for leaf, kept in zip((caches[0]["mamba_conv"],
+                               caches[0]["mamba_h"]), saved):
+            leaf.copy_(kept)
+        eager = model.decode(params, tok, caches, pos)[0]
+        assert torch.equal(graph_logits, eager)
+        assert torch.equal(k_graph, kv[:, :, p + cfg.meta_tokens])
+        saved = [t.clone() for t in (caches[0]["mamba_conv"],
+                                     caches[0]["mamba_h"])]
+        tok = eager.argmax(-1)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("window", [None, 300])
+def test_causal_skip_is_bit_equal_on_the_card(cuda, dtype, window,
+                                              monkeypatch):
+    """``chunked_attention`` at S = T = 2304 (chunks of 2048, the last
+    short) with ``REPRO_CAUSAL_SKIP`` on and off: bit-equal, forward and
+    grads (the backward does not skip)."""
+    from repro_torch.models.attention import chunked_attention
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v, dout = (torch.randn(shape, generator=g, device=cuda).to(dtype)
+                     for shape in ((1, 2304, 8, 64), (1, 2304, 2, 64),
+                                   (1, 2304, 2, 64), (1, 2304, 8, 64)))
+    runs = []
+    for value in ("0", "1"):
+        monkeypatch.setenv("REPRO_CAUSAL_SKIP", value)
+        tq, tk, tv = (t.detach().requires_grad_(True) for t in (q, k, v))
+        out = chunked_attention(tq, tk, tv, causal=True, window=window)
+        runs.append((out.detach(),
+                     *torch.autograd.grad(out, (tq, tk, tv), dout)))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)

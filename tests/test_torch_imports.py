@@ -39,7 +39,9 @@ def test_importing_every_port_module_loads_no_jax_or_repro():
                 "repro_torch.checkpoint.checkpointer",
                 "repro_torch.runtime.fault_tolerance",
                 "repro_torch.models.losses", "repro_torch.launch.steps",
-                "repro_torch.launch.train", "repro_torch.utils.tree"):
+                "repro_torch.launch.train", "repro_torch.utils.tree",
+                "repro_torch.flags", "repro_torch.launch.analytic_cost",
+                "repro_torch.launch.roofline"):
         assert mod in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

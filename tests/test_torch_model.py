@@ -172,10 +172,21 @@ def test_windowed_kernel_route_keeps_the_window(dtype):
 def test_model_facade_raises_for_what_is_not_ported():
     _, tcfg, _, _, tparams, tokens, _ = _setup("float32")
     model = Model(tcfg)
-    for call in (model.input_specs, model.decode_state_specs,
-                 model.init_shapes):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    # the dry-run helpers are ported: meta tensors with the reference's
+    # shapes and dtypes (every arch: tests/test_torch_analysis.py)
+    from repro.configs import SHAPES as JAX_SHAPES
+    from repro_torch.configs import SHAPES
+    from repro_torch.utils.tree import tree_leaves
+    jmodel = JaxModel(jax_get_config("qwen2-0.5b", smoke=True))
+    cell = SHAPES["decode_32k"]
+    for got, want in ((model.init_shapes(), jmodel.init_shapes()),
+                      (model.input_specs(cell),
+                       jmodel.input_specs(JAX_SHAPES["decode_32k"])),
+                      (model.decode_state_specs(cell),
+                       jmodel.decode_state_specs(JAX_SHAPES["decode_32k"]))):
+        got, want = tree_leaves(got), jax.tree_util.tree_leaves(want)
+        assert all(t.is_meta for t in got)
+        assert [tuple(t.shape) for t in got] == [w.shape for w in want]
     # the training loss is ported (tests/test_torch_train.py holds it
     # against the reference)
     tok = torch.from_numpy(tokens).long()
