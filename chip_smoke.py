@@ -198,6 +198,19 @@ Phases (any failure raises and the script exits non-zero):
      leaf written); ``[roofline]`` lines: ``cell_cost`` with the H100's
      terms beside the measured Qwen2 training step, Qwen2 tick and
      DeepSeek ticks.
+ 17. the distribution layer (no kernel: the reference's reaches no Pallas
+     call) on the one card as a 1-rank NCCL mesh (``make_debug_mesh(1,
+     1)``): params as ``DTensor``s laid out by ``param_shardings``, the
+     batch by ``batch_specs``, the step under ``activation_rules``; an fp32
+     step of full-width Qwen2-0.5B at 2 layers (batch 8, seq 512) sharded
+     against plain on the same params and batch (loss 1e-5, grad leaves
+     1e-4, bit-equality reported); the full-depth bf16 step both ways
+     (CUDA events, median of 10 after 3 warm-up steps, and the idle share
+     of one step each from torch.profiler: DTensor's host cost);
+     ``collective_matmul`` and ``quantized_psum`` on the mesh against
+     ``x @ w`` and the quantise-dequantise of ``g``; a checkpoint restored
+     onto the mesh, bit-equal.  More than one card is not measured: the
+     16x16 and 2x16x16 collective numbers are the dry-run's reckoning.
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
 package; needs the repository's ``src/`` next to this file and a CUDA card.
@@ -4962,6 +4975,248 @@ def phase_flags(env: dict, gen: torch.Generator, seed: int,
     log(f"[flags] phase took {time.perf_counter() - t0:.1f} s")
 
 
+# =============================================================================
+# 17. the distribution layer on a 1-rank NCCL mesh
+# =============================================================================
+
+MESH_ITERS, MESH_WARMUP = 10, 3
+MESH_CKPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build", "mesh_ckpt")
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def mesh_batch(mesh, cfg, batch: dict) -> tuple:
+    """(the batch as ``DTensor``s laid out by ``batch_specs``, the context
+    a sharded step runs in: the activation rules of the batch's cell, and
+    plain tensors made inside the model read as replicated)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.parallel.sharding import (activation_rules, batch_specs,
+                                               place)
+    from repro_torch.utils import logical_axis_rules
+    b, s = batch["tokens"].shape
+    cell = ShapeCell("mesh", s, b, "train")
+    sp = batch_specs(mesh, cfg, batch, cell)
+
+    @contextlib.contextmanager
+    def ctx():
+        with logical_axis_rules(activation_rules(mesh, cell), mesh), \
+                implicit_replication():
+            yield
+    return {k: place(v, mesh, sp[k]) for k, v in batch.items()}, ctx
+
+
+def mesh_params(mesh, params):
+    """``params`` as ``DTensor``s laid out by ``param_shardings``."""
+    from repro_torch.parallel.sharding import param_shardings, place_tree
+    return place_tree(params, param_shardings(mesh, params), mesh)
+
+
+def mesh_fp32_gate(mesh, seed: int, device: str = "cuda",
+                   n_layers: int = 2, batch: int = TRAIN_BATCH,
+                   seq: int = TRAIN_SEQ) -> None:
+    """One fp32 loss+grads of full-width Qwen2-0.5B cut to ``n_layers``,
+    sharded on ``mesh`` against plain, same params and batch."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_dataset
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import Model
+    from repro_torch.utils.tree import tree_leaves
+    cfg = dataclasses.replace(get_config("qwen2-0.5b"), n_layers=n_layers,
+                              dtype=torch.float32)
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=device).manual_seed(seed),
+                        device)
+    data = {k: torch.from_numpy(v).to(device, torch.long) for k, v in
+            make_dataset(cfg.vocab_size, seq, batch).batch_at(0).items()}
+    loss, _, grads = loss_and_grads(model, params, data, seed)
+    params_s = mesh_params(mesh, params)
+    batch_s, ctx = mesh_batch(mesh, cfg, data)
+    with ctx():
+        loss_s, _, grads_s = loss_and_grads(model, params_s, batch_s, seed)
+    loss_s = loss_s.full_tensor()
+    grads_s = [g.full_tensor() for g in tree_leaves(grads_s)]
+    grads = tree_leaves(grads)
+    loss_rel = float((loss_s - loss).abs() / loss.abs())
+    grad_rel = max(_agreement(a, b)[0] for a, b in zip(grads_s, grads))
+    bit_equal = bool(torch.equal(loss_s, loss) and all(
+        torch.equal(a, b) for a, b in zip(grads_s, grads)))
+    log(f"[mesh] fp32 {cfg.name} d={cfg.d_model} {n_layers} layers batch "
+        f"{batch} seq {seq}, sharded on {tuple(mesh.shape)} vs plain: loss "
+        f"{float(loss):.6f} rel {loss_rel:.3e} (<= 1e-5), worst grad leaf "
+        f"rel_l2 {grad_rel:.3e} (<= 1e-4), bit-equal: {bit_equal}")
+    if not (loss_rel <= 1e-5 and grad_rel <= 1e-4):
+        raise AssertionError("[mesh] the sharded step disagrees with plain")
+
+
+def mesh_bf16_timing(mesh, seed: int, device: str = "cuda",
+                     n_layers: int | None = None, batch: int = TRAIN_BATCH,
+                     seq: int = TRAIN_SEQ, iters: int = MESH_ITERS,
+                     warmup: int = MESH_WARMUP) -> dict:
+    """The full-depth bf16 train step plain and sharded on ``mesh``: the
+    median of ``iters`` steps after ``warmup`` (CUDA events on the card),
+    and the idle share of one more step each from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.data import make_dataset
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw_init
+    cfg = get_config("qwen2-0.5b")
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    model = Model(cfg)
+    step = make_train_step(model, ParallelConfig(remat="none"),
+                           base_lr=1e-3, warmup=10, total_steps=1000)
+    data = make_dataset(cfg.vocab_size, seq, batch)
+    out = {}
+    for how in ("plain", "sharded"):
+        params = model.init(torch.Generator(device=device).manual_seed(seed),
+                            device)
+        if how == "sharded":
+            params = mesh_params(mesh, params)
+        opt = adamw_init(params)
+        times, losses = [], []
+        for i in range(warmup + iters + 1):
+            b = {k: torch.from_numpy(v).to(device, torch.long)
+                 for k, v in data.batch_at(i).items()}
+            ctx = contextlib.nullcontext
+            if how == "sharded":
+                b, ctx = mesh_batch(mesh, cfg, b)
+            timed = warmup <= i < warmup + iters
+            profiled = i == warmup + iters and device == "cuda"
+            ev = ([torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                  if device == "cuda" else None)
+            prof = (profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA])
+                    if profiled else contextlib.nullcontext())
+            with prof, ctx():
+                t0 = time.perf_counter()
+                if ev:
+                    ev[0].record()
+                params, opt, metrics = step(params, opt, b, i)
+                if ev:
+                    ev[1].record()
+                    ev[1].synchronize()
+                loss = metrics["loss"]
+                loss = float(loss.full_tensor() if how == "sharded"
+                             else loss)
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            losses.append(loss)
+            if timed:
+                times.append(ev[0].elapsed_time(ev[1]) if ev else wall_ms)
+            if profiled:
+                kernels = [e for e in prof.events()
+                           if e.device_type == DeviceType.CUDA]
+                busy = busy_and_overlap([(e.time_range.start,
+                                          e.time_range.end)
+                                         for e in kernels])[0] / 1e3
+                out[how + "_idle"] = max(0.0, 1 - busy / wall_ms) \
+                    if kernels else float("nan")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"[mesh] {how} bf16 loss not finite")
+        out[how] = statistics.median(times)
+        out[how + "_losses"] = losses
+        del params, opt
+        free_card()
+    log(f"[mesh] bf16 {cfg.name} full depth ({cfg.n_layers} layers) batch "
+        f"{batch} seq {seq}, step ms (median of {iters} after {warmup}, "
+        f"CUDA events): plain {out['plain']:.3f}, sharded on "
+        f"{tuple(mesh.shape)} {out['sharded']:.3f} (x"
+        f"{out['sharded'] / out['plain']:.2f}); idle share of one step "
+        f"(torch.profiler): plain {out.get('plain_idle', float('nan')):.3f}"
+        f", sharded {out.get('sharded_idle', float('nan')):.3f}; first "
+        f"losses {out['plain_losses'][0]:.4f} / "
+        f"{out['sharded_losses'][0]:.4f}")
+    return out
+
+
+def mesh_collectives_and_restore(mesh, seed: int,
+                                 device: str = "cuda") -> None:
+    """``collective_matmul`` and ``quantized_psum`` on the mesh against
+    their single-device meaning, and a checkpoint restored onto it."""
+    from repro_torch.checkpoint.checkpointer import (CheckpointSpec,
+                                                     Checkpointer)
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.parallel.collectives import (collective_matmul,
+                                                  quantized_psum)
+    from repro_torch.parallel.sharding import param_shardings
+    from repro_torch.utils.tree import tree_leaves
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(TRAIN_BATCH * TRAIN_SEQ, 896, generator=g,
+                    device=device).to(torch.bfloat16)
+    w = (torch.randn(896, 4864, generator=g, device=device) * 0.03).to(
+        torch.bfloat16)
+    cm = collective_matmul(x, w, mesh, "model")
+    want = torch.matmul(x.float(), w.float()).to(torch.bfloat16)
+    cm_err = float((cm.float() - want.float()).abs().max())
+    grad = torch.randn(4864, 896, generator=g, device=device)
+    qp = quantized_psum(grad, mesh, "data")
+    scale = grad.abs().max().clamp_min(1e-8) / 127.0
+    qd = torch.clamp(torch.round(grad / scale), -127, 127) * scale
+    qp_err = float((qp - qd).abs().max())
+    log(f"[mesh] collective_matmul [{x.shape[0]}, 896] @ [896, 4864] bf16 "
+        f"on the model dim vs x @ w: max |diff| {cm_err:.3e} (<= "
+        f"{BF16_TOL} x max|x @ w|); quantized_psum of [4864, 896] fp32 vs "
+        f"its quantise-dequantise: max |diff| {qp_err:.3e} (<= 1e-6)")
+    if not (cm_err <= BF16_TOL * float(want.float().abs().max())
+            and qp_err <= 1e-6):
+        raise AssertionError("[mesh] a collective disagrees")
+    cfg = dataclasses.replace(get_config("qwen2-0.5b"), n_layers=2)
+    params = Model(cfg).init(torch.Generator(device=device).manual_seed(
+        seed), device)
+    shutil.rmtree(MESH_CKPT_DIR, ignore_errors=True)
+    try:
+        ck = Checkpointer(CheckpointSpec(MESH_CKPT_DIR))
+        ck.save(1, params, blocking=True)
+        specs = param_shardings(mesh, params)
+        got = ck.restore(1, like=params, shardings=(specs, mesh))
+    finally:
+        shutil.rmtree(MESH_CKPT_DIR, ignore_errors=True)
+    equal = all(torch.equal(a.to_local(), b) and a.device_mesh is mesh
+                for a, b in zip(tree_leaves(got), tree_leaves(params)))
+    log(f"[mesh] sharded restore of {len(tree_leaves(params))} leaves onto "
+        f"{tuple(mesh.shape)}: every local shard bit-equal: {equal}")
+    if not equal:
+        raise AssertionError("[mesh] the sharded restore is not bit-equal")
+
+
+def phase_mesh(seed: int) -> None:
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_debug_mesh
+    t0 = time.perf_counter()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_debug_mesh(1, 1)
+        log(f"[mesh] NCCL process group of 1 rank, mesh "
+            f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} on cuda")
+        mesh_fp32_gate(mesh, seed)
+        free_card()
+        mesh_bf16_timing(mesh, seed)
+        mesh_collectives_and_restore(mesh, seed)
+    finally:
+        dist.destroy_process_group()
+    free_card()
+    log("[mesh] more than one card: not measured (one H100 forms only a "
+        "1-rank mesh); the collective bytes of the 16x16 and 2x16x16 "
+        "meshes are the dry-run's reckoning (python -m "
+        "repro_torch.launch.dryrun), not measurements")
+    log(f"[mesh] phase took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5002,6 +5257,8 @@ def main() -> int:
     training = phase_training(env, gen, args.seed)
     free_card()
     phase_flags(env, gen, args.seed, training["step_ms"])
+    free_card()
+    phase_mesh(args.seed)
 
     for path, launches in (("main", main_path["launches"]["branch_gemm"]),
                            ("ragged", ragged["launches"]["grouped_gemm"]),

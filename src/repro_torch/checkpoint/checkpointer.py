@@ -13,7 +13,13 @@ tuples and NamedTuples in order); bf16 is widened to fp32 on disk.
 background thread; ``restore()`` rebuilds ``like``'s structure with every
 tensor leaf on ``like``'s device and in its dtype.  The newest ``keep``
 checkpoints stay; older ones go only after a newer one is durable.
-Restoring onto another mesh (the reference's ``shardings``) is ROADMAP A10.
+
+Sharded trees: ``save()`` of a tree with ``DTensor`` leaves writes full
+tensors (every rank gathers each leaf with ``full_tensor()``, rank 0
+writes), so the file does not care what mesh wrote it; ``restore(step,
+like, shardings=(specs, mesh))`` lays each restored leaf out on the current
+mesh by its spec (``parallel.sharding.place``: each rank keeps its slices
+of the saved tensor), the reference's cross-topology reshard.
 """
 from __future__ import annotations
 
@@ -51,10 +57,18 @@ def latest_step(directory: str) -> int | None:
     return max(steps) if steps else None
 
 
+def _is_dtensor(leaf: Any) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(leaf, DTensor)
+
+
 def _to_host(leaf: Any) -> np.ndarray:
-    """A host copy of one leaf, bf16 widened to fp32 (npz holds no bf16)."""
+    """A host copy of one leaf, bf16 widened to fp32 (npz holds no bf16);
+    a ``DTensor`` is gathered whole first (a collective: every rank)."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
+        if _is_dtensor(t):
+            t = t.full_tensor()
         if t.dtype == torch.bfloat16:
             t = t.float()
         return np.array(t.cpu())
@@ -71,10 +85,14 @@ class Checkpointer:
 
     # -- save -------------------------------------------------------------------
     def save(self, step: int, tree: Any, blocking: bool = False) -> None:
-        """Snapshot now, write in the background (async checkpointing)."""
+        """Snapshot now, write in the background (async checkpointing).
+        A tree with ``DTensor`` leaves is saved by every rank of their
+        mesh together; rank 0 writes."""
         self.wait()  # only one in-flight save
         leaves, spec = tree_flatten(tree)
         host = [_to_host(leaf) for leaf in leaves]
+        if any(map(_is_dtensor, leaves)) and torch.distributed.get_rank():
+            return
 
         def write():
             try:
@@ -133,10 +151,13 @@ class Checkpointer:
                     shutil.rmtree(os.path.join(d, n), ignore_errors=True)
 
     # -- restore ----------------------------------------------------------------
-    def restore(self, step: int, like: Any) -> Any:
+    def restore(self, step: int, like: Any, shardings: Any = None) -> Any:
         """Rebuild ``like``'s tree from checkpoint ``step``: a tensor leaf of
         ``like`` gives a tensor on its device in its dtype, any other leaf a
-        numpy array in ``np.asarray(leaf)``'s dtype."""
+        numpy array in ``np.asarray(leaf)``'s dtype.  ``shardings = (specs,
+        mesh)``, a spec tree like ``like`` and a ``DeviceMesh``, makes every
+        leaf a ``DTensor`` laid out by its spec (cross-topology reshard:
+        the checkpoint does not care what mesh wrote it)."""
         d = os.path.join(self.spec.directory, f"step_{step:08d}")
         leaves_like, spec = tree_flatten(like)
         with np.load(os.path.join(d, "arrays.npz")) as data:
@@ -148,4 +169,9 @@ class Checkpointer:
                     device=ref.device, dtype=ref.dtype))
             else:
                 restored.append(np.asarray(arr).astype(np.asarray(ref).dtype))
-        return tree_unflatten(spec, restored)
+        tree = tree_unflatten(spec, restored)
+        if shardings is not None:
+            from ..parallel.sharding import place_tree
+            specs, mesh = shardings
+            tree = place_tree(tree, specs, mesh)
+        return tree

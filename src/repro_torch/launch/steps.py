@@ -26,8 +26,11 @@ def loss_and_grads(model: Model, params, batch, seed: int = 0,
     router noise draws from a generator seeded with ``seed``."""
     leaves, spec = tree_flatten(params)
     live = [p.detach().requires_grad_(True) for p in leaves]
-    generator = torch.Generator(device=leaves[0].device).manual_seed(
-        int(seed))
+    device = leaves[0].device
+    # the meta device (the dry-run) has no generator; nothing is drawn there
+    generator = torch.Generator(
+        device="cpu" if device.type == "meta" else device).manual_seed(
+            int(seed))
     loss, metrics = model.loss(tree_unflatten(spec, live), batch, generator,
                                remat=remat)
     grads = torch.autograd.grad(loss, live, allow_unused=True)

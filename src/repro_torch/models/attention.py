@@ -33,21 +33,34 @@ windowed GQA decode layer gather the ``window + 1`` slots it can attend
 and a global one take the full masked path, both plain; ``kv_quant`` gives
 the dense MLA decode cache an int8 latent with a per-token fp16 scale
 (paged MLA pages stay in the model dtype).  The cache-update mode changes
-nothing here: the new slot is written in place under either value.  Not
-ported: the roofline hook that forces one chunk (ROADMAP A10).
+nothing here: the new slot is written in place under either value.
+
+Under sharding rules (:mod:`repro_torch.utils.sharding_ctx`) the
+activations are annotated at the reference's sites, the head splits go
+through ``shard_split`` and the dense-slab writes through ``write_slots``,
+so ``DTensor`` params, inputs and caches run the same code.  The module's
+``_CHUNK_OVERRIDE = "single"`` (the roofline's hook, as the reference's)
+makes :func:`chunked_attention` take the whole sequence as one chunk.
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..configs.base import ModelConfig
 from ..flags import causal_skip, kv_quant, window_slice_decode
+from ..utils import shard
+from ..utils.sharding_ctx import (on_local_shards, seq_split, shard_merge,
+                                  shard_split, write_slots)
 from .layers import apply_norm, apply_rope, init_linear, init_norm, linear
 
 NEG_INF = -1e30
 # s·t above which the plain path never makes an [S, T] buffer and runs
 # chunked_attention instead
 CHUNK_THRESHOLD = 1 << 22
+# roofline hook: "single" forces one chunk in chunked_attention (the
+# roofline's one-block count, launch/roofline.py); None = production chunks
+_CHUNK_OVERRIDE: str | None = None
 
 
 def causal_window_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
@@ -77,7 +90,11 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: [B,S,H,Dk]; k: [B,T,KVH,Dk]; v: [B,T,KVH,Dv];
     mask: [S,T] or [B,S,T] or None.  Logits and the weighted sum accumulate
     in fp32 over the operands' own values; probabilities are rounded to v's
-    dtype before the sum, as in the JAX package."""
+    dtype before the sum, as in the JAX package.  ``DTensor`` operands are
+    attended shard by shard (``on_local_shards``)."""
+    if isinstance(q, DTensor) and not seq_split(q, k, v):
+        return on_local_shards(
+            lambda q, k, v, m: _sdpa(q, k, v, m, scale), q, k, v, mask)
     b, s, h, d = q.shape
     kvh = k.shape[2]
     dv = v.shape[-1]
@@ -150,6 +167,7 @@ def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             k_pos = torch.arange(k0, min(k0 + kc, t), device=dev)
             logits = torch.einsum("bckgd,btkd->bkgct", qblk,
                                   k[:, k0:k0 + kc].float()) * scale
+            logits = shard(logits, "batch", "heads", None, None, None)
             mask = _chunk_mask(q_pos, k_pos, causal, window)
             logits = torch.where(mask, logits, NEG_INF)
             m_new = torch.maximum(m, logits.amax(-1))
@@ -185,7 +203,9 @@ def _flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the reference rounds them.  The query heads stay grouped ``[KVH, G]``,
     so the dk and dv contractions fold them onto their KV head (GQA, and
     MLA's heads over one latent head).  Memory: fp32 dq, dk, dv and one
-    chunk pair's ``[B,H,qc,kc]`` buffers, O(S·chunk).
+    chunk pair's ``[B,H,qc,kc]`` buffers, O(S·chunk).  Each chunk's grads
+    are summed out of place in chunk order (a ``DTensor`` cannot add in
+    place into a plain zero buffer).
     → (dq, dk, dv) in q's, k's and v's dtypes."""
     b, s, h, dk = q.shape
     t, kvh = k.shape[1], k.shape[2]
@@ -193,9 +213,9 @@ def _flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     g = h // kvh
     dev = q.device
     dsum = (dout.float() * out.float()).sum(-1)            # [b,s,h]
-    dq = torch.zeros((b, s, kvh, g, dk), device=dev)
-    dk_acc = torch.zeros((b, t, kvh, dk), device=dev)
-    dv_acc = torch.zeros((b, t, kvh, dv_dim), device=dev)
+    dq_rows: list = []                   # per query chunk
+    dk_cols: dict[int, torch.Tensor] = {}  # per key chunk, in chunk order
+    dv_cols: dict[int, torch.Tensor] = {}
     for q0 in range(0, s, qc):
         n = min(qc, s - q0)
         qblk = q[:, q0:q0 + n].reshape(b, n, kvh, g, dk)
@@ -205,22 +225,31 @@ def _flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             0, 2, 3, 1)[..., None]                          # [b,kvh,g,n,1]
         q_pos = torch.arange(q0, q0 + n, device=dev)
         qf, dof = qblk.float(), doblk.float()
+        dq_i = None
         for k0 in range(0, t, kc):
             k_pos = torch.arange(k0, min(k0 + kc, t), device=dev)
             kf = k[:, k0:k0 + kc].float()
             logits = torch.einsum("bckgd,btkd->bkgct", qf, kf) * scale
+            logits = shard(logits, "batch", "heads", None, None, None)
             mask = _chunk_mask(q_pos, k_pos, causal, window)
             logits = torch.where(mask, logits, NEG_INF)
             p = torch.exp(logits - lse_i)                   # [b,kvh,g,n,kc]
             dp = torch.einsum("bckgd,btkd->bkgct", dof,
                               v[:, k0:k0 + kc].float())
             ds = p * (dp - dsum_i) * scale
-            dv_acc[:, k0:k0 + kc] += torch.einsum(
-                "bkgct,bckgd->btkd", p.to(dout.dtype).float(), dof)
-            dk_acc[:, k0:k0 + kc] += torch.einsum(
-                "bkgct,bckgd->btkd", ds.to(q.dtype).float(), qf)
-            dq[:, q0:q0 + n] += torch.einsum(
-                "bkgct,btkd->bckgd", ds.to(k.dtype).float(), kf)
+            dv_j = torch.einsum("bkgct,bckgd->btkd",
+                                p.to(dout.dtype).float(), dof)
+            dk_j = torch.einsum("bkgct,bckgd->btkd", ds.to(q.dtype).float(),
+                                qf)
+            dq_j = torch.einsum("bkgct,btkd->bckgd", ds.to(k.dtype).float(),
+                                kf)
+            dv_cols[k0] = dv_j if k0 not in dv_cols else dv_cols[k0] + dv_j
+            dk_cols[k0] = dk_j if k0 not in dk_cols else dk_cols[k0] + dk_j
+            dq_i = dq_j if dq_i is None else dq_i + dq_j
+        dq_rows.append(dq_i)
+    dq = torch.cat(dq_rows, 1)
+    dk_acc = torch.cat(list(dk_cols.values()), 1)
+    dv_acc = torch.cat(list(dv_cols.values()), 1)
     return (dq.reshape(b, s, h, dk).to(q.dtype), dk_acc.to(k.dtype),
             dv_acc.to(v.dtype))
 
@@ -259,9 +288,16 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q: [B,S,H,Dk]; k: [B,T,KVH,Dk]; v: [B,T,KVH,Dv] → [B,S,H,Dv].  The
     last Q and KV chunks are short where S, T are no chunk multiple;
     ``window`` <= 0 or >= 2^29 (or None) disables the window."""
+    if isinstance(q, DTensor) and not seq_split(q, k, v):
+        return on_local_shards(
+            lambda q, k, v, _: chunked_attention(
+                q, k, v, causal=causal, window=window, scale=scale,
+                q_chunk=q_chunk, kv_chunk=kv_chunk), q, k, v)
     s, dk = q.shape[1], q.shape[-1]
     t = k.shape[1]
     scale = dk ** -0.5 if scale is None else scale
+    if _CHUNK_OVERRIDE == "single":
+        q_chunk, kv_chunk = s, t
     w = 0.0 if window is None else float(window)
     if w >= float(1 << 29):
         w = 0.0
@@ -273,9 +309,12 @@ def _qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,
          positions: torch.Tensor):
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = linear(p["wq"], x).reshape(b, s, h, hd)
-    k = linear(p["wk"], x).reshape(b, s, kvh, hd)
-    v = linear(p["wv"], x).reshape(b, s, kvh, hd)
+    q = shard_split(linear(p["wq"], x), (b, s, h, hd),
+                    "batch", "seq", "heads", None)
+    k = shard_split(linear(p["wk"], x), (b, s, kvh, hd),
+                    "batch", "seq", "kv_heads", None)
+    v = shard_split(linear(p["wv"], x), (b, s, kvh, hd),
+                    "batch", "seq", "kv_heads", None)
     if cfg.rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -296,8 +335,9 @@ def gqa_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig,
     else:
         mask = causal_window_mask(positions[0], positions[0], window)
         out = _sdpa(q, k, v, mask)
-    y = linear(p["wo"], out.reshape(b, s, cfg.n_heads * cfg.head_dim))
-    return y, (k, v)
+    y = linear(p["wo"], shard_merge(out, (b, s, cfg.n_heads * cfg.head_dim),
+                                     "batch", "seq", "heads"))
+    return shard(y, "batch", "seq", "embed"), (k, v)
 
 
 def _write_rows(cache: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
@@ -326,8 +366,8 @@ def gqa_decode(p: dict, x: torch.Tensor, cache_kv, pos: torch.Tensor,
     q, k, v = _qkv(p, x, cfg, pos[:, None])
     rows = torch.arange(b, device=x.device)
     pos_l = pos.long()
-    _write_rows(k_cache, rows, pos_l, k[:, 0])
-    _write_rows(v_cache, rows, pos_l, v[:, 0])
+    write_slots(k_cache, pos_l, k[:, 0])
+    write_slots(v_cache, pos_l, v[:, 0])
     w = cfg.window
     if (window_slice_decode() and w is not None
             and w + 1 + cfg.meta_tokens < t):
@@ -340,7 +380,8 @@ def gqa_decode(p: dict, x: torch.Tensor, cache_kv, pos: torch.Tensor,
             ok = (k_pos <= pos_l[:, None]) & (k_pos > pos_l[:, None] - w)
             out = _sdpa(q, k_cache[rows[:, None], k_pos],
                         v_cache[rows[:, None], k_pos], ok[:, None, :])
-        y = linear(p["wo"], out.reshape(b, 1, cfg.n_heads * cfg.head_dim))
+        y = linear(p["wo"], shard_merge(
+            out, (b, 1, cfg.n_heads * cfg.head_dim), "batch", "seq", "heads"))
         return y, (k_cache, v_cache)
     k_pos = torch.arange(t, device=x.device)[None, :]
     valid = k_pos <= pos_l[:, None]
@@ -351,7 +392,8 @@ def gqa_decode(p: dict, x: torch.Tensor, cache_kv, pos: torch.Tensor,
         out = decode_attention(q[:, 0], k_cache, v_cache, valid)[:, None]
     else:
         out = _sdpa(q, k_cache, v_cache, valid[:, None, :])
-    y = linear(p["wo"], out.reshape(b, 1, cfg.n_heads * cfg.head_dim))
+    y = linear(p["wo"], shard_merge(
+        out, (b, 1, cfg.n_heads * cfg.head_dim), "batch", "seq", "heads"))
     return y, (k_cache, v_cache)
 
 
@@ -386,7 +428,8 @@ def gqa_paged_decode(p: dict, x: torch.Tensor, pages, block_tables: torch.Tensor
         from ..kernels.paged_decode.ref import paged_decode_attention_ref
         out = paged_decode_attention_ref(q[:, 0], k_pages, v_pages,
                                          block_tables, lengths, starts)
-    y = linear(p["wo"], out.reshape(b, 1, cfg.n_heads * cfg.head_dim))
+    y = linear(p["wo"], shard_merge(
+        out, (b, 1, cfg.n_heads * cfg.head_dim), "batch", "seq", "heads"))
     return y, (k_pages, v_pages)
 
 
@@ -505,7 +548,7 @@ def mla_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig,
     else:
         mask = causal_window_mask(positions[0], positions[0], None)
         y = mla_attention(p, q_nope, q_rope, c_kv, k_rope, cfg, mask=mask)
-    return y, (c_kv, k_rope)
+    return shard(y, "batch", "seq", "embed"), (c_kv, k_rope)
 
 
 def mla_decode(p: dict, x: torch.Tensor, cache, pos: torch.Tensor,
@@ -527,20 +570,19 @@ def mla_decode(p: dict, x: torch.Tensor, cache, pos: torch.Tensor,
     b, t = r_cache.shape[0], r_cache.shape[1]
     q_nope, q_rope, c_new, r_new = _mla_qkv(p, x, cfg, pos[:, None],
                                             use_kernels)
-    rows = torch.arange(b, device=x.device)
     pos_l = pos.long()
     if quant:
         c1 = c_new[:, 0]
         scale = c1.abs().amax(-1).clamp_min(1e-6)
-        _write_rows(c_q, rows, pos_l, torch.clamp(
+        write_slots(c_q, pos_l, torch.clamp(
             torch.round(c1 / scale[:, None] * 127.0), -127, 127).to(
                 torch.int8))
-        _write_rows(c_scale, rows, pos_l, (scale / 127.0).to(torch.float16))
+        write_slots(c_scale, pos_l, (scale / 127.0).to(torch.float16))
         c_cache = (c_q.to(torch.bfloat16)
                    * c_scale[..., None].to(torch.bfloat16))
     else:
-        _write_rows(c_cache, rows, pos_l, c_new[:, 0])
-    _write_rows(r_cache, rows, pos_l, r_new[:, 0])
+        write_slots(c_cache, pos_l, c_new[:, 0])
+    write_slots(r_cache, pos_l, r_new[:, 0])
     valid = torch.arange(t, device=x.device)[None, :] <= pos_l[:, None]
     y = mla_attention(p, q_nope, q_rope, c_cache, r_cache, cfg,
                       mask=valid[:, None, :])

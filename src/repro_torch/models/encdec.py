@@ -35,6 +35,7 @@ import torch
 import torch.utils.checkpoint
 
 from ..configs.base import ModelConfig
+from ..utils import shard
 from .attention import _sdpa, gqa_decode, gqa_prefill, init_gqa
 from .ffn import init_mlp, mlp
 from .layers import (_normal, apply_norm, check_device, embed, init_embedding,
@@ -179,7 +180,8 @@ def encode(params: dict, frames: torch.Tensor, cfg: ModelConfig, *,
     """frames: [B, T_frames, feat_dim] (precomputed stub embeddings) →
     the normed encoder output [B, T_frames, d]."""
     x = linear(params["frontend_proj"], frames)
-    x = x + params["enc_pos"][None, : x.shape[1]]
+    x = shard(x + params["enc_pos"][None, : x.shape[1]], "batch", "seq",
+              "embed")
     stack = params["enc_blocks"]
     for p_l in layer_list(stack, _n_layers(stack)):
         x = _run_layer(lambda p_l, x: encoder_block(p_l, x, cfg), remat,
@@ -216,7 +218,7 @@ def encdec_loss(params: dict, batch: dict, cfg: ModelConfig,
     enc_out = encode(params, batch["frames"], cfg, remat=remat)
     logits, _ = decode_seq(params, batch["tokens"], enc_out, cfg, use_kernels,
                            remat=remat)
-    ce = softmax_xent(logits, batch["labels"])
+    ce = softmax_xent(shard(logits, "batch", "seq", "vocab"), batch["labels"])
     return ce, {"ce": ce}
 
 

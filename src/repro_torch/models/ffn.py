@@ -14,8 +14,10 @@ Expert numerics (ROADMAP C4): with ``use_kernels`` the expert MLP is the
 ``moe_gemm`` kernel, which like the JAX package's ``moe_mlp_ref`` keeps h in
 fp32 until the down GEMM; the plain route copies the JAX package's inline
 path, which rounds ``silu(x @ gate)`` and ``x @ up`` to the activation dtype
-first.  Expert parallelism (sharding over an ``expert`` axis) is not ported
-(ROADMAP A10).
+first.  Expert parallelism: under sharding rules the ``[E, C, d]``
+capacity buffers are laid out over the ``expert`` logical axis (``model``,
+or data×model with ``expert_2d``), as the reference's, so each rank runs
+its own experts' MLPs.
 """
 from __future__ import annotations
 
@@ -24,6 +26,8 @@ import itertools
 import torch
 
 from ..configs.base import ModelConfig
+from ..utils import shard
+from ..utils.sharding_ctx import whole
 from .layers import check_device, gelu, init_linear, linear, matmul_f32
 
 
@@ -50,6 +54,10 @@ def mlp(p: dict, x: torch.Tensor, act: str = "swiglu") -> torch.Tensor:
         h = torch.nn.functional.silu(linear(p["gate"], x)) * linear(p["up"], x)
     else:
         h = gelu(linear(p["up"], x))
+    if h.dim() == 3:
+        h = shard(h, "batch", "seq", "mlp")
+    else:  # flattened tokens (the MoE shared expert)
+        h = shard(h, "batch", "mlp")
     return linear(p["down"], h)
 
 
@@ -122,10 +130,12 @@ def route(p_router: dict, x: torch.Tensor, e,
     top_idx = torch.topk(select, e.top_k, dim=-1).indices           # [N,k]
     top_w = torch.gather(scores, -1, top_idx)
     top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+    # whole on every rank: torch 2.11's DTensor splits an index_add's
+    # source and index apart
+    flat_idx = whole(top_idx.reshape(-1))
     counts = torch.zeros(e.n_experts, dtype=torch.float32,
-                         device=x.device).index_add_(
-        0, top_idx.reshape(-1),
-        torch.ones(top_idx.numel(), dtype=torch.float32, device=x.device))
+                         device=x.device).index_add(
+        0, flat_idx, torch.ones_like(flat_idx, dtype=torch.float32))
     load = counts / torch.clamp(counts.sum(), min=1.0)
     importance = scores.mean(0)
     aux = {"load": load,
@@ -179,7 +189,9 @@ def moe_ffn_dense(p: dict, x: torch.Tensor, cfg: ModelConfig,
     poh = _one_hot(pos, cap, xf.dtype)                              # [N,k,C]
     comb = torch.einsum("nke,nkc->nec", disp, poh)                  # [N,E,C]
     buf = torch.einsum("nec,nd->ecd", comb, xf)                     # [E,C,d]
-    out_buf = _expert_mlp(p["experts"], buf, use_kernels)
+    buf = shard(buf, "expert", None, None)
+    out_buf = shard(_expert_mlp(p["experts"], buf, use_kernels),
+                    "expert", None, None)
     comb_w = torch.einsum("nke,nkc,nk->nec", disp, poh, w.to(xf.dtype))
     y = torch.einsum("nec,ecd->nd", comb_w, out_buf)
     if e.n_shared:
@@ -210,22 +222,24 @@ def moe_ffn_sort(p: dict, x: torch.Tensor, cfg: ModelConfig,
     order = torch.argsort(expert_flat, stable=True)                 # [NK]
     sorted_e = expert_flat[order]
     counts = torch.zeros(e.n_experts, dtype=torch.long,
-                         device=dev).index_add_(
-        0, expert_flat, torch.ones(nk, dtype=torch.long, device=dev))
+                         device=dev).index_add(
+        0, whole(expert_flat), torch.ones_like(whole(expert_flat)))
     starts = torch.cumsum(counts, dim=0) - counts                   # [E]
     pos_sorted = torch.arange(nk, device=dev) - starts[sorted_e]
-    pos = torch.empty(nk, dtype=torch.long, device=dev)
-    pos[order] = pos_sorted                                         # [NK]
+    pos = torch.empty(nk, dtype=torch.long, device=dev).scatter(
+        0, order, pos_sorted)                                       # [NK]
 
     keep = pos < cap
     slot = torch.where(keep, expert_flat * cap + pos,
                        torch.full_like(pos, e.n_experts * cap))
     gathered = xf[tok_flat] * keep[:, None].to(xf.dtype)            # [NK,d]
     buf = torch.zeros((e.n_experts * cap + 1, d), dtype=xf.dtype,
-                      device=dev).index_add_(0, slot, gathered)
+                      device=dev).index_add(0, slot, gathered)
     buf = buf[:e.n_experts * cap].reshape(e.n_experts, cap, d)
+    buf = shard(buf, "expert", None, None)
 
-    out_buf = _expert_mlp(p["experts"], buf, use_kernels)
+    out_buf = shard(_expert_mlp(p["experts"], buf, use_kernels),
+                    "expert", None, None)
 
     rows = out_buf.reshape(e.n_experts * cap, d)[
         torch.clamp(slot, max=e.n_experts * cap - 1)]

@@ -13,6 +13,10 @@ C5).
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
+
+from ..utils import shard
+from ..utils.sharding_ctx import whole
 
 
 def check_device(device: torch.device | str) -> torch.device:
@@ -98,7 +102,13 @@ def init_embedding(generator: torch.Generator, vocab: int, d: int,
 
 
 def embed(p: dict, ids: torch.Tensor) -> torch.Tensor:
-    return p["table"][ids]
+    """Rows of the table.  A ``DTensor`` table is read whole with whole
+    ids, then laid out by the rules (torch 2.11's ``DTensor`` cannot
+    propagate the backward of a gather with split ids)."""
+    table = p["table"]
+    if isinstance(table, DTensor):
+        return shard(whole(table)[whole(ids)], "batch", "seq", "embed")
+    return shard(table[ids], "batch", "seq", "embed")
 
 
 class _MatmulF32(torch.autograd.Function):
@@ -126,8 +136,11 @@ class _MatmulF32(torch.autograd.Function):
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` for 2-D or 3-D operands, accumulated in fp32 with an fp32
     result, differentiable; on the card no fp32 copy of either operand is
-    made (a Kimi-K2 expert stack is 5.6 GB in bf16, 11.3 GB in fp32)."""
-    if a.is_cuda and a.dtype != torch.float32:
+    made (a Kimi-K2 expert stack is 5.6 GB in bf16, 11.3 GB in fp32),
+    except for a ``DTensor`` operand: ``DTensor`` has no sharding rule for
+    a product with ``out_dtype``, so it takes the fp32 copies."""
+    if (a.is_cuda and a.dtype != torch.float32
+            and not isinstance(a, DTensor)):
         return _MatmulF32.apply(a, b)
     return torch.matmul(a.float(), b.float())
 

@@ -1,7 +1,9 @@
 """Cross-entropy losses: the JAX package's ``models/losses.py``.
 
 The gold logit is a gather, which equals the reference's one-hot
-contraction exactly (one nonzero term a row).  :func:`chunked_softmax_xent`
+contraction exactly (one nonzero term a row); over ``DTensor`` logits
+split along the vocab the gather reads them made whole there first
+(``whole_dim``), where GSPMD reshards the reference's on its own.  :func:`chunked_softmax_xent`
 fuses the head matmul into a loop over sequence chunks, so the full
 ``[B,S,V]`` fp32 logits are never made at once, in the forward or the
 backward; the LM loss takes it under the ``chunked_ce`` flag
@@ -12,13 +14,15 @@ from __future__ import annotations
 import torch
 import torch.utils.checkpoint
 
+from ..utils.sharding_ctx import whole_dim
 from .layers import unembed
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean token cross-entropy.  logits: [B,S,V] fp32; labels: [B,S] int."""
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    gold = torch.gather(whole_dim(logits, -1), -1,
+                        labels.long()[..., None])[..., 0]
     return (lse - gold).mean()
 
 
@@ -27,7 +31,8 @@ def _chunk_xent_sum(x: torch.Tensor, head_table: torch.Tensor,
     """Summed token cross-entropy of one chunk, its logits made here."""
     logits = unembed({"table": head_table}, x)
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    gold = torch.gather(whole_dim(logits, -1), -1,
+                        labels.long()[..., None])[..., 0]
     return (lse - gold).sum()
 
 

@@ -31,8 +31,10 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from ..configs.base import ModelConfig
+from ..utils import shard
 from .layers import check_device, init_linear, linear
 
 RWKV_LORA = 32  # data-dependent decay LoRA rank (Finch §3)
@@ -135,7 +137,7 @@ def rwkv_time_mix_seq(p: dict, x: torch.Tensor, state, cfg: ModelConfig,
     y = (yf.reshape(b, t, d) * p["ln_x"]["scale"].float()
          + p["ln_x"]["bias"].float()).to(x.dtype)
     y = linear(p["wo"], y * g)
-    return y, (x[:, -1], s_final)
+    return shard(y, "batch", "seq", "embed"), (x[:, -1], s_final)
 
 
 def rwkv_time_mix_step(p: dict, x: torch.Tensor, state, cfg: ModelConfig,
@@ -267,13 +269,16 @@ def mamba_seq(p: dict, x: torch.Tensor, state, cfg: ModelConfig):
     xf = xi.float()
     operands = (delta, xf, bmat.float(), cmat.float(), a, h0)
     # mamba_scan updates its state history in place, which autograd
-    # refuses; under a loss the out-of-place per-token loop runs
-    scan = (mamba_scan_ref if torch.is_grad_enabled()
-            and any(t.requires_grad for t in operands) else mamba_scan)
+    # refuses, and so does a DTensor whose placements the update would
+    # change; under a loss or a mesh the out-of-place per-token loop runs
+    scan = (mamba_scan_ref if isinstance(xf, DTensor) or (
+        torch.is_grad_enabled() and any(t.requires_grad for t in operands))
+        else mamba_scan)
     h_final, ys = scan(*operands)
     y = ys + xf * p["d_skip"]
     y = y.to(x.dtype) * F.silu(z)
-    return linear(p["out_proj"], y), (conv_state, h_final)
+    return (shard(linear(p["out_proj"], y), "batch", "seq", "embed"),
+            (conv_state, h_final))
 
 
 def mamba_state_init(cfg: ModelConfig, batch: int, *,

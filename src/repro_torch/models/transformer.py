@@ -45,6 +45,8 @@ from .attention import (attn_decode, attn_paged_decode, attn_prefill,
 from .ffn import ffn, init_ffn, init_mlp, mlp
 from .layers import (apply_norm, check_device, embed, gelu, init_embedding,
                      init_linear, init_norm, linear, unembed)
+from ..utils import shard
+from ..utils.sharding_ctx import copy_into, whole_dim
 from .losses import chunked_softmax_xent, softmax_xent
 from .ssm import (init_mamba, init_rwkv_channel_mix, init_rwkv_time_mix,
                   mamba_seq, mamba_state_init, rwkv_channel_mix,
@@ -175,10 +177,11 @@ def _check_supported(cfg: ModelConfig) -> None:
 
 
 def layer_params(tree: Any, li: int) -> Any:
-    """Layer ``li`` of a stacked ``[L, ...]`` param tree (views)."""
+    """Layer ``li`` of a stacked ``[L, ...]`` param tree (views; a
+    ``DTensor`` stack split over L is made whole along it first)."""
     if isinstance(tree, dict):
         return {k: layer_params(v, li) for k, v in tree.items()}
-    return tree[li]
+    return whole_dim(tree, 0)[li]
 
 
 def layer_list(tree: Any, n: int) -> list:
@@ -190,7 +193,7 @@ def layer_list(tree: Any, n: int) -> list:
     if isinstance(tree, dict):
         parts = {k: layer_list(v, n) for k, v in tree.items()}
         return [{k: parts[k][i] for k in tree} for i in range(n)]
-    return list(torch.unbind(tree, 0))
+    return list(torch.unbind(whole_dim(tree, 0), 0))
 
 
 def _window(w: int) -> int | None:
@@ -255,7 +258,7 @@ def block_step(p: dict, x: torch.Tensor, cache, pos: torch.Tensor,
     if layer_kind == "rwkv":
         x, new = _rwkv_block(p, x, cache, cfg, use_kernels)
         for key, value in zip(("tm_x", "tm_s", "cm_x"), new):
-            cache[key].copy_(value)
+            copy_into(cache[key], value)
         return x, cache
     h = apply_norm(p["norm1"], x, cfg.norm, use_kernels)
     if layer_kind == "hybrid":
@@ -263,8 +266,8 @@ def block_step(p: dict, x: torch.Tensor, cache, pos: torch.Tensor,
                                   window, use_kernels)
         m_out, (conv, m_h) = mamba_seq(
             p["mamba"], h, (cache["mamba_conv"], cache["mamba_h"]), cfg)
-        cache["mamba_conv"].copy_(conv)
-        cache["mamba_h"].copy_(m_h)
+        copy_into(cache["mamba_conv"], conv)
+        copy_into(cache["mamba_h"], m_h)
         attn_out = 0.5 * (attn_out + m_out)
     else:
         attn_out, cache = attn_decode(p["attn"], h, cache, pos, cfg, window,
@@ -298,7 +301,8 @@ def _head_table(params: dict, cfg: ModelConfig) -> dict:
 def _head(params: dict, x: torch.Tensor, cfg: ModelConfig,
           use_kernels: bool) -> torch.Tensor:
     x = apply_norm(params["final_norm"], x, cfg.norm, use_kernels)
-    return unembed(_head_table(params, cfg), x)
+    return shard(unembed(_head_table(params, cfg), x), "batch", "seq",
+                 "vocab")
 
 
 def _stack_caches(caches: list):
@@ -341,7 +345,7 @@ def _embed_inputs(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     if cfg.meta_tokens:
         meta = params["meta"].to(x.dtype).expand(x.shape[0], -1, -1)
         x = torch.cat([meta, x], dim=1)
-    return x
+    return shard(x, "batch", "seq", "embed")
 
 
 def lm_hidden(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
@@ -451,7 +455,9 @@ def _mtp_loss(params: dict, tokens: torch.Tensor, labels: torch.Tensor,
     h, _, _ = block_seq(params["mtp"]["block"], h, cfg, positions, None,
                         False, kind)
     h = apply_norm(params["mtp"]["norm"], h, cfg.norm)
-    return softmax_xent(unembed(_head_table(params, cfg), h), labels[:, 1:])
+    logits = shard(unembed(_head_table(params, cfg), h), "batch", "seq",
+                   "vocab")
+    return softmax_xent(logits, labels[:, 1:])
 
 
 def lm_prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,

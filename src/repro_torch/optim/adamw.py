@@ -27,8 +27,8 @@ def adamw_init(params) -> AdamWState:
     leaves, spec = tree_flatten(params)
 
     def zeros():
-        return tree_unflatten(spec, [torch.zeros(p.shape, dtype=torch.float32,
-                                                 device=p.device)
+        # zeros_like keeps a DTensor param's placements (ZeRO-3 moments)
+        return tree_unflatten(spec, [torch.zeros_like(p, dtype=torch.float32)
                                      for p in leaves])
     device = leaves[0].device if leaves else None
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=device),

@@ -1,5 +1,8 @@
-from .tree import (tree_flatten, tree_leaves, tree_map, tree_param_count,
+from .sharding_ctx import current_rules, logical_axis_rules, shard
+from .tree import (keystr, tree_flatten, tree_leaves, tree_map,
+                   tree_map_with_path, tree_param_count, tree_paths,
                    tree_unflatten)
 
-__all__ = ["tree_flatten", "tree_leaves", "tree_map", "tree_param_count",
-           "tree_unflatten"]
+__all__ = ["current_rules", "keystr", "logical_axis_rules", "shard",
+           "tree_flatten", "tree_leaves", "tree_map", "tree_map_with_path",
+           "tree_param_count", "tree_paths", "tree_unflatten"]

@@ -4,7 +4,10 @@ Leaves come in ``jax.tree_util``'s order: dict keys sorted, lists, tuples
 and NamedTuples in order, ``None`` an empty node.  The optimizer walks
 params, grads and moments in that order, and the checkpointer numbers its
 leaves by it, so a checkpoint written by either package restores in the
-other.
+other.  :func:`keystr` spells a leaf's path as ``jax.tree_util.keystr``
+does (``['layers'][0]['attn']['wq']``, a NamedTuple field as ``.name``):
+the sharding rules match regexes on those strings, so both packages must
+give the same ones.
 """
 from __future__ import annotations
 
@@ -66,6 +69,39 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     if any(len(o) != len(leaves) for o in others):
         raise ValueError("trees differ in their number of leaves")
     return tree_unflatten(spec, [fn(*xs) for xs in zip(leaves, *others)])
+
+
+def _walk_paths(tree: Any, path: tuple) -> list[tuple[tuple, Any]]:
+    if isinstance(tree, dict):
+        return [pl for k in sorted(tree)
+                for pl in _walk_paths(tree[k], path + (f"[{k!r}]",))]
+    if _is_namedtuple(tree):
+        return [pl for name, v in zip(tree._fields, tree)
+                for pl in _walk_paths(v, path + (f".{name}",))]
+    if isinstance(tree, (list, tuple)):
+        return [pl for i, v in enumerate(tree)
+                for pl in _walk_paths(v, path + (f"[{i}]",))]
+    if tree is None:
+        return []
+    return [(path, tree)]
+
+
+def keystr(path: tuple) -> str:
+    """A leaf path as ``jax.tree_util.keystr`` spells it."""
+    return "".join(path)
+
+
+def tree_paths(tree: Any) -> list[str]:
+    """Every leaf's :func:`keystr`, in leaf order."""
+    return [keystr(path) for path, _ in _walk_paths(tree, ())]
+
+
+def tree_map_with_path(fn: Callable, tree: Any) -> Any:
+    """``fn(path, leaf)`` over the leaves of ``tree``; ``path`` goes to
+    :func:`keystr`, as in ``jax.tree_util.tree_map_with_path``."""
+    _, spec = tree_flatten(tree)
+    return tree_unflatten(spec, [fn(path, leaf) for path, leaf
+                                 in _walk_paths(tree, ())])
 
 
 def tree_param_count(tree: Any) -> int:

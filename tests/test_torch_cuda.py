@@ -1646,3 +1646,60 @@ def test_causal_skip_is_bit_equal_on_the_card(cuda, dtype, window,
                      *torch.autograd.grad(out, (tq, tk, tv), dout)))
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+def test_sharded_step_on_a_one_rank_nccl_mesh_matches_plain(cuda):
+    """The fp32 smoke Qwen2's loss and grads with params and batch as
+    ``DTensor``s on a 1-rank NCCL mesh (``param_shardings``,
+    ``batch_specs``, the step under ``activation_rules``) against the plain
+    step on the same params and batch: loss within 1e-5 relative, each
+    grad leaf within 1e-4 relative L2."""
+    import dataclasses
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data import make_dataset
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import Model
+    from repro_torch.parallel.sharding import (activation_rules, batch_specs,
+                                               param_shardings, place,
+                                               place_tree)
+    from repro_torch.utils import logical_axis_rules
+    from repro_torch.utils.tree import tree_leaves
+    if dist.is_initialized():
+        pytest.skip("a process group is already up in this process")
+    cfg = dataclasses.replace(get_config("qwen2-0.5b", smoke=True),
+                              dtype=torch.float32)
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0), cuda)
+    batch = {k: torch.from_numpy(v).to(cuda, torch.long) for k, v in
+             make_dataset(cfg.vocab_size, 32, 4).batch_at(0).items()}
+    loss, _, grads = loss_and_grads(model, params, batch)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_debug_mesh(1, 1)
+        cell = ShapeCell("mesh", 32, 4, "train")
+        params_s = place_tree(params, param_shardings(mesh, params), mesh)
+        sp = batch_specs(mesh, cfg, batch, cell)
+        batch_s = {k: place(v, mesh, sp[k]) for k, v in batch.items()}
+        with logical_axis_rules(activation_rules(mesh, cell), mesh), \
+                implicit_replication():
+            loss_s, _, grads_s = loss_and_grads(model, params_s, batch_s)
+        loss_s = loss_s.full_tensor()
+        grads_s = [g.full_tensor() for g in tree_leaves(grads_s)]
+    finally:
+        dist.destroy_process_group()
+    assert abs(float(loss_s) - float(loss)) <= 1e-5 * abs(float(loss))
+    for got, want in zip(grads_s, tree_leaves(grads)):
+        assert _rel_l2(got, want) <= 1e-4

@@ -41,7 +41,13 @@ def test_importing_every_port_module_loads_no_jax_or_repro():
                 "repro_torch.models.losses", "repro_torch.launch.steps",
                 "repro_torch.launch.train", "repro_torch.utils.tree",
                 "repro_torch.flags", "repro_torch.launch.analytic_cost",
-                "repro_torch.launch.roofline"):
+                "repro_torch.launch.roofline", "repro_torch.launch.mesh",
+                "repro_torch.launch.dryrun",
+                "repro_torch.launch.hlo_analysis", "repro_torch.parallel",
+                "repro_torch.parallel.sharding",
+                "repro_torch.parallel.collectives",
+                "repro_torch.parallel.pipeline",
+                "repro_torch.utils.sharding_ctx"):
         assert mod in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -54,6 +60,19 @@ def test_importing_every_port_module_loads_no_jax_or_repro():
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_module_tree_mirrors_the_reference():
+    """Every module of the JAX package has its port, except
+    ``parallel/compat.py`` (a shim over jax's ``shard_map`` API: a torch
+    rank already runs per-device code); the port's own extras are the
+    bridge, the kernel build and package ``__init__``s."""
+    def tree(pkg):
+        return {str(p.relative_to(pkg)) for p in pkg.rglob("*.py")}
+    ref, port = tree(ROOT / "src" / "repro"), tree(PORT)
+    assert ref - port == {"parallel/compat.py"}
+    assert port - ref == {"__init__.py", "bridge.py", "kernels/_build.py",
+                          "launch/__init__.py"}
 
 
 def _imported_names(path: pathlib.Path) -> set[str]:
