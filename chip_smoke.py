@@ -209,8 +209,17 @@ Phases (any failure raises and the script exits non-zero):
      of one step each from torch.profiler: DTensor's host cost);
      ``collective_matmul`` and ``quantized_psum`` on the mesh against
      ``x @ w`` and the quantise-dequantise of ``g``; a checkpoint restored
-     onto the mesh, bit-equal.  More than one card is not measured: the
-     16x16 and 2x16x16 collective numbers are the dry-run's reckoning.
+     onto the mesh, bit-equal; the peak memory of the full-depth step
+     both ways.  Then ``[mesh-gloo]``: the every-arch check of
+     ``tests/test_torch_distributed.py`` on this machine's CPU and torch
+     (one card holds no two NCCL ranks), two groups of 4 gloo ranks at
+     once, half the eight decoder archs each, on a 2x2 mesh: the fp32
+     smoke loss and grads against one process (1e-5 / 1e-4), the bf16
+     loss (2e-2) and grads (the worst leaf within 1.25 x one process's,
+     both against fp32), every product, combine and scan given plain
+     tensors; one line an arch, any failure fails the run.  More than one
+     card is not measured: the 16x16 and 2x16x16 collective numbers are
+     the dry-run's reckoning.
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
 package; needs the repository's ``src/`` next to this file and a CUDA card.
@@ -583,7 +592,6 @@ def phase_kernels(env: dict, gen: torch.Generator) -> dict:
 
 def phase_main_path(seed: int) -> dict:
     from repro_torch.configs import get_config
-    from repro_torch.core import Session, SessionConfig, SimConfig
     from repro_torch.core.capture import run_sequential_uncompiled
     from repro_torch.kernels.branch_gemm import ops as bops
     from repro_torch.kernels.grouped_gemm import ops as gops
@@ -610,11 +618,8 @@ def phase_main_path(seed: int) -> dict:
     root = next(n.op_id for n in graph if n.fn is None)
     # -- the main path's run: launch counts from 0 -------------------------
     reset_launches()
-    sess = Session(SessionConfig(autotune=True,
-                                 sim_cfg=SimConfig(head_of_line=True),
-                                 calib_dir=CALIB_DIR))
     t0 = time.perf_counter()
-    model = sess.compile(graph, inputs={root: tokens(0)})
+    model = compile_autotuned("main", graph, {root: tokens(0)})
     compile_s = time.perf_counter() - t0
     exe = model.executable
     stats = exe.program_stats()
@@ -2322,10 +2327,37 @@ def plan_choice(plan, stats: dict) -> str:
             f"{int(stats['n_grouped_gemm'])} of {int(stats['n_steps'])} steps")
 
 
+def compile_autotuned(tag: str, graph, inputs: dict, **cfg_kw):
+    """``Session.compile`` with the autotuner on (head-of-line simulator,
+    the checkout's calibration tier).  Where its pick fuses no GEMM group,
+    the repacked candidates' near-tie with the fusing ones (ROADMAP C17)
+    went their way on this calibration's noise: the pick is logged, and
+    the best-estimated unrepacked candidate, whose waves keep each fusable
+    group whole, is compiled with its policies fixed, so the path still
+    runs its GEMM kernels."""
+    from repro_torch.core import Session, SessionConfig, SimConfig
+
+    cfg_kw = dict(sim_cfg=SimConfig(head_of_line=True), calib_dir=CALIB_DIR,
+                  **cfg_kw)
+    model = Session(SessionConfig(autotune=True, **cfg_kw)).compile(
+        graph, inputs=inputs)
+    stats = model.executable.program_stats()
+    if stats["n_branch_gemm"] or stats["n_grouped_gemm"]:
+        return model
+    plain = [c for c in model.plan.candidates if not c[2]]
+    if not plain:
+        return model
+    alloc, order, _, est = min(plain, key=lambda c: c[3])
+    log(f"[{tag}] the autotuned plan fused no GEMM group (C17 near-tie): "
+        f"{plan_choice(model.plan, stats)}; compiling {alloc}/{order}/plain "
+        f"(est {est:.3f} us) with its policies fixed")
+    return Session(SessionConfig(alloc_policy=alloc, order_policy=order,
+                                 **cfg_kw)).compile(graph, inputs=inputs)
+
+
 def moe_graph(cfg, params, seed: int, tag: str) -> dict:
     """The routed-MoE op graph (16 expert branches) through Session.compile
     into one CUDA graph, held against eager per-op execution."""
-    from repro_torch.core import Session, SessionConfig, SimConfig
     from repro_torch.core.capture import run_sequential_uncompiled
     from repro_torch.models.opgraph_export import build_lm_opgraph
 
@@ -2344,12 +2376,9 @@ def moe_graph(cfg, params, seed: int, tag: str) -> dict:
     root = next(n.op_id for n in graph if n.fn is None)
     # -- the path's run: launch counts from 0 ----------------------------------
     reset_launches()
-    sess = Session(SessionConfig(autotune=True,
-                                 sim_cfg=SimConfig(head_of_line=True),
-                                 calibration_repeats=MOE_CALIB_REPEATS,
-                                 calib_dir=CALIB_DIR))
     t0 = time.perf_counter()
-    model = sess.compile(graph, inputs={root: tokens(0)})
+    model = compile_autotuned(tag, graph, {root: tokens(0)},
+                              calibration_repeats=MOE_CALIB_REPEATS)
     compile_s = time.perf_counter() - t0
     exe = model.executable
     stats = exe.program_stats()
@@ -2397,7 +2426,7 @@ def moe_graph(cfg, params, seed: int, tag: str) -> dict:
     log(f"[{tag}] per-forward ms: sequential eager {seq_ms:.3f}, CUDA-graph "
         f"replay {replay_ms:.3f} (median of 10)")
     compare_one_stream(tag, exe, outputs)
-    del outputs, model, exe, sess, graph
+    del outputs, model, exe, graph
     free_card()
     return {"launches": launches, "recorded": recorded}
 
@@ -3038,18 +3067,14 @@ def op_graph_path(tag: str, graph, make_inputs, out_shape: tuple,
     ``check(exe, recorded)`` (the arch's own gates), each request's logits
     (``out_shape``) held against eager per-op execution, per-forward times,
     and :func:`compare_one_stream`."""
-    from repro_torch.core import Session, SessionConfig, SimConfig
     from repro_torch.core.capture import run_sequential_uncompiled
 
     calib = make_inputs(0)
     # -- the path's run: launch counts from 0 ----------------------------------
     reset_launches()
-    sess = Session(SessionConfig(autotune=True,
-                                 sim_cfg=SimConfig(head_of_line=True),
-                                 calib_dir=CALIB_DIR))
     t0 = time.perf_counter()
-    model = sess.compile(graph, inputs={n.op_id: calib[n.name]
-                                        for n in graph if n.fn is None})
+    model = compile_autotuned(tag, graph, {n.op_id: calib[n.name]
+                                           for n in graph if n.fn is None})
     compile_s = time.perf_counter() - t0
     exe = model.executable
     outputs = []
@@ -5085,6 +5110,8 @@ def mesh_bf16_timing(mesh, seed: int, device: str = "cuda",
             params = mesh_params(mesh, params)
         opt = adamw_init(params)
         times, losses = [], []
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
         for i in range(warmup + iters + 1):
             b = {k: torch.from_numpy(v).to(device, torch.long)
                  for k, v in data.batch_at(i).items()}
@@ -5124,6 +5151,8 @@ def mesh_bf16_timing(mesh, seed: int, device: str = "cuda",
         if not all(np.isfinite(losses)):
             raise AssertionError(f"[mesh] {how} bf16 loss not finite")
         out[how] = statistics.median(times)
+        if device == "cuda":
+            out[how + "_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         out[how + "_losses"] = losses
         del params, opt
         free_card()
@@ -5133,10 +5162,47 @@ def mesh_bf16_timing(mesh, seed: int, device: str = "cuda",
         f"{tuple(mesh.shape)} {out['sharded']:.3f} (x"
         f"{out['sharded'] / out['plain']:.2f}); idle share of one step "
         f"(torch.profiler): plain {out.get('plain_idle', float('nan')):.3f}"
-        f", sharded {out.get('sharded_idle', float('nan')):.3f}; first "
+        f", sharded {out.get('sharded_idle', float('nan')):.3f}; peak "
+        f"memory (torch.cuda.max_memory_allocated): plain "
+        f"{out.get('plain_peak_gib', float('nan')):.2f} GiB, sharded "
+        f"{out.get('sharded_peak_gib', float('nan')):.2f} GiB; first "
         f"losses {out['plain_losses'][0]:.4f} / "
         f"{out['sharded_losses'][0]:.4f}")
     return out
+
+
+def mesh_gloo_every_arch() -> None:
+    """``tests/test_torch_distributed.py``'s every-arch check (fp32 loss and
+    grads, the bf16 gate, plain tensors in every product, combine and
+    scan) on this machine's CPU and torch: two groups of 4 gloo ranks at
+    once, half the decoder archs each; rank 0 of each prints a line an
+    arch, and a failing arch fails the group."""
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    from test_torch_distributed import EVERY_ARCH, _every_arch_worker
+    # about equal halves of the work (DeepSeek-V3 takes the most)
+    first = ("deepseek-v3-671b", "glm4-9b", "hymba-1.5b",
+             "llava-next-mistral-7b")
+    halves = (first, tuple(a for a in EVERY_ARCH if a not in first))
+    groups = [mp.start_processes(_every_arch_worker,
+                                 args=(_free_port(), archs), nprocs=4,
+                                 join=False, start_method="spawn")
+              for archs in halves]
+    try:
+        for group in groups:
+            while not group.join():
+                pass
+    finally:
+        for group in groups:
+            for proc in group.processes:
+                if proc.is_alive():
+                    proc.terminate()
+                proc.join()
+    log(f"[mesh-gloo] torch {torch.__version__}, 2 x 4 gloo ranks on the "
+        f"CPU, {len(EVERY_ARCH)} decoder archs on a 2x2 mesh: every arch ok "
+        f"in {time.perf_counter() - t0:.1f} s")
 
 
 def mesh_collectives_and_restore(mesh, seed: int,
@@ -5210,6 +5276,7 @@ def phase_mesh(seed: int) -> None:
     finally:
         dist.destroy_process_group()
     free_card()
+    mesh_gloo_every_arch()
     log("[mesh] more than one card: not measured (one H100 forms only a "
         "1-rank mesh); the collective bytes of the 16x16 and 2x16x16 "
         "meshes are the dry-run's reckoning (python -m "

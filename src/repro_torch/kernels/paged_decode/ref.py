@@ -41,15 +41,17 @@ def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     return attend_one(q, k, v, valid, scale)
 
 
-def absorb_query(q_nope: torch.Tensor, wk_b: torch.Tensor) -> torch.Tensor:
+def absorb_query(q_nope: torch.Tensor, wk_b: torch.Tensor,
+                 matmul=torch.matmul) -> torch.Tensor:
     """MLA's matrix absorption ``q_lat[.., h, r] = Σ_d q_nope[.., h, d] ·
     wk_b[r, h, d]``: q_nope ``[.., H, D_nope]``, wk_b ``[rank, H, D_nope]``
     → ``[.., H, rank]`` in q_nope's dtype, one batched product per head
     with fp32 accumulation and one rounding (the JAX package's einsum with
-    ``preferred_element_type=float32``)."""
+    ``preferred_element_type=float32``).  ``matmul`` is the product (the
+    model passes one that also takes ``DTensor``s)."""
     h, nope = q_nope.shape[-2:]
     q = q_nope.reshape(-1, h, nope).transpose(0, 1)          # [H, N, D]
-    lat = torch.matmul(q, wk_b.permute(1, 2, 0))             # [H, N, rank]
+    lat = matmul(q, wk_b.permute(1, 2, 0))                   # [H, N, rank]
     return lat.transpose(0, 1).reshape(*q_nope.shape[:-1], wk_b.shape[0])
 
 

@@ -45,14 +45,15 @@ makes :func:`chunked_attention` take the whole sequence as one chunk.
 from __future__ import annotations
 
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Shard
 
 from ..configs.base import ModelConfig
 from ..flags import causal_skip, kv_quant, window_slice_decode
 from ..utils import shard
-from ..utils.sharding_ctx import (on_local_shards, seq_split, shard_merge,
-                                  shard_split, write_slots)
-from .layers import apply_norm, apply_rope, init_linear, init_norm, linear
+from ..utils.sharding_ctx import (on_local_shards, shard_merge, shard_split,
+                                  write_slots)
+from .layers import (apply_norm, apply_rope, init_linear, init_norm, linear,
+                     matmul)
 
 NEG_INF = -1e30
 # s·t above which the plain path never makes an [S, T] buffer and runs
@@ -84,6 +85,32 @@ def init_gqa(generator: torch.Generator, cfg: ModelConfig, *,
     }
 
 
+def _per_shard(q: torch.Tensor, k: torch.Tensor) -> bool:
+    """Whether attention over ``DTensor``s runs on local shards: always,
+    but for a decode over a cache whose positions are split while the
+    queries' are not.  There each rank's keys hold a share of every
+    query's softmax, which ``DTensor``'s own propagation reduces across
+    ranks; making the positions whole would move the whole cache."""
+    return isinstance(q, DTensor) and not (
+        isinstance(k, DTensor) and Shard(1) in k.placements
+        and Shard(1) not in q.placements)
+
+
+def _attend_on_shards(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      mask: torch.Tensor | None = None) -> torch.Tensor:
+    """``fn(q, k, v, mask)``, an attention ``[B,S,H,Dk]``, ``[B,T,KVH,Dk]``,
+    ``[B,T,KVH,Dv]`` → ``[B,S,H,Dv]``, on each rank's shards of
+    ``DTensor`` operands: it is independent per (row, head), so the batch
+    and the heads keep their splits and the rest is made whole, a split
+    sequence too (the softmax spans it).  K/V split their heads as the
+    queries do, or stay whole when there is one KV head (MLA's latent,
+    which every query head reads)."""
+    g = "h" if k.shape[2] > 1 else "g"
+    m = "" if mask is None else ("st" if mask.dim() == 2 else "bst")
+    return on_local_shards(fn, f"bshd,bt{g}d,bt{g}e,{m}->bshe", q, k, v,
+                           mask, split="bh")
+
+
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           mask: torch.Tensor | None,
           scale: float | None = None) -> torch.Tensor:
@@ -92,8 +119,8 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     in fp32 over the operands' own values; probabilities are rounded to v's
     dtype before the sum, as in the JAX package.  ``DTensor`` operands are
     attended shard by shard (``on_local_shards``)."""
-    if isinstance(q, DTensor) and not seq_split(q, k, v):
-        return on_local_shards(
+    if _per_shard(q, k):
+        return _attend_on_shards(
             lambda q, k, v, m: _sdpa(q, k, v, m, scale), q, k, v, mask)
     b, s, h, d = q.shape
     kvh = k.shape[2]
@@ -288,8 +315,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q: [B,S,H,Dk]; k: [B,T,KVH,Dk]; v: [B,T,KVH,Dv] → [B,S,H,Dv].  The
     last Q and KV chunks are short where S, T are no chunk multiple;
     ``window`` <= 0 or >= 2^29 (or None) disables the window."""
-    if isinstance(q, DTensor) and not seq_split(q, k, v):
-        return on_local_shards(
+    if _per_shard(q, k):
+        return _attend_on_shards(
             lambda q, k, v, _: chunked_attention(
                 q, k, v, causal=causal, window=window, scale=scale,
                 q_chunk=q_chunk, kv_chunk=kv_chunk), q, k, v)
@@ -493,7 +520,7 @@ def value_up(lat: torch.Tensor, wv_b: torch.Tensor,
     → ``[.., H·v_head]``."""
     h, rank = lat.shape[-2:]
     wv = wv_b.reshape(rank, h, v_head).permute(1, 0, 2)       # [H,rank,v]
-    out = torch.matmul(lat.reshape(-1, h, rank).transpose(0, 1), wv)
+    out = matmul(lat.reshape(-1, h, rank).transpose(0, 1), wv)
     return out.transpose(0, 1).reshape(*lat.shape[:-2], h * v_head)
 
 
@@ -524,7 +551,7 @@ def mla_attention(p: dict, q_nope: torch.Tensor, q_rope: torch.Tensor,
     and ``wo``.  ``chunked`` runs the causal :func:`chunked_attention`
     instead of ``_sdpa`` under ``mask``."""
     from ..kernels.paged_decode.ref import absorb_query
-    q_lat = absorb_query(q_nope, _wk_b(p, cfg))
+    q_lat = absorb_query(q_nope, _wk_b(p, cfg), matmul)
     q_cat = torch.cat([q_lat, q_rope], dim=-1)            # [B,S,H,rank+rope]
     k_cat = torch.cat([c_kv, k_rope], dim=-1)[:, :, None, :]
     if chunked:

@@ -24,10 +24,11 @@ from __future__ import annotations
 import itertools
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from ..configs.base import ModelConfig
 from ..utils import shard
-from ..utils.sharding_ctx import whole
+from ..utils.sharding_ctx import on_local_shards, whole
 from .layers import check_device, gelu, init_linear, linear, matmul_f32
 
 
@@ -119,7 +120,7 @@ def route(p_router: dict, x: torch.Tensor, e,
     Aux-loss-free configs select on sigmoid scores plus the per-expert bias
     and combine with the unbiased scores.  With ``generator`` and a nonzero
     ``router_noise``, Gaussian noise is added to the selection scores."""
-    logits = torch.matmul(x.float(), p_router["w"])
+    logits = matmul_f32(x.float(), p_router["w"])
     scores = (torch.sigmoid(logits) if e.router_aux_free
               else torch.softmax(logits, dim=-1))
     select = scores + p_router["bias"][None, :] if e.router_aux_free \
@@ -161,6 +162,25 @@ def _expert_mlp(p_experts: dict, buf: torch.Tensor,
     return matmul_f32(h, p_experts["down"]).to(dt)
 
 
+def _einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(eq, *ops)`` in the operands' dtype; ``DTensor``
+    operands run on each rank's local shards, where a split contraction
+    (a combine over split experts), and an operand's grad that is a sum
+    across ranks, are summed in fp32 before the one rounding."""
+    if not any(isinstance(t, DTensor) for t in ops):
+        return torch.einsum(eq, *ops)
+
+    def f32(*t):
+        return torch.einsum(eq, *(u.float() for u in t))
+
+    def local(*t):
+        return (torch.einsum(eq, *t) if len({u.dtype for u in t}) == 1
+                else f32(*t))
+    return on_local_shards(local, eq, *ops, fn_partial=f32,
+                           f32_grads=tuple(range(len(ops))),
+                           dtype=ops[0].dtype)
+
+
 def _one_hot(idx: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
     return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
 
@@ -187,13 +207,13 @@ def moe_ffn_dense(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
     disp = (onehot * keep[..., None]).to(xf.dtype)                  # [N,k,E]
     poh = _one_hot(pos, cap, xf.dtype)                              # [N,k,C]
-    comb = torch.einsum("nke,nkc->nec", disp, poh)                  # [N,E,C]
-    buf = torch.einsum("nec,nd->ecd", comb, xf)                     # [E,C,d]
+    comb = _einsum("nke,nkc->nec", disp, poh)                       # [N,E,C]
+    buf = _einsum("nec,nd->ecd", comb, xf)                          # [E,C,d]
     buf = shard(buf, "expert", None, None)
     out_buf = shard(_expert_mlp(p["experts"], buf, use_kernels),
                     "expert", None, None)
-    comb_w = torch.einsum("nke,nkc,nk->nec", disp, poh, w.to(xf.dtype))
-    y = torch.einsum("nec,ecd->nd", comb_w, out_buf)
+    comb_w = _einsum("nke,nkc,nk->nec", disp, poh, w.to(xf.dtype))
+    y = _einsum("nec,ecd->nd", comb_w, out_buf)
     if e.n_shared:
         y = y + mlp(p["shared"], xf, "swiglu")
     return y.reshape(b, s, d), aux
@@ -216,7 +236,6 @@ def moe_ffn_sort(p: dict, x: torch.Tensor, cfg: ModelConfig,
     nk = n * e.top_k
     dev = x.device
     expert_flat = top_idx.reshape(nk)                               # [NK]
-    tok_flat = torch.arange(nk, device=dev) // e.top_k              # [NK]
     w_flat = top_w.reshape(nk)
 
     order = torch.argsort(expert_flat, stable=True)                 # [NK]
@@ -232,22 +251,84 @@ def moe_ffn_sort(p: dict, x: torch.Tensor, cfg: ModelConfig,
     keep = pos < cap
     slot = torch.where(keep, expert_flat * cap + pos,
                        torch.full_like(pos, e.n_experts * cap))
-    gathered = xf[tok_flat] * keep[:, None].to(xf.dtype)            # [NK,d]
-    buf = torch.zeros((e.n_experts * cap + 1, d), dtype=xf.dtype,
-                      device=dev).index_add(0, slot, gathered)
-    buf = buf[:e.n_experts * cap].reshape(e.n_experts, cap, d)
+    buf = _scatter_dispatch(xf, slot.reshape(n, e.top_k),
+                            keep.reshape(n, e.top_k), e.n_experts, cap)
     buf = shard(buf, "expert", None, None)
 
     out_buf = shard(_expert_mlp(p["experts"], buf, use_kernels),
                     "expert", None, None)
 
-    rows = out_buf.reshape(e.n_experts * cap, d)[
-        torch.clamp(slot, max=e.n_experts * cap - 1)]
-    rows = rows * (w_flat * keep)[:, None].to(xf.dtype)             # [NK,d]
-    y = rows.reshape(n, e.top_k, d).sum(dim=1)
+    y = _gather_combine(out_buf, slot.reshape(n, e.top_k),
+                        (w_flat * keep).reshape(n, e.top_k).to(xf.dtype))
     if e.n_shared:
         y = y + mlp(p["shared"], xf, "swiglu")
     return y.reshape(b, s, d), aux
+
+
+def _scatter_dispatch(xf: torch.Tensor, slot: torch.Tensor,
+                      keep: torch.Tensor, n_experts: int,
+                      cap: int) -> torch.Tensor:
+    """The ``[E, C, d]`` capacity buffers: each token's row of ``xf [N, d]``
+    at its k slots (``slot``, ``keep`` ``[N, k]``; a pair not kept, whose
+    slot is ``E·C``, adds nothing).  ``DTensor`` operands run on each
+    rank's local shards: the experts are split as the rules lay them out,
+    every rank reads every token, and each fills only its own experts'
+    rows, so no rank holds the whole buffer and nothing is summed."""
+    def local(x, sl, kp, ids=None):
+        n_loc = n_experts if ids is None else ids.numel()
+        if ids is not None:           # pairs of other ranks' experts drop
+            at = sl - ids[0] * cap
+            kp = kp & (at >= 0) & (at < n_loc * cap)
+            sl = torch.where(kp, at, n_loc * cap)
+        tok = torch.arange(sl.numel(), device=x.device) // sl.shape[1]
+        gathered = x[tok] * kp.reshape(-1)[:, None].to(x.dtype)    # [NK,d]
+        buf = torch.zeros((n_loc * cap + 1, x.shape[-1]), dtype=x.dtype,
+                          device=x.device).index_add(0, sl.reshape(-1),
+                                                     gathered)
+        return buf[:n_loc * cap].reshape(n_loc, cap, x.shape[-1])
+
+    ops = (xf, slot, keep)
+    if not any(isinstance(t, DTensor) for t in ops):
+        return local(*ops)
+    mesh = next(t for t in ops if isinstance(t, DTensor)).device_mesh
+    ids = DTensor.from_local(torch.arange(n_experts, device=xf.device),
+                             mesh, [Replicate()] * mesh.ndim,
+                             run_check=False)
+    return on_local_shards(local, "nd,nk,nk,e->ecd", *ops,
+                           shard(ids, "expert"), split="e", f32_grads=(0,),
+                           dtype=xf.dtype)
+
+
+def _gather_combine(out_buf: torch.Tensor, slot: torch.Tensor,
+                    scale: torch.Tensor) -> torch.Tensor:
+    """``y[n] = Σ_k out_buf[slot[n, k]] · scale[n, k]``: out_buf ``[E,C,d]``
+    read as ``E·C`` rows (a slot past them, a pair over capacity, has a
+    zero scale), slot and scale ``[N, k]`` → ``[N, d]``.  ``DTensor``
+    operands run on each rank's local shards: with the experts split, a
+    rank gathers only the rows of its own experts (zero for the others),
+    and the partial sums are summed across ranks in fp32, as GSPMD
+    partitions a gather from a split operand; no rank gathers the whole
+    buffer."""
+    dt = out_buf.dtype
+
+    def local(ob, sl, sc, ids=None):
+        ec = ob.shape[0] * ob.shape[1]
+        rows = ob.reshape(ec, ob.shape[-1])[torch.clamp(sl, max=ec - 1)]
+        return (rows.to(dt) * sc.to(dt)[..., None]).sum(dim=1)
+
+    if not any(isinstance(t, DTensor) for t in (out_buf, slot, scale)):
+        return local(out_buf, slot, scale)
+
+    def partial(ob, sl, sc, ids):
+        ec = ob.shape[0] * ob.shape[1]
+        at = sl - ids[0] * ob.shape[1]        # this rank's experts' rows
+        mine = (at >= 0) & (at < ec)
+        rows = ob.reshape(ec, ob.shape[-1])[at.clamp(0, ec - 1)]
+        return (rows.to(dt) * (sc * mine).to(dt)[..., None]).float().sum(1)
+    ids = torch.arange(out_buf.shape[0], device=out_buf.device)
+    return on_local_shards(local, "ecd,nk,nk,e->nd", out_buf, slot, scale,
+                           ids, fn_partial=partial, f32_grads=(0, 2),
+                           dtype=dt)
 
 
 def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig,

@@ -16,7 +16,7 @@ import torch
 from torch.distributed.tensor import DTensor
 
 from ..utils import shard
-from ..utils.sharding_ctx import whole
+from ..utils.sharding_ctx import on_local_shards, whole
 
 
 def check_device(device: torch.device | str) -> torch.device:
@@ -88,7 +88,7 @@ def apply_norm(p: dict, x: torch.Tensor, kind: str = "rmsnorm",
 
 def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
     """x @ w (fp32 accumulation, one rounding to x's dtype), then + b."""
-    y = torch.matmul(x, p["w"])
+    y = matmul(x, p["w"])
     if "b" in p:
         y = y + p["b"]
     return y
@@ -116,33 +116,84 @@ class _MatmulF32(torch.autograd.Function):
     low-precision operands on the card (``out_dtype=float32``, no fp32 copy
     of either operand), and its backward in the operands' dtype: the fp32
     output grads are rounded to it, and each product accumulates in fp32
-    and rounds once."""
+    and rounds once.  An fp32 ``a`` (a sharded activation whose grad is
+    summed across ranks in fp32) is taken in ``b``'s dtype, which holds
+    its values, and its grad is left in fp32."""
 
     @staticmethod
     def forward(ctx, a, b):
+        ctx.grad_f32 = a.dtype != b.dtype
+        a = a.to(b.dtype)
         ctx.save_for_backward(a, b)
-        mm = torch.bmm if a.dim() == 3 else torch.mm
-        return mm(a, b, out_dtype=torch.float32)
+        return _mm(a, b, out_dtype=torch.float32)
 
     @staticmethod
     def backward(ctx, g):
         a, b = ctx.saved_tensors
         g = g.to(a.dtype)
-        da = g @ b.transpose(-1, -2) if ctx.needs_input_grad[0] else None
-        db = a.transpose(-1, -2) @ g if ctx.needs_input_grad[1] else None
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            bt = b.transpose(-1, -2)
+            da = (_mm(g, bt, out_dtype=torch.float32) if ctx.grad_f32
+                  else g @ bt)
+        if ctx.needs_input_grad[1]:
+            db = a.transpose(-1, -2) @ g
         return da, db
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor, **kw) -> torch.Tensor:
+    return (torch.bmm if a.dim() == 3 else torch.mm)(a, b, **kw)
+
+
+def _matmul_f32_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if a.is_cuda and b.dtype != torch.float32:
+        return _MatmulF32.apply(a, b)
+    return torch.matmul(a.float(), b.float())
+
+
+def _rows_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a [..., k] @ b [k, n]`` with an fp32 result (a's leading dims as
+    rows, so the card's ``_MatmulF32`` takes any rank of ``a``)."""
+    y = _matmul_f32_plain(a.reshape(-1, a.shape[-1]), b)
+    return y.reshape(*a.shape[:-1], b.shape[-1])
+
+
+def _product_spec(a: torch.Tensor, b: torch.Tensor) -> str:
+    """``a @ b`` in einsum notation: ``a [..., k]`` with ``b [k, n]``, or
+    batched with ``b [lead..., k, n]`` on ``a``'s leading dims."""
+    lead = "abcdefgh"[:a.dim() - 1]
+    return f"{lead}k,{lead[:b.dim() - 2]}kn->{lead}n"
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in the operands' dtype (fp32 accumulation, one rounding).
+    ``DTensor`` operands run on each rank's local shards; where the
+    contraction is split (a row-parallel product), each rank's partial
+    product is kept in fp32 and summed across ranks before the one
+    rounding, as the reference's ``preferred_element_type=float32`` dot
+    under GSPMD; so is ``a``'s grad where it is such a sum (the backward
+    of a column-parallel product)."""
+    if not (isinstance(a, DTensor) or isinstance(b, DTensor)):
+        return torch.matmul(a, b)
+    f32 = _rows_f32 if b.dim() == 2 else _matmul_f32_plain
+
+    def local(x, y):
+        return torch.matmul(x, y) if x.dtype == y.dtype else f32(x, y)
+    return on_local_shards(local, _product_spec(a, b), a, b, fn_partial=f32,
+                           f32_grads=(0,), dtype=a.dtype)
 
 
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` for 2-D or 3-D operands, accumulated in fp32 with an fp32
     result, differentiable; on the card no fp32 copy of either operand is
-    made (a Kimi-K2 expert stack is 5.6 GB in bf16, 11.3 GB in fp32),
-    except for a ``DTensor`` operand: ``DTensor`` has no sharding rule for
-    a product with ``out_dtype``, so it takes the fp32 copies."""
-    if (a.is_cuda and a.dtype != torch.float32
-            and not isinstance(a, DTensor)):
-        return _MatmulF32.apply(a, b)
-    return torch.matmul(a.float(), b.float())
+    made (a Kimi-K2 expert stack is 5.6 GB in bf16, 11.3 GB in fp32).
+    ``DTensor`` operands run on each rank's local shards in their own
+    dtype, a split contraction, and ``a``'s grad where it is a sum across
+    ranks, summed in fp32."""
+    if isinstance(a, DTensor) or isinstance(b, DTensor):
+        return on_local_shards(_matmul_f32_plain, _product_spec(a, b), a, b,
+                               fn_partial=_matmul_f32_plain, f32_grads=(0,))
+    return _matmul_f32_plain(a, b)
 
 
 def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:

@@ -35,6 +35,7 @@ from torch.distributed.tensor import DTensor
 
 from ..configs.base import ModelConfig
 from ..utils import shard
+from ..utils.sharding_ctx import on_local_shards
 from .layers import check_device, init_linear, linear
 
 RWKV_LORA = 32  # data-dependent decay LoRA rank (Finch §3)
@@ -110,6 +111,15 @@ def wkv_scan_ref(rh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
     return s, torch.stack(outs, dim=1)
 
 
+def _wkv_scan(use_kernels: bool, *operands: torch.Tensor):
+    """(s_final, y) from the ``rwkv6`` kernel or :func:`wkv_scan_ref`."""
+    if use_kernels:
+        from ..kernels.rwkv6 import rwkv6_model
+        y, s_final = rwkv6_model(*operands)
+        return s_final, y
+    return wkv_scan_ref(*operands)
+
+
 def rwkv_time_mix_seq(p: dict, x: torch.Tensor, state, cfg: ModelConfig,
                       use_kernels: bool = False):
     """x: [B,T,d]; state: (x_prev [B,d], S [B,H,K,K] fp32) → (y, state')."""
@@ -122,11 +132,15 @@ def rwkv_time_mix_seq(p: dict, x: torch.Tensor, state, cfg: ModelConfig,
     kh = k.reshape(b, t, h, hs).float()
     vh = v.reshape(b, t, h, hs).float()
     wh = w.reshape(b, t, h, hs)
-    if use_kernels:
-        from ..kernels.rwkv6 import rwkv6_model
-        y, s_final = rwkv6_model(rh, kh, vh, wh, p["u"], s0)
+    operands = (rh, kh, vh, wh, p["u"], s0)
+    if any(isinstance(t, DTensor) for t in operands):
+        # independent per (row, head): each rank scans its own rows and
+        # heads, the sequence and the head size whole
+        s_final, y = on_local_shards(
+            lambda *t: _wkv_scan(use_kernels, *t),
+            "bthk,bthk,bthj,bthk,hk,bhkj->bhkj,bthj", *operands, split="bh")
     else:
-        s_final, y = wkv_scan_ref(rh, kh, vh, wh, p["u"], s0)
+        s_final, y = _wkv_scan(use_kernels, *operands)
 
     y = y.reshape(b, t, d).to(x.dtype)
     # group-norm over each head (ln_x), then the gate and the output proj
@@ -253,6 +267,15 @@ def mamba_scan(delta: torch.Tensor, xi: torch.Tensor, bmat: torch.Tensor,
     return hist[:, -1].clone(), y
 
 
+def _mamba_scan(*operands: torch.Tensor):
+    """:func:`mamba_scan`, which updates its state history in place; under
+    a loss (autograd refuses that) the out-of-place
+    :func:`mamba_scan_ref`."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+        return mamba_scan_ref(*operands)
+    return mamba_scan(*operands)
+
+
 def mamba_seq(p: dict, x: torch.Tensor, state, cfg: ModelConfig):
     """x: [B,T,d]; state: (conv_state [B,K-1,di], h [B,di,N] fp32) →
     (out [B,T,d], state')."""
@@ -268,13 +291,13 @@ def mamba_seq(p: dict, x: torch.Tensor, state, cfg: ModelConfig):
     a = -torch.exp(p["a_log"])                                # [di,N]
     xf = xi.float()
     operands = (delta, xf, bmat.float(), cmat.float(), a, h0)
-    # mamba_scan updates its state history in place, which autograd
-    # refuses, and so does a DTensor whose placements the update would
-    # change; under a loss or a mesh the out-of-place per-token loop runs
-    scan = (mamba_scan_ref if isinstance(xf, DTensor) or (
-        torch.is_grad_enabled() and any(t.requires_grad for t in operands))
-        else mamba_scan)
-    h_final, ys = scan(*operands)
+    if any(isinstance(t, DTensor) for t in operands):
+        # independent per (row, channel): each rank scans its own rows and
+        # di channels, the sequence and the state whole
+        h_final, ys = on_local_shards(_mamba_scan, "bto,btc,btn,btn,cn,bcn"
+                                      "->bcn,btc", *operands, split="bc")
+    else:
+        h_final, ys = _mamba_scan(*operands)
     y = ys + xf * p["d_skip"]
     y = y.to(x.dtype) * F.silu(z)
     return (shard(linear(p["out_proj"], y), "batch", "seq", "embed"),

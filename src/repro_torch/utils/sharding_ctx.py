@@ -244,69 +244,126 @@ class _DenseGrad(torch.autograd.Function):
         return g.contiguous()
 
 
-def seq_split(*xs: torch.Tensor) -> bool:
-    """Whether a ``DTensor`` among ``xs`` splits its dim 1 (a sequence,
-    under sequence parallelism)."""
-    return any(isinstance(x, DTensor) and Shard(1) in x.placements
-               for x in xs)
+class _GradSumF32(torch.autograd.Function):
+    """A low-precision ``DTensor`` in fp32, whose grad (a sum over ranks,
+    ``Partial``) is summed in fp32 and only then cast back."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.placements, ctx.dtype = x.placements, x.dtype
+        return x.float()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(g.device_mesh, ctx.placements).to(ctx.dtype)
 
 
-def on_local_shards(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    mask: torch.Tensor | None = None) -> torch.Tensor:
-    """``fn(q, k, v, mask)``, an attention over ``q [B,S,H,Dk]``, ``k
-    [B,T,KVH,Dk]``, ``v [B,T,KVH,Dv]`` → ``[B,S,H,Dv]``, run by each rank
-    on its own shards of ``DTensor`` operands, as GSPMD partitions it.
+def on_local_shards(fn, spec: str, *operands: torch.Tensor | None,
+                    split: str | None = None, fn_partial=None,
+                    f32_grads: tuple[int, ...] = (),
+                    dtype: torch.dtype | None = None):
+    """``fn(*operands)`` run by each rank on its own shards of ``DTensor``
+    operands, as GSPMD partitions the op that ``spec`` writes in einsum
+    notation (``"mk,kn->mn"``; several outputs after ``->`` are comma
+    separated, and a ``None`` operand's letters are ignored).
 
-    The batch (dim 0) and the heads (dim 2) keep the mesh dims ``q`` splits
-    them over; every other dim is made whole.  K/V split their heads
-    alike, or stay whole when there is one KV head (MLA's latent, which
-    every query head reads); a head split that does not divide KVH is made
-    whole; a batch split only K/V carry is taken too.  A ``[B,S,T]`` mask
-    follows the batch, an ``[S,T]`` one stays whole.  Not for a split
-    sequence (``seq_split``), whose softmax spans ranks.  Inside, ``fn`` sees plain tensors and no rules; the result is a
-    ``DTensor`` laid out as ``q`` was taken.  Attention is independent per
-    (row, head), so nothing moves but the redistributions in; ``DTensor``
-    itself would flatten the split batch and head dims into one bmm batch,
-    which torch 2.11 refuses."""
-    mesh = q.device_mesh
-    head_split = [i for i, p in enumerate(q.placements)
-                  if isinstance(p, Shard) and p.dim == 2]
-    n_head = 1
-    for i in head_split:
-        n_head *= mesh.size(i)
-    kvh = k.shape[2]
-    if kvh != 1 and kvh % n_head:
-        head_split = []
-    k_pl = k.placements if isinstance(k, DTensor) else ()
+    Each mesh dim keeps one letter split (only letters in ``split``, all
+    by default): the first that an operand splits there and an output
+    keeps, else the first contracted one, and only where it divides every
+    dim that carries it.  Every operand is laid out so: split along that
+    letter where it carries it, whole otherwise (its grad is then a sum
+    over the split).  A dim whose letter no mesh dim keeps is made whole.
+    Inside, ``fn`` sees plain tensors and no rules, and returns one tensor
+    or a tuple, one per output.  Where a contracted letter is split, each
+    rank's result is a partial sum: ``fn_partial`` runs instead (with an
+    fp32 result; without it such a split raises), the sums are reduced in
+    fp32 across the ranks, and only then is anything cast to ``dtype``.
+    The results are ``DTensor``s, split as the letters they keep.  The
+    low-precision operands at the positions ``f32_grads`` whose grad is a
+    sum over ranks reach ``fn`` in fp32, so that sum is taken in fp32 and
+    rounded once (the backward of such a product, as the reference's
+    transposed fp32 dot); ``fn`` then takes mixed dtypes.
 
-    def place(i, p):
-        if isinstance(p, Shard) and (p.dim == 0 or (
-                p.dim == 2 and i in head_split)):
-            return p
-        # a batch split only K/V carry (decode: the cache is the big one)
-        if i < len(k_pl) and k_pl[i] == Shard(0) and p != Shard(2):
-            return Shard(0)
-        return Replicate()
-    q_pl = [place(i, p) for i, p in enumerate(q.placements)]
-    row_pl = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
-              for p in q_pl]
-    kv_pl = row_pl if kvh == 1 else q_pl
-    # one KV head read by every rank's query heads: each rank's K/V grad
-    # is its heads' share, summed over the head split
-    kv_grad = [Partial() if kvh == 1 and i in head_split else p
-               for i, p in enumerate(kv_pl)]
-    local = [_DenseGrad.apply(_as_dtensor(x, mesh).redistribute(
-        mesh, pl).to_local(grad_placements=gp))
-        for x, pl, gp in ((q, q_pl, q_pl), (k, kv_pl, kv_grad),
-                          (v, kv_pl, kv_grad))]
-    if mask is not None:
-        mask = _as_dtensor(mask, mesh).redistribute(
-            mesh, row_pl if mask.dim() == 3 else [Replicate()] * mesh.ndim
-        ).to_local()
+    ``DTensor``'s own ops would flatten split dims into one bmm batch
+    (torch 2.11 refuses that), round a row-parallel product's partial sums
+    before their sum, and have no rule for a product with ``out_dtype``."""
+    ins, outs = spec.split("->")
+    in_letters, out_letters = ins.split(","), outs.split(",")
+    if len(in_letters) != len(operands):
+        raise ValueError(f"{spec!r} names {len(in_letters)} operands, "
+                         f"got {len(operands)}")
+    mesh = next(x for x in operands if isinstance(x, DTensor)).device_mesh
+    ops = [(None if x is None else _as_dtensor(x, mesh), lab)
+           for x, lab in zip(operands, in_letters)]
+    ops_in = [(x, lab) for x, lab in ops if x is not None]
+    allowed = set(ins.replace(",", "")) if split is None else set(split)
+    kept: list[str | None] = []
+    for i in range(mesh.ndim):
+        # a strided shard (a view that merged split dims) is no letter's
+        # block: it is laid out anew
+        cand = [lab[p.dim] for x, lab in ops_in
+                for p in (x.placements[i],)
+                if type(p) is Shard and lab[p.dim] in allowed]
+        cand.sort(key=lambda c: not any(c in o for o in out_letters))
+        pick = None
+        for c in cand if mesh.size(i) > 1 else ():
+            n = mesh.size(i)
+            for j, k in enumerate(kept):
+                n *= mesh.size(j) if k == c else 1
+            if all(x.shape[d] % n == 0 for x, lab in ops_in
+                   for d, ch in enumerate(lab) if ch == c):
+                pick = c
+                break
+        kept.append(pick)
+
+    def layout(letters: str, grad: bool) -> list:
+        return [Replicate() if c is None
+                else Shard(letters.index(c)) if c in letters
+                else (Partial() if grad else Replicate()) for c in kept]
+    out_pl = [layout(o, True) for o in out_letters]
+    partial = any(isinstance(p, Partial) for pl in out_pl for p in pl)
+    if partial and fn_partial is None:
+        raise ValueError(f"{spec!r} split on a contracted letter "
+                         f"{kept}: no fn_partial to run per shard")
+    local = []
+    for i, (x, lab) in enumerate(ops):
+        if x is None:
+            local.append(None)
+            continue
+        want = layout(lab, False)
+        t = x if list(x.placements) == want else x.redistribute(mesh, want)
+        grad = layout(lab, True)
+        if (i in f32_grads and t.requires_grad and torch.is_grad_enabled()
+                and t.dtype != torch.float32
+                and any(isinstance(p, Partial) for p in grad)):
+            t = _GradSumF32.apply(t)
+        t = t.to_local(grad_placements=grad)
+        local.append(_DenseGrad.apply(t) if t.is_floating_point() else t)
+    size = {}
+    for x, lab in ops_in:
+        for c, n in zip(lab, x.shape):
+            size.setdefault(c, n)
     with logical_axis_rules(None):
-        out = fn(*local, mask).contiguous()   # the strides from_local states
-    shape = q.shape[:3] + out.shape[3:]
-    return DTensor.from_local(out, mesh, q_pl, shape=shape,
-                              stride=torch.empty(shape, device="meta").stride(),
-                              run_check=False)
+        res = (fn_partial if partial else fn)(*local)
+    single = not isinstance(res, tuple)
+    out = []
+    for r, letters, pl in zip((res,) if single else res, out_letters,
+                              out_pl):
+        r = r.contiguous()              # the strides from_local states
+        shape = torch.Size(size.get(c, n) for c, n in zip(letters, r.shape))
+        y = DTensor.from_local(r, mesh, pl, shape=shape,
+                               stride=_dense_stride(shape), run_check=False)
+        if any(isinstance(p, Partial) for p in pl):
+            y = y.redistribute(mesh, [Replicate() if isinstance(p, Partial)
+                                      else p for p in pl])
+        out.append(y if dtype in (None, y.dtype) else y.to(dtype))
+    return out[0] if single else tuple(out)
 
+
+def _dense_stride(shape: Sequence[int]) -> tuple[int, ...]:
+    """The strides of a contiguous tensor of ``shape``."""
+    stride, n = [], 1
+    for d in reversed(shape):
+        stride.append(n)
+        n *= d
+    return tuple(reversed(stride))

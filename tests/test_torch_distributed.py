@@ -13,21 +13,31 @@ from a fresh import) hold the port's against them:
   models (params from the reference's init) against the port's own
   single-process run (the reference's sharded step fails on this tree):
   fp32 loss within 1e-5 and grads within 1e-4; the bf16 loss within the
-  reference test's rtol 2e-2;
+  reference test's rtol 2e-2, and the bf16 grads by the gate below;
 * every decoder arch's fp32 smoke loss and grads on the 2×2 mesh, with
   the port's own init, against one process (1e-5 / 1e-4; no JAX, so it
-  also runs where only torch is installed);
+  also runs where only torch is installed); its bf16 loss (2e-2) and
+  grads: the worst leaf's distance from the fp32 single-process grads at
+  most 1.25 × the single-process bf16 run's (an MoE arch is held so only
+  where both runs route every position alike; the flips are printed);
+  no product, combine or scan of the sharded step gets a ``DTensor``;
+* a row-parallel bf16 product, and a column-parallel one's input grad,
+  summed across ranks in fp32 before their one rounding, and no fp32
+  copy of a ``DTensor`` weight made by ``linear`` or ``matmul_f32``;
 * a checkpoint written by one process restored onto the mesh, each local
   shard bit-equal to its slice, and a sharded tree saved back whole.
 
 These restate the reference's passing ``test_distribution.py`` cases.
 """
+import collections
+import contextlib
 import dataclasses
 import os
 import socket
 import subprocess
 import sys
 import textwrap
+import time
 
 import numpy as np
 import pytest
@@ -54,6 +64,56 @@ def _init(rank: int, port: int):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             rank=rank, world_size=WORLD)
+
+
+def _whole(t):
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _worst_leaf(grads, want) -> float:
+    """The largest relative L2 distance of a leaf of ``grads`` from the same
+    leaf of ``want`` (``DTensor`` leaves made whole: every rank calls)."""
+    from repro_torch.utils.tree import tree_leaves
+    worst = 0.0
+    for a, b in zip(tree_leaves(grads), tree_leaves(want)):
+        a, b = torch.as_tensor(_whole(a)).float(), torch.as_tensor(b).float()
+        worst = max(worst, float((a - b).norm() / b.norm().clamp_min(1e-12)))
+    return worst
+
+
+@contextlib.contextmanager
+def _routes():
+    """The experts every MoE layer picks, whole and sorted, in call order."""
+    from repro_torch.models import ffn
+    seen, route = [], ffn.route
+
+    def spy(*args, **kw):
+        w, idx, aux = route(*args, **kw)
+        seen.append(_whole(idx).detach().sort(-1).values)
+        return w, idx, aux
+    ffn.route = spy
+    try:
+        yield seen
+    finally:
+        ffn.route = route
+
+
+def _flips(a: list, b: list) -> tuple[int, int]:
+    """(positions whose experts differ, positions) over the MoE layers."""
+    return (sum(int((x != y).any(-1).sum()) for x, y in zip(a, b)),
+            sum(x.shape[0] for x in a))
+
+
+BF16_GRAD_RATIO = 1.25
+
+
+def _bf16_gate(single: float, sharded: float, flips: int) -> bool:
+    """The sharded bf16 grads' worst leaf within ``BF16_GRAD_RATIO`` × the
+    single-process bf16 run's, both against the fp32 grads.  Where the two
+    runs route a position to other experts (an MoE arch), every leaf's
+    grad differs by more than rounding, and the loss alone holds them."""
+    return flips > 0 or sharded <= BF16_GRAD_RATIO * single
 
 
 # -- the reference, in a subprocess with 4 host devices -----------------------
@@ -236,10 +296,12 @@ def _single(cases):
     for arch, (params_np, batch_np) in cases.items():
         for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
             params, batch = _tensors(params_np, batch_np, dtype)
-            loss, _, grads = loss_and_grads(_port_model(arch, dtype), params,
-                                            batch)
+            with _routes() as routes:
+                loss, _, grads = loss_and_grads(_port_model(arch, dtype),
+                                                params, batch)
             out[arch, name] = (float(loss), [g.float().numpy()
-                                             for g in tree_leaves(grads)])
+                                             for g in tree_leaves(grads)],
+                               routes)
     return out
 
 
@@ -257,7 +319,7 @@ def _sharded_worker(rank, port, cases, single):
     from repro_torch.utils.tree import tree_leaves
     mesh = make_debug_mesh(2, 2, device_type="cpu")
     cell = ShapeCell("dbg", CELL_S, CELL_B, "train")
-    for (arch, name), (want_loss, want_grads) in single.items():
+    for (arch, name), (want_loss, want_grads, want_routes) in single.items():
         dtype = torch.float32 if name == "fp32" else torch.bfloat16
         params_np, batch_np = cases[arch]
         params, batch = _tensors(params_np, batch_np, dtype)
@@ -266,7 +328,7 @@ def _sharded_worker(rank, port, cases, single):
         sp = batch_specs(mesh, model.cfg, batch, cell)
         batch = {k: place(v, mesh, sp[k]) for k, v in batch.items()}
         with logical_axis_rules(activation_rules(mesh, cell), mesh), \
-                implicit_replication():
+                implicit_replication(), _routes() as routes:
             loss, _, grads = loss_and_grads(model, params, batch)
         loss = float(loss.full_tensor())
         grads = [g.full_tensor().float().numpy() for g in tree_leaves(grads)]
@@ -275,9 +337,13 @@ def _sharded_worker(rank, port, cases, single):
         np.testing.assert_allclose(loss, want_loss, **tol,
                                    err_msg=f"{arch} {name} loss")
         if name == "bf16":
-            # the reference test's bf16 check is the loss; a row-parallel
-            # product's bf16 partial sums are rounded before their sum
-            # (ROADMAP C23), so the grads are held in fp32
+            f32_grads = single[arch, "fp32"][1]
+            flips = _flips(want_routes, routes)[0]
+            single_err = _worst_leaf(want_grads, f32_grads)
+            sharded_err = _worst_leaf(grads, f32_grads)
+            assert _bf16_gate(single_err, sharded_err, flips), (
+                f"{arch} bf16 worst grad leaf: sharded {sharded_err:.3e}, "
+                f"single {single_err:.3e}, flips {flips}")
             continue
         for i, (g, w) in enumerate(zip(grads, want_grads)):
             np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4,
@@ -296,10 +362,159 @@ EVERY_ARCH = ("qwen2-0.5b", "llama3.2-1b", "glm4-9b", "kimi-k2-1t-a32b",
               "rwkv6-1.6b")
 
 
-def _every_arch_worker(rank, port):
-    """Each decoder arch's fp32 smoke loss and grads on a 2×2 mesh against
-    the same rank's single-process run; prints one line an arch and
-    raises after all if any failed (so one run reports every arch)."""
+@contextlib.contextmanager
+def _inner_ops():
+    """(calls, calls given a ``DTensor``), counted by name, of the plain
+    products and scans that model code runs (torch's matmul and einsum,
+    the WKV and Mamba scans)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models import ssm
+    calls, dtensor = collections.Counter(), collections.Counter()
+    sites = [(torch, "matmul"), (torch, "einsum"), (ssm, "wkv_scan_ref"),
+             (ssm, "mamba_scan_ref"), (ssm, "mamba_scan")]
+    saved = [getattr(m, n) for m, n in sites]
+
+    def spy(name, fn):
+        def call(*args, **kw):
+            calls[name] += 1
+            dtensor[name] += any(isinstance(a, DTensor) for a in args)
+            return fn(*args, **kw)
+        return call
+    for (m, n), fn in zip(sites, saved):
+        setattr(m, n, spy(n, fn))
+    try:
+        yield calls, dtensor
+    finally:
+        for (m, n), fn in zip(sites, saved):
+            setattr(m, n, fn)
+
+
+@contextlib.contextmanager
+def _fp32_casts():
+    """The shapes of the ``DTensor``s cast to fp32 (``.float()`` or
+    ``.to(torch.float32)``) inside."""
+    from torch.distributed.tensor import DTensor
+    shapes, to, flt = [], torch.Tensor.to, torch.Tensor.float
+
+    def spy_to(self, *args, **kw):
+        if isinstance(self, DTensor) and (torch.float32 in args
+                                          or kw.get("dtype") == torch.float32):
+            shapes.append(tuple(self.shape))
+        return to(self, *args, **kw)
+
+    def spy_float(self, *args, **kw):
+        if isinstance(self, DTensor):
+            shapes.append(tuple(self.shape))
+        return flt(self, *args, **kw)
+    torch.Tensor.to, torch.Tensor.float = spy_to, spy_float
+    try:
+        yield shapes
+    finally:
+        torch.Tensor.to, torch.Tensor.float = to, flt
+
+
+def _product_checks(mesh) -> None:
+    """On the 2×2 mesh: causal attention over a split sequence against one
+    process (fp32, 1e-6).  In bf16: a row-parallel ``linear`` (its
+    contraction split over "model" in halves) whose partial sums are
+    1 + 2^-8 and 2^-8,
+    and a column-parallel one whose input grad's partial sums are the
+    same.  Summed in fp32 before the one rounding they give 1 + 2^-7, as
+    one process does; rounded first (ties to even) they give 1.  Neither
+    ``linear`` nor ``matmul_f32`` (the head, the expert MLP) casts a
+    ``DTensor`` weight to fp32, and their inner products get plain
+    tensors."""
+    from repro_torch.models.layers import linear, matmul_f32
+    from repro_torch.parallel.sharding import place
+    bf16, e = torch.bfloat16, 2.0 ** -8
+    want = torch.full((2, 2, 2), 1 + 2 * e, dtype=bf16)
+    x = torch.tensor([1, e, e, 0]).repeat(2, 2, 1)                # [2,2,4]
+    w_row = torch.tensor([[1.0, 1.0], [1, 1], [1, 1], [0, 0]])    # [4,2]
+    w_col = torch.zeros(4, 4)
+    w_col[:2] = torch.tensor([1, e, e, 0])
+    c = torch.tensor([1.0, 1, 1, 0])
+    weights = [place(w_row.to(bf16), mesh, ("model", "data")),
+               place(w_col.to(bf16), mesh, ("data", "model"))]
+    table = place(torch.randn(8, 4).to(bf16), mesh, ("model", "data"))
+    buf = place(torch.randn(4, 3, 4).to(bf16), mesh, ("model", None, None))
+    gate = place(torch.randn(4, 4, 2).to(bf16), mesh,
+                 ("model", "data", None))
+    # causal attention over a sequence split across "model": the
+    # sequence is made whole on each rank (the softmax spans it)
+    from repro_torch.models.attention import _sdpa
+    g = torch.Generator().manual_seed(3)
+    qkv = [torch.randn(4, 8, 4, 4, generator=g) for _ in range(3)]
+    causal = torch.tril(torch.ones(8, 8, dtype=torch.bool))
+    att = _sdpa(*(place(t, mesh, ("data", "model", None, None))
+                  for t in qkv), causal)
+    assert torch.allclose(att.full_tensor(), _sdpa(*qkv, causal),
+                          rtol=1e-6, atol=1e-6)
+    with _fp32_casts() as casts, _inner_ops() as (calls, dtensor):
+        y = linear({"w": weights[0]},
+                   place(x.to(bf16), mesh, ("data", None, "model")))
+        xs = place(x.to(bf16), mesh, ("data", None, None)).requires_grad_()
+        y_col = linear({"w": weights[1]}, xs)
+        (dx,) = torch.autograd.grad((y_col.float() * c).sum(), xs)
+        head = matmul_f32(place(x.reshape(4, 4).to(bf16), mesh,
+                                ("data", None)), table.t())
+        experts = matmul_f32(buf, gate)
+    assert torch.equal(y.full_tensor(), want)
+    assert torch.equal(dx.full_tensor()[..., :2], want)
+    assert head.dtype == experts.dtype == torch.float32
+    weight_shapes = {tuple(t.shape) for t in weights + [table, gate]}
+    weight_shapes |= {s[:-2] + s[:-3:-1] for s in weight_shapes}
+    assert not weight_shapes & set(casts), casts
+    assert calls["matmul"] and not sum(dtensor.values()), dtensor
+
+
+def _sort_dispatch_check(mesh, cell) -> None:
+    """The MoE sort dispatch (more than 32 experts, Kimi-K2's and
+    DeepSeek-V3's) on the 2×2 mesh against one process, fp32: the output
+    and the grads of the input and of every param within 1e-5; its
+    combine gathers only a rank's own experts' rows."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.ffn import init_moe, moe_ffn
+    from repro_torch.parallel.sharding import (activation_rules,
+                                               param_shardings, place,
+                                               place_tree)
+    from repro_torch.utils import logical_axis_rules
+    from repro_torch.utils.tree import tree_flatten, tree_unflatten
+    cfg = dataclasses.replace(get_config("kimi-k2-1t-a32b", smoke=True),
+                              dtype=torch.float32)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                           n_experts=40))
+    g = torch.Generator().manual_seed(2)
+    p = init_moe(g, cfg, device="cpu")
+    x = torch.randn(CELL_B, CELL_S, cfg.d_model, generator=g)
+    c = torch.randn(CELL_B, CELL_S, cfg.d_model, generator=g)
+
+    def run(p, x):
+        leaves, spec = tree_flatten(p)
+        live = [t.detach().requires_grad_() for t in [x] + leaves]
+        y, _ = moe_ffn(tree_unflatten(spec, live[1:]), live[0], cfg)
+        grads = torch.autograd.grad((y * c).sum(), live, allow_unused=True)
+        return y, [torch.zeros(()) if g is None else g for g in grads]
+    y, grads = run(p, x)
+    ps = place_tree(p, param_shardings(mesh, p), mesh)
+    with logical_axis_rules(activation_rules(mesh, cell), mesh), \
+            implicit_replication():
+        ys, grads_s = run(ps, place(x, mesh, ("data", None, None)))
+    assert torch.allclose(ys.full_tensor(), y, rtol=1e-5, atol=1e-5)
+    for a, b in zip(grads_s, grads):
+        assert torch.allclose(_whole(a), b, rtol=1e-5, atol=1e-5)
+
+
+def _every_arch_worker(rank, port, archs=EVERY_ARCH):
+    """Each decoder arch's smoke loss and grads on a 2×2 mesh against the
+    same rank's single-process run: fp32 (1e-5 / 1e-4) with the port's
+    fp32 init, then bf16 with its bf16 init (the loss within 2e-2; the
+    grads by ``_bf16_gate``, against the fp32 run on the same values);
+    every product, combine and scan of the sharded steps gets plain
+    tensors.  Prints one line an arch and raises after all if any failed
+    (so one run reports every arch)."""
     from torch.distributed.tensor.experimental import implicit_replication
 
     from repro_torch.configs import get_config
@@ -311,14 +526,31 @@ def _every_arch_worker(rank, port):
                                                param_shardings, place,
                                                place_tree)
     from repro_torch.utils import logical_axis_rules
-    from repro_torch.utils.tree import tree_leaves
+    from repro_torch.utils.tree import tree_map
     _init(rank, port)
     mesh = make_debug_mesh(2, 2, device_type="cpu")
     cell = ShapeCell("dbg", CELL_S, CELL_B, "train")
+    with implicit_replication():
+        _product_checks(mesh)
+    _sort_dispatch_check(mesh, cell)
+
+    def sharded(model, params, batch):
+        params = place_tree(params, param_shardings(mesh, params), mesh)
+        sp = batch_specs(mesh, model.cfg, batch, cell)
+        batch = {k: place(v, mesh, sp[k]) for k, v in batch.items()}
+        with logical_axis_rules(activation_rules(mesh, cell), mesh), \
+                implicit_replication(), _routes() as routes, \
+                _inner_ops() as (calls, dtensor):
+            loss, _, grads = loss_and_grads(model, params, batch)
+        if sum(dtensor.values()):
+            raise RuntimeError(f"a DTensor reached {dict(dtensor)}")
+        return float(loss.full_tensor()), grads, routes, calls
+
     failed = []
-    for arch in EVERY_ARCH:
-        cfg = dataclasses.replace(get_config(arch, smoke=True),
-                                  dtype=torch.float32)
+    for arch in archs:
+        t0 = time.perf_counter()
+        cfg16 = get_config(arch, smoke=True)
+        cfg = dataclasses.replace(cfg16, dtype=torch.float32)
         model = Model(cfg)
         params = model.init(torch.Generator().manual_seed(0), "cpu")
         g = torch.Generator().manual_seed(1)
@@ -326,26 +558,41 @@ def _every_arch_worker(rank, port):
                                   generator=g) for k in ("tokens", "labels")}
         loss, _, grads = loss_and_grads(model, params, batch)
         try:
-            params_s = place_tree(params, param_shardings(mesh, params), mesh)
-            sp = batch_specs(mesh, cfg, batch, cell)
-            batch_s = {k: place(v, mesh, sp[k]) for k, v in batch.items()}
-            with logical_axis_rules(activation_rules(mesh, cell), mesh), \
-                    implicit_replication():
-                loss_s, _, grads_s = loss_and_grads(model, params_s, batch_s)
-            loss_rel = abs(float(loss_s.full_tensor()) - float(loss)) / abs(
-                float(loss))
-            worst = max(float((a.full_tensor() - b).norm()
-                              / b.norm().clamp_min(1e-12))
-                        for a, b in zip(tree_leaves(grads_s),
-                                        tree_leaves(grads)))
+            loss_s, grads_s, _, calls = sharded(model, params, batch)
+            loss_rel = abs(loss_s - float(loss)) / abs(float(loss))
+            worst = _worst_leaf(grads_s, grads)
             ok = loss_rel <= 1e-5 and worst <= 1e-4
-            msg = (f"loss rel {loss_rel:.3e}, worst grad leaf rel_l2 "
+            msg = (f"fp32 loss rel {loss_rel:.3e}, worst grad leaf rel_l2 "
                    f"{worst:.3e}")
+            scan = {"rwkv": "wkv_scan_ref", "hybrid": "mamba_scan_ref"}.get(
+                cfg.family)
+            if scan and not calls[scan]:
+                ok, msg = False, f"{msg}; {scan} never ran"
+            # bf16: the same values in fp32 are the truth
+            model16 = Model(cfg16)
+            p16 = model16.init(torch.Generator().manual_seed(0), "cpu")
+            _, _, truth = loss_and_grads(
+                model, tree_map(lambda a: a.float(), p16), batch)
+            with _routes() as routes1:
+                loss1, _, grads1 = loss_and_grads(model16, p16, batch)
+            loss2, grads2, routes2, _ = sharded(model16, p16, batch)
+            flips, positions = _flips(routes1, routes2)
+            single, shard_err = (_worst_leaf(grads1, truth),
+                                 _worst_leaf(grads2, truth))
+            loss16_rel = abs(loss2 - float(loss1)) / abs(float(loss1))
+            ok = ok and loss16_rel <= 2e-2 and _bf16_gate(single, shard_err,
+                                                          flips)
+            msg += (f"; bf16 loss rel {loss16_rel:.3e}, worst grad leaf vs "
+                    f"fp32: single {single:.3e}, sharded {shard_err:.3e} "
+                    f"(x{shard_err / single:.3f}, <= {BF16_GRAD_RATIO})")
+            if positions:
+                msg += f", expert flips {flips}/{positions}"
         except RuntimeError as e:
             ok, msg = False, str(e).strip().splitlines()[-1][:200]
         if rank == 0:
             print(f"[2x2 gloo, torch {torch.__version__}] {arch}: "
-                  f"{'ok' if ok else 'FAIL'}: {msg}", flush=True)
+                  f"{'ok' if ok else 'FAIL'}: {msg} "
+                  f"({time.perf_counter() - t0:.1f} s)", flush=True)
         if not ok:
             failed.append(arch)
     assert not failed, failed
