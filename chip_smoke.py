@@ -220,9 +220,37 @@ Phases (any failure raises and the script exits non-zero):
      tensors; one line an arch, any failure fails the run.  More than one
      card is not measured: the 16x16 and 2x16x16 collective numbers are
      the dry-run's reckoning.
+ 18. chaos (``phase_chaos``, ``[chaos]`` lines): the 14 fault scenarios of
+     ``scripts/torch_chaos_smoke.py`` (imported from the checkout) at full
+     width on the kernel route: ``kernel_compile`` on Qwen2-0.5B's
+     full-depth op graph (bf16, seq 512; branch_gemm) and on GLM-4-9B at
+     full width and 2 layers in fp32 (branch_gemm's fp32 route),
+     ``grouped_gemm_route`` on a ragged group at Kimi-K2's expert widths
+     (K 7168, F 2048, M 8 / 24 / 16, bf16; grouped_gemm): each raises out of
+     lowering with no CUDA graph opened and nothing cached, then compiles
+     the kernel route, cached, held against per-op execution (bf16 logits
+     rel-L2 <= 2e-2 and top-1 >= 0.99; bf16 GEMMs 1e-2 + 1e-2 |ref|; fp32
+     1e-5 x max|ref|), and a replay made to fail at call time raises; the
+     calibration, disk-tier and plan sites on the Qwen2 graph (degraded
+     build vs per-op, counters, events naming the fault, the disk tier's
+     round trip and 16 concurrent writers on this machine's disk); the
+     engine sites on Llama-3.2-1B at full width and depth in fp32 (prompts
+     of 32-256 tokens, 16 output tokens, ``max_len`` 512; dense slab and
+     16-position pages): ``decode_step`` corrupt (one FAILED) and raise (the
+     watchdog's eager tick, probation back onto the recorded graph),
+     admission, deadline and preemption faults, page allocation, block
+     table and release faults (the dense-gather rung launches
+     decode_attention; the pool's books balance; a failed release leaks,
+     counted), each faulted run's streams equal to its fault-free run's;
+     every line logs its rung's compile / replay / tick ms beside the
+     fault-free run's and the kernels it launched, by route (none off its
+     kernel route); a broken site, or a phase that launched none of
+     branch_gemm, grouped_gemm, rmsnorm, flash_attention, decode_attention
+     and paged_decode, fails the run.
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
-package; needs the repository's ``src/`` next to this file and a CUDA card.
+package; needs the repository's ``src/`` and
+``scripts/torch_chaos_smoke.py`` next to this file and a CUDA card.
 """
 from __future__ import annotations
 
@@ -243,24 +271,30 @@ import warnings
 import numpy as np
 import torch
 
-# -- tolerances ---------------------------------------------------------------
-# Kernel vs plain, bf16: both accumulate in fp32 and round once to bf16, so
-# they differ by at most about one bf16 ulp (2^-8 relative).
-BF16_TOL = 1e-2                 # atol = rtol
-# Kernel vs plain, fp32 (TF32 off on both sides): summation order only.
-FP32_TOL = 1e-5                 # relative to max|plain|
-# Main path vs eager per-op execution: the same payloads, except that the
-# fused GEMMs replace 48 cuBLAS calls.  Both accumulate in fp32 and round
-# once to bf16, but need not sum in the same order, so a bf16 activation
-# may differ by an ulp and the difference runs through 24 layers.  The
-# bound is the JAX package's bf16 differential tolerance, kept although
-# the H100 runs so far gave bit-equal logits, because nothing guarantees
-# cuBLAS's summation order.
-# The serve phase holds the kernel route (use_kernels=True) to the plain
-# route by the same two numbers: relative L2 in bf16 and fp32, top-1
-# agreement in fp32 only (see _check_agreement).
-LOGITS_REL_L2 = 2e-2
-TOP1_AGREE = 0.99               # greedy tokens equal on >= 99% of positions
+
+def load_chaos():
+    """``scripts/torch_chaos_smoke.py`` of this checkout, as a module."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                        "torch_chaos_smoke.py")
+    spec = importlib.util.spec_from_file_location("torch_chaos_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = module
+    spec.loader.exec_module(module)
+    return module
+
+
+# The chaos script (phase 18) and the tolerances of every kernel and op-graph
+# gate, which it defines once: BF16_TOL and FP32_TOL hold a kernel to its
+# plain version (bf16 element-wise atol = rtol, fp32 relative to max|plain|),
+# LOGITS_REL_L2 and TOP1_AGREE a main path to eager per-op execution and the
+# kernel route to the plain route (top-1 gated in fp32 only, see
+# _check_agreement).
+chaos_script = load_chaos()
+BF16_TOL, FP32_TOL = chaos_script.BF16_TOL, chaos_script.FP32_TOL
+LOGITS_REL_L2, TOP1_AGREE = chaos_script.LOGITS_REL_L2, chaos_script.TOP1_AGREE
+check_close = chaos_script.check_close
+_agreement = chaos_script.agreement
 
 BATCH, SEQ = 1, 512
 TIMING_ITERS = 20
@@ -332,24 +366,6 @@ def gemm_bound_ms(n_flops: float, n_bytes: float, peak: float,
     t_ops, t_bytes = n_flops / peak, n_bytes / bw
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
-
-
-def check_close(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
-    """Hold ``got`` against ``want`` at the dtype's tolerance; returns the
-    max abs error."""
-    err = (got.float() - want.float()).abs()
-    max_err = float(err.max()) if err.numel() else 0.0
-    if got.dtype == torch.bfloat16:
-        bad = err > BF16_TOL + BF16_TOL * want.float().abs()
-        if bool(bad.any()):
-            raise AssertionError(f"{what}: {int(bad.sum())} elements off "
-                                 f"by more than {BF16_TOL} (max {max_err})")
-    else:
-        scale = float(want.float().abs().max()) if want.numel() else 0.0
-        if max_err > FP32_TOL * max(scale, 1e-30):
-            raise AssertionError(f"{what}: max err {max_err} > {FP32_TOL} "
-                                 f"x max|ref| {scale}")
-    return max_err
 
 
 # =============================================================================
@@ -1507,13 +1523,6 @@ def compare_streams(runs: dict, exact: bool, coupled: bool = False,
         f"first differing token, length, preempted at) {diverged}")
     if gated and exact and diverged:
         raise AssertionError("paged and dense token streams differ")
-
-
-def _agreement(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
-    got, want = got.float(), want.float()
-    rel = float((got - want).norm() / want.norm())
-    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
-    return rel, agree
 
 
 def _check_agreement(what: str, got, want, failures: list,
@@ -5284,6 +5293,43 @@ def phase_mesh(seed: int) -> None:
     log(f"[mesh] phase took {time.perf_counter() - t0:.1f} s")
 
 
+# =============================================================================
+# 18. chaos: every fault site at full width
+# =============================================================================
+
+CHAOS_CALIB_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "build", "chaos_calib")
+# the kernels the chaos scenarios launch (the graph sites' GEMMs, the
+# engine's norm, prefill, dense and paged decode)
+CHAOS_KERNELS = ("branch_gemm", "grouped_gemm", "rmsnorm", "flash_attention",
+                 "decode_attention", "paged_decode")
+
+
+def phase_chaos(seed: int) -> dict:
+    chaos = chaos_script
+    t0 = time.perf_counter()
+    shutil.rmtree(CHAOS_CALIB_DIR, ignore_errors=True)
+    setup = chaos.Setup("cuda", "full", seed, calib_dir=CHAOS_CALIB_DIR)
+    try:
+        # -- the chaos path's run: launch counts from 0 ---------------------
+        reset_launches()
+        failures = chaos.run_all(setup, say=log)
+        torch.cuda.synchronize()
+        launches = read_launches(*CHAOS_KERNELS)
+        routes = chaos.launch_counts()
+        # -- end of the chaos path's run -------------------------------------
+    finally:
+        setup.close()
+        shutil.rmtree(CHAOS_CALIB_DIR, ignore_errors=True)
+    log(f"[chaos] wrapper launches over the phase {launches}, by route "
+        f"{ {k: {r: n for r, n in v.items() if n} for k, v in routes.items()} }")
+    if failures:
+        raise AssertionError(f"[chaos] {failures} fault sites broke the "
+                             "contract")
+    log(f"[chaos] phase took {time.perf_counter() - t0:.1f} s")
+    return {"launches": launches}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5326,6 +5372,9 @@ def main() -> int:
     phase_flags(env, gen, args.seed, training["step_ms"])
     free_card()
     phase_mesh(args.seed)
+    free_card()
+    chaos = phase_chaos(args.seed)
+    free_card()
 
     for path, launches in (("main", main_path["launches"]["branch_gemm"]),
                            ("ragged", ragged["launches"]["grouped_gemm"]),
@@ -5352,7 +5401,9 @@ def main() -> int:
                                  ("serve", ("flash_attention",
                                             "decode_attention",
                                             "paged_decode")))
-                             for name in names)):
+                             for name in names),
+                           *((f"chaos ({name})", n)
+                             for name, n in chaos["launches"].items())):
         if launches <= 0:
             raise AssertionError(f"the {path} path launched no kernel")
     bf16 = torch.bfloat16

@@ -1703,3 +1703,27 @@ def test_sharded_step_on_a_one_rank_nccl_mesh_matches_plain(cuda):
     assert abs(float(loss_s) - float(loss)) <= 1e-5 * abs(float(loss))
     for got, want in zip(grads_s, tree_leaves(grads)):
         assert _rel_l2(got, want) <= 1e-4
+
+
+# -- fault sites on the card (scripts/torch_chaos_smoke.py) --------------------
+
+@pytest.mark.parametrize("index,kernels", [
+    (0, ("branch_gemm",)),                     # kernel_compile, branchy graph
+    (7, ("rmsnorm", "flash_attention", "decode_attention")),   # decode_step
+], ids=["kernel_compile", "decode_step"])
+def test_chaos_site_on_the_card(cuda, tmp_path, index, kernels):
+    """One graph site and one engine site at smoke size on the card:
+    ``kernel_compile`` raises out of lowering with no CUDA graph opened,
+    then the disarmed build records the branch_gemm route and a replay made
+    to fail at call time raises; ``decode_step`` corrupt fails one request
+    and its raise mode latches the eager step, whose probation re-arms the
+    recorded decode graph with every stream equal to the fault-free run."""
+    from test_torch_chaos_smoke import chaos
+    setup = chaos.Setup("cuda", "smoke", calib_dir=str(tmp_path))
+    spec, check, _ = chaos.SCENARIOS[index]
+    before = chaos.launch_counts()
+    check(setup, spec)
+    torch.cuda.synchronize()
+    assert not torch.cuda.is_current_stream_capturing()
+    launched = chaos.launches_since(before)
+    assert all(launched.get(k) for k in kernels), launched

@@ -75,6 +75,25 @@ def test_module_tree_mirrors_the_reference():
                           "launch/__init__.py"}
 
 
+def test_chaos_script_loads_no_jax_or_repro():
+    """``scripts/torch_chaos_smoke.py`` runs on the card's machine, which has
+    no JAX: importing it loads neither JAX nor the JAX package."""
+    code = ("import importlib.util, sys\n"
+            "spec = importlib.util.spec_from_file_location("
+            f"'chaos', {str(ROOT / 'scripts' / 'torch_chaos_smoke.py')!r})\n"
+            "mod = importlib.util.module_from_spec(spec)\n"
+            "sys.modules['chaos'] = mod\n"
+            "spec.loader.exec_module(mod)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'jaxlib', 'repro.')) or m == 'repro')\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def _imported_names(path: pathlib.Path) -> set[str]:
     names = set()
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -86,6 +105,7 @@ def _imported_names(path: pathlib.Path) -> set[str]:
 
 
 @pytest.mark.parametrize("path", [ROOT / "chip_smoke.py",
+                                  ROOT / "scripts" / "torch_chaos_smoke.py",
                                   *sorted(PORT.rglob("*.py"))],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_neither_jax_nor_repro(path):
