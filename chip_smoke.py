@@ -381,13 +381,20 @@ def phase_environment() -> dict:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
         f"{sys.version.split()[0]} device {torch.cuda.get_device_name(0)} "
         f"sm_{''.join(map(str, torch.cuda.get_device_capability(0)))}")
+    from repro_torch import trace
     from repro_torch.core.profiler import detect_hardware
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    _build.library()
+    trace.enable()
+    try:
+        _build.library()
+    finally:
+        trace.enable(False)
+    built = trace.summary().get("kernels.build")
+    trace.reset()
     log(f"[build] kernels built and loaded in "
         f"{time.perf_counter() - t0:.2f} s (one nvcc per source, in "
-        f"parallel: {_build.build_seconds:.2f} s) -> "
+        f"parallel: {built['host_ns'] / 1e9 if built else 0.0:.2f} s) -> "
         f"{[_build.library_path(s).name for s in _build.sources()]}")
     kernel = ""
     for source, text in sorted(_build.build_log.items()):

@@ -51,6 +51,15 @@ reader may still read it.  Inside a capture PyTorch's allocator defers the
 reuse of such a block to the capture's end, so a multi-lane graph's pool
 is larger than the one-stream recording's (``CudaGraphReplay.pool_bytes``).
 
+Spans (``repro_torch.trace``, off by default): with tracing on, a call of
+the executable is a ``forward`` span holding the eager ``walk`` or the
+replay's ``replay.copy_in``, ``replay.device`` (two timing events on the
+current stream around ``graph.replay()``, read once the second has
+completed, never by waiting) with its host part ``replay.submit``, and
+``replay.copy_out``; the first call's recording is ``record`` with
+``record.warmup_walk``, ``record.capture``, ``record.pool_bytes`` and
+``record.instantiate``.  Off, a replay pays one test of the flag.
+
 Unlike the JAX package there is no rescue rung: a fused route that cannot
 be built, an armed ``kernel_compile`` / ``grouped_gemm_route`` fault site,
 or a failing replay raises; nor does a lane recording that fails fall back
@@ -68,6 +77,7 @@ from typing import Any, Callable, Mapping, Sequence
 
 import torch
 
+from .. import trace as _trace
 from ..kernels.branch_gemm import ops as branch_gemm_ops
 from ..kernels.grouped_gemm import ops as grouped_gemm_ops
 from ..kernels.decode_attention import ops as decode_attention_ops
@@ -242,32 +252,36 @@ class CudaGraphReplay:
         device = devices.pop()
         self.n_lanes, self.n_waits = ((len(walk.streams), walk.n_waits)
                                       if isinstance(walk, LaneWalk) else (1, 0))
-        self.static_inputs = [a.clone() for a in args]
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            walk(*self.static_inputs)          # warm-up
-        torch.cuda.current_stream(device).wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
-        before = _launch_counts()
-        # Python's collector must not run inside the capture: freeing a dead
-        # graph (an engine dropped in a reference cycle) while a stream is
-        # capturing invalidates the capture
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(self.graph):
-                self.static_outputs = walk(*self.static_inputs)
-        finally:
-            if collecting:
-                gc.enable()
-        after = _launch_counts()
-        pool = tuple(self.graph.pool())
-        self.pool_bytes = sum(
-            seg["total_size"] for seg in torch.cuda.memory_snapshot()
-            if tuple(seg["segment_pool_id"]) == pool)
-        self.recorded_launches = {k: after[k] - before[k] for k in after}
-        self.graph.instantiate()
+        with _trace.span("record"):
+            self.static_inputs = [a.clone() for a in args]
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with _trace.span("record.warmup_walk"), torch.cuda.stream(side):
+                walk(*self.static_inputs)
+            torch.cuda.current_stream(device).wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+            before = _launch_counts()
+            # Python's collector must not run inside the capture: freeing a
+            # dead graph (an engine dropped in a reference cycle) while a
+            # stream is capturing invalidates the capture
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with _trace.span("record.capture"), torch.cuda.graph(
+                        self.graph):
+                    self.static_outputs = walk(*self.static_inputs)
+            finally:
+                if collecting:
+                    gc.enable()
+            after = _launch_counts()
+            with _trace.span("record.pool_bytes"):
+                pool = tuple(self.graph.pool())
+                self.pool_bytes = sum(
+                    seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                    if tuple(seg["segment_pool_id"]) == pool)
+            self.recorded_launches = {k: after[k] - before[k] for k in after}
+            with _trace.span("record.instantiate"):
+                self.graph.instantiate()
 
     def kernel_dag(self) -> tuple[int, int]:
         """(kernel nodes, depth) of the recorded graph: the depth is the
@@ -277,14 +291,31 @@ class CudaGraphReplay:
         return kernel_dag(self.graph.raw_cuda_graph())
 
     def __call__(self, args: Sequence[Any]) -> list[torch.Tensor]:
+        if _trace.on:
+            return self._traced_call(args)
+        self._copy_in(args)
+        self.graph.replay()
+        return [o.clone() for o in self.static_outputs]
+
+    def _copy_in(self, args: Sequence[Any]) -> None:
         for buf, a in zip(self.static_inputs, args):
             if a.shape != buf.shape or a.dtype != buf.dtype:
                 raise ValueError(
                     f"input {tuple(a.shape)} {a.dtype} does not match the "
                     f"recorded {tuple(buf.shape)} {buf.dtype}")
             buf.copy_(a)
-        self.graph.replay()
-        return [o.clone() for o in self.static_outputs]
+
+    def _traced_call(self, args: Sequence[Any]) -> list[torch.Tensor]:
+        """The call with its spans: ``replay.device`` times the graph on
+        the card between two events on the current stream, its child
+        ``replay.submit`` the host inside ``graph.replay()``."""
+        with _trace.span("replay.copy_in"):
+            self._copy_in(args)
+        with _trace.span("replay.device", device=True):
+            with _trace.span("replay.submit"):
+                self.graph.replay()
+        with _trace.span("replay.copy_out"):
+            return [o.clone() for o in self.static_outputs]
 
 
 @dataclasses.dataclass
@@ -319,9 +350,16 @@ class CapturedGraph:
                 self.graph.nodes[i].name for i in self.input_ids)
 
     def __call__(self, inputs: Mapping[str, Any]) -> list[Any]:
+        if _trace.on:
+            with _trace.span("forward", forward=True):
+                return self._call(inputs)
+        return self._call(inputs)
+
+    def _call(self, inputs: Mapping[str, Any]) -> list[Any]:
         args = self._bind(inputs)
         if not any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
-            return self.fn(*args)
+            with _trace.span("walk"):
+                return self.fn(*args)
         if self.replay is None:
             device = next(a.device for a in args
                           if isinstance(a, torch.Tensor) and a.is_cuda)

@@ -58,6 +58,7 @@ from typing import Any, Mapping
 
 import torch
 
+from .. import trace as _trace
 from ..runtime.faults import FaultPlan, get_active as _active_faults
 from ..runtime.guard import DegradationLog, retry_with_backoff
 from .capture import GEMM_KERNELS, CapturedGraph, PlanValidationError
@@ -711,22 +712,25 @@ class Session:
                 if isinstance(a, torch.Tensor) and a.device.type != cfg.device:
                     raise ValueError(f"input on {a.device} for a "
                                      f"{cfg.device} session")
-        t_total0 = time.perf_counter()
-        mark = len(self.guard_log)        # events from THIS build start here
+        # timings_ms is read from the build's spans, timed whether tracing
+        # is on or not: "compile" is the capture stage, "total" the build
         timings = {"calibrate": 0.0, "plan": 0.0, "compile": 0.0}
-        provenance = {"calibration": "off"}
-        if inputs is not None:
-            t0 = time.perf_counter()
-            _, provenance["calibration"] = self._calibrate(graph, inputs, cfg)
-            timings["calibrate"] = (time.perf_counter() - t0) * 1e3
-        t0 = time.perf_counter()
-        p, provenance["plan"] = self._plan(graph, cfg)
-        timings["plan"] = (time.perf_counter() - t0) * 1e3
-        t0 = time.perf_counter()
-        exe, provenance["executable"] = self._capture(graph, cfg, p,
-                                                      output_ids=output_ids)
-        timings["compile"] = (time.perf_counter() - t0) * 1e3
-        timings["total"] = (time.perf_counter() - t_total0) * 1e3
+        with _trace.span("compile", timed=True) as total:
+            mark = len(self.guard_log)    # events from THIS build start here
+            provenance = {"calibration": "off"}
+            if inputs is not None:
+                with _trace.span("compile.calibrate", timed=True) as t:
+                    _, provenance["calibration"] = self._calibrate(
+                        graph, inputs, cfg)
+                timings["calibrate"] = t.ms
+            with _trace.span("compile.plan", timed=True) as t:
+                p, provenance["plan"] = self._plan(graph, cfg)
+            timings["plan"] = t.ms
+            with _trace.span("compile.capture", timed=True) as t:
+                exe, provenance["executable"] = self._capture(
+                    graph, cfg, p, output_ids=output_ids)
+            timings["compile"] = t.ms
+        timings["total"] = total.ms
         return CompiledModel(config=cfg, graph=graph, plan=p,
                              executable=exe, provenance=provenance,
                              timings_ms=timings,

@@ -18,7 +18,8 @@ import shutil
 import subprocess
 import tempfile
 import threading
-import time
+
+from .. import trace as _trace
 
 _CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -92,10 +93,9 @@ _SIGNATURES = {
 _lock = threading.Lock()
 _lib: "KernelLibrary | None" = None
 # what the last build printed per source (``-Xptxas -v``: registers, shared
-# memory, spills per kernel) and how long the parallel build took; empty
-# when every library was reused
+# memory, spills per kernel); empty when every library was reused.  The
+# parallel build's time is the ``kernels.build`` span (``repro_torch.trace``)
 build_log: dict[str, str] = {}
-build_seconds = 0.0
 
 
 class KernelLibrary:
@@ -147,43 +147,42 @@ def library_path(src: pathlib.Path) -> pathlib.Path:
 
 def build() -> list[pathlib.Path]:
     """Compile every source whose library is missing, one ``nvcc`` each,
-    all at once."""
-    global build_log, build_seconds
+    all at once (the ``kernels.build`` span)."""
+    global build_log
     outs = [library_path(src) for src in sources()]
     todo = [(src, out) for src, out in zip(sources(), outs)
             if not out.exists()]
     if not todo:
         return outs
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
     running = []
-    try:
-        for src, out in todo:
-            fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
-            os.close(fd)
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
-            running.append((src, out, tmp, cmd, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
-        failed, log = [], {}
-        for src, out, tmp, cmd, proc in running:
-            text, _ = proc.communicate()
-            log[src.name] = text
-            if proc.returncode != 0:
-                failed.append(f"nvcc failed ({proc.returncode}):\n"
-                              f"{' '.join(cmd)}\n{text}")
-            else:
-                os.replace(tmp, out)
-        if failed:
-            raise RuntimeError("\n".join(failed))
-    finally:
-        for _src, _out, tmp, _cmd, proc in running:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-    build_seconds = time.perf_counter() - t0
+    with _trace.span("kernels.build"):
+        try:
+            for src, out in todo:
+                fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
+                os.close(fd)
+                cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
+                running.append((src, out, tmp, cmd, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)))
+            failed, log = [], {}
+            for src, out, tmp, cmd, proc in running:
+                text, _ = proc.communicate()
+                log[src.name] = text
+                if proc.returncode != 0:
+                    failed.append(f"nvcc failed ({proc.returncode}):\n"
+                                  f"{' '.join(cmd)}\n{text}")
+                else:
+                    os.replace(tmp, out)
+            if failed:
+                raise RuntimeError("\n".join(failed))
+        finally:
+            for _src, _out, tmp, _cmd, proc in running:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
     build_log = log
     return outs
 

@@ -53,6 +53,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from .. import trace as _trace
 from ..configs.base import ModelConfig
 from ..core.graph import OpGraph, OpKind
 from ..core.profiler import (
@@ -103,47 +104,48 @@ def build_lm_opgraph(cfg: ModelConfig, batch: int, seq: int,
     if cfg.family == "encdec":
         raise NotImplementedError(f"{cfg.name} is an encoder-decoder model: "
                                   "export it with build_encdec_opgraph")
-    g = OpGraph(cfg.name)
-    d = cfg.d_model
-    b, s = batch, seq
-    L = n_layers if n_layers is not None else cfg.n_layers
+    with _trace.span("export"):
+        g = OpGraph(cfg.name)
+        d = cfg.d_model
+        b, s = batch, seq
+        L = n_layers if n_layers is not None else cfg.n_layers
 
-    def fn_or_none(f):
-        return f if params is not None else None
+        def fn_or_none(f):
+            return f if params is not None else None
 
-    root = g.add("tokens", OpKind.INPUT, out_shape=(b, s))
-    emb_w = _w(params, "embed", "table")
-    x = g.add("embed", OpKind.GATHER, [root],
-              fn=fn_or_none(lambda t: emb_w[t]),
-              cost=gather_cost(b * s, d), out_shape=(b, s, d))
+        root = g.add("tokens", OpKind.INPUT, out_shape=(b, s))
+        emb_w = _w(params, "embed", "table")
+        x = g.add("embed", OpKind.GATHER, [root],
+                  fn=fn_or_none(lambda t: emb_w[t]),
+                  cost=gather_cost(b * s, d), out_shape=(b, s, d))
 
-    meta = stack_meta(cfg)
-    layer_idx = 0
-    for si, (kind, n, windows) in enumerate(meta):
-        for li in range(min(n, max(L - layer_idx, 0))):
-            tag = f"L{layer_idx}"
-            pl = (layer_params(_w(params, "stacks")[si], li)
-                  if params is not None else None)
-            if kind == "rwkv":
-                x = _rwkv_layer(g, cfg, x, b, s, tag, pl, root)
-            elif kind == "hybrid":
-                x = _hybrid_layer(g, cfg, x, b, s, tag, pl,
-                                  windows[li] or None, root)
-            elif kind == "moe":
-                x = _dense_layer(g, cfg, x, b, s, tag, pl, root, moe=True,
-                                 moe_branch_cap=moe_branch_cap,
-                                 moe_dispatch=moe_dispatch,
-                                 moe_cap_scale=moe_cap_scale)
-            else:
-                x = _dense_layer(g, cfg, x, b, s, tag, pl, root, moe=False)
-            layer_idx += 1
-    x = _norm_node(g, "final_norm", x, _w(params, "final_norm"), cfg.norm,
-                   b * s * d)
-    head = _w(params, "embed" if cfg.tie_embeddings else "head")
-    g.add("logits", OpKind.GEMM, [x],
-          fn=fn_or_none(lambda h: h @ head["table"].t()),
-          cost=gemm_cost(b * s, d, cfg.vocab_size))
-    g.validate()
+        meta = stack_meta(cfg)
+        layer_idx = 0
+        for si, (kind, n, windows) in enumerate(meta):
+            for li in range(min(n, max(L - layer_idx, 0))):
+                tag = f"L{layer_idx}"
+                pl = (layer_params(_w(params, "stacks")[si], li)
+                      if params is not None else None)
+                if kind == "rwkv":
+                    x = _rwkv_layer(g, cfg, x, b, s, tag, pl, root)
+                elif kind == "hybrid":
+                    x = _hybrid_layer(g, cfg, x, b, s, tag, pl,
+                                      windows[li] or None, root)
+                elif kind == "moe":
+                    x = _dense_layer(g, cfg, x, b, s, tag, pl, root, moe=True,
+                                     moe_branch_cap=moe_branch_cap,
+                                     moe_dispatch=moe_dispatch,
+                                     moe_cap_scale=moe_cap_scale)
+                else:
+                    x = _dense_layer(g, cfg, x, b, s, tag, pl, root, moe=False)
+                layer_idx += 1
+        x = _norm_node(g, "final_norm", x, _w(params, "final_norm"), cfg.norm,
+                       b * s * d)
+        head = _w(params, "embed" if cfg.tie_embeddings else "head")
+        g.add("logits", OpKind.GEMM, [x],
+              fn=fn_or_none(lambda h: h @ head["table"].t()),
+              cost=gemm_cost(b * s, d, cfg.vocab_size))
+        g.validate()
     return g
 
 

@@ -395,6 +395,81 @@ def test_lane_recording_is_concurrent_and_bit_equal_to_one_stream(cuda, name):
         exe({k: torch.cat([v, v]) for k, v in requests[0].items()})
 
 
+REPLAY_SPANS = ("forward", "replay.copy_in", "replay.device",
+                "replay.submit", "replay.copy_out")
+RECORD_SPANS = ("record", "record.warmup_walk", "record.capture",
+                "record.pool_bytes", "record.instantiate")
+
+
+@pytest.mark.parametrize("name", ["inception", "inception_bf16"])
+def test_traced_replay_is_bit_equal_and_adds_no_synchronize(cuda, name):
+    """With the program's tracing on, a lane recording's replays are
+    bit-equal to the replays with it off, kineto's trace holds each call's
+    replay spans, and no call issues a device or stream synchronize:
+    ``replay.device`` is read from its events once the caller has
+    synchronised on its own.  A first call under tracing records the
+    ``record`` span and its four stages."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import trace
+
+    g = LANE_GRAPHS[name](cuda)
+    exe = compile_plan(schedule(g, "opara", "opara"))
+    rng = np.random.default_rng(5)
+    requests = [{n.name: torch.tensor(rng.standard_normal(n.out_shape) * 0.1,
+                                      dtype=n.out_dtype or torch.float32,
+                                      device=cuda)
+                 for n in g if n.fn is None} for _ in range(3)]
+    off = [exe(r) for r in requests]           # record, then replay
+    torch.cuda.synchronize()
+    trace.reset()
+    trace.enable()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            on = [exe(r) for r in requests]
+        torch.cuda.synchronize()
+        spans = trace.records()
+        trace.reset()
+        fresh = compile_plan(schedule(g, "opara", "opara"))
+        first = fresh(requests[0])
+        torch.cuda.synchronize()
+        recorded = trace.summary()
+    finally:
+        trace.enable(False)
+        trace.reset()
+    for got, want in zip(on, off):
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(torch.equal(a, b) for a, b in zip(first, off[0]))
+    # kineto's host events (it also lays each span over the device's
+    # timeline, as a user annotation); the profiler's own stop
+    # synchronises, outside every call
+    host = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CPU]
+    names = [n for n, _, _ in host]
+    calls = [(a, b) for n, a, b in host if n == "forward"]
+    assert len(calls) == len(requests)
+    assert not [n for n, a, _ in host
+                if n in ("cudaDeviceSynchronize", "cudaStreamSynchronize")
+                and any(c0 <= a <= c1 for c0, c1 in calls)]
+    assert "cudaGraphLaunch" in names
+    for span_name in REPLAY_SPANS:
+        assert names.count(span_name) == len(requests), span_name
+        assert sum(s.name == span_name for s in spans) == len(requests)
+    device = {s.id: s for s in spans if s.name == "replay.device"}
+    assert all(s.device_ns is not None and s.device_ns > 0
+               for s in device.values())
+    assert all(s.parent in device for s in spans
+               if s.name == "replay.submit")
+    assert {s.forward for s in spans} == {s.id for s in spans
+                                          if s.name == "forward"}
+    for span_name in RECORD_SPANS:
+        assert recorded[span_name]["calls"] == 1, span_name
+    assert recorded["replay.device"]["device_calls"] == 1
+
+
 # ---- normalisation and attention kernels ------------------------------------
 # Tolerances as above: bf16 1e-2, fp32 1e-5 of max|plain|.  The attention
 # kernels' plain versions round differently inside (the flash plain version

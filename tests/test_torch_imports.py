@@ -66,13 +66,15 @@ def test_module_tree_mirrors_the_reference():
     """Every module of the JAX package has its port, except
     ``parallel/compat.py`` (a shim over jax's ``shard_map`` API: a torch
     rank already runs per-device code); the port's own extras are the
-    bridge, the kernel build and package ``__init__``s."""
+    bridge, the kernel build, the span tracer (``trace.py``: timing events
+    around the CUDA graph replay, which the reference, replaying no graph,
+    has no counterpart of) and package ``__init__``s."""
     def tree(pkg):
         return {str(p.relative_to(pkg)) for p in pkg.rglob("*.py")}
     ref, port = tree(ROOT / "src" / "repro"), tree(PORT)
     assert ref - port == {"parallel/compat.py"}
     assert port - ref == {"__init__.py", "bridge.py", "kernels/_build.py",
-                          "launch/__init__.py"}
+                          "launch/__init__.py", "trace.py"}
 
 
 def test_chaos_script_loads_no_jax_or_repro():
