@@ -323,7 +323,7 @@ FP32_PEAK = {"h100-sxm": 67e12, "h100-pcie": 51e12, "h100-nvl": 60e12}
 # every kernel of the port, in the order of the kernels line
 KERNELS = ("branch_gemm", "grouped_gemm", "rmsnorm", "flash_attention",
            "decode_attention", "paged_decode", "paged_decode_mla", "moe_gemm",
-           "rwkv6")
+           "rwkv6", "mamba_scan")
 
 
 def _json_row(result: dict) -> dict:
@@ -1555,6 +1555,7 @@ def _counters(*names: str) -> dict:
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.grouped_gemm import ops as gops
+    from repro_torch.kernels.mamba_scan import ops as sops
     from repro_torch.kernels.moe_gemm import ops as mops
     from repro_torch.kernels.paged_decode import ops as pops
     from repro_torch.kernels.rmsnorm import ops as rops
@@ -1566,7 +1567,8 @@ def _counters(*names: str) -> dict:
                 "decode_attention": (dops, "launches"),
                 "paged_decode": (pops, "launches"),
                 "paged_decode_mla": (pops, "mla_launches"),
-                "moe_gemm": (mops, "launches"), "rwkv6": (wops, "launches")}
+                "moe_gemm": (mops, "launches"), "rwkv6": (wops, "launches"),
+                "mamba_scan": (sops, "launches")}
     return {name: counters[name] for name in names}
 
 
@@ -3532,9 +3534,80 @@ def mamba_scan_share(tag: str, cfg, graph, replay_ms: float) -> None:
         f"replay ({replay_ms:.3f} ms)")
 
 
+# the scan's operations a (position, channel, state): decay's argument and
+# exp, h's multiply-add and the input's multiply, y's multiply-add
+SCAN_OPS = 7
+
+
+def mamba_scan_kernel(tag: str, graph, seed: int) -> dict:
+    """The scan kernel against its plain version (``ref.py``) on one layer's
+    scan stage at the op graph's shape, with that layer's a_log and d_skip:
+    fp32 within 1e-5 of max|plain|, bf16 within 1e-2 relative L2 (the plain
+    version rounds y and silu(z) before their product, the kernel once); the
+    bf16 launch and the plain version timed from a cold L2 beside the bound
+    (read packed and the constants once, write out once)."""
+    from repro_torch.core.profiler import detect_hardware
+    from repro_torch.kernels.mamba_scan import ops as sops
+    from repro_torch.kernels.mamba_scan.ref import mamba_scan_stage_ref
+    hw = detect_hardware()
+    node = next(n for n in graph if n.name.endswith(".mamba_scan"))
+    a_log, d_skip = node.meta["consts"]
+    di, n = a_log.shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    packed = torch.randn((BATCH, SEQ, 2 * di + 2 * n + 1), generator=g,
+                         device="cuda")
+    errs, rel = {}, 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        x = packed.to(dtype)
+        before = sops.launches
+        got = sops.mamba_scan_stage(x, a_log, d_skip)
+        want = mamba_scan_stage_ref(x, a_log, d_skip)
+        if sops.launches != before + 1:
+            raise AssertionError("mamba_scan did not launch the kernel")
+        got, want = got.float(), want.float()
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"mamba_scan {dtype}: NaN or inf")
+        err = float((got - want).abs().max())
+        if dtype == torch.float32:
+            scale = float(want.abs().max())
+            if err > 1e-5 * scale:
+                raise AssertionError(f"mamba_scan fp32: max err {err} > 1e-5 "
+                                     f"x max|plain| {scale}")
+        else:
+            rel = float((got - want).norm() / want.norm())
+            if rel > 1e-2:
+                raise AssertionError(f"mamba_scan bf16: relative L2 {rel} > "
+                                     "1e-2")
+        errs[dtype] = err
+    x = packed.to(torch.bfloat16)
+    n_flops = float(SCAN_OPS * BATCH * SEQ * di * n)
+    n_bytes = float(x.numel() * x.element_size() + BATCH * SEQ * di * 2
+                    + 4 * (di * n + di))
+    bound, by = gemm_bound_ms(n_flops, n_bytes, FP32_PEAK[hw.name],
+                              hw.hbm_bw)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device="cuda")
+    kernel_ms = cuda_ms(lambda: sops.mamba_scan_stage(x, a_log, d_skip),
+                        flush=flush)
+    plain_ms = cuda_ms(lambda: mamba_scan_stage_ref(x, a_log, d_skip),
+                       flush=flush, iters=5)
+    log(f"[kernel] mamba_scan {tag} B={BATCH} T={SEQ} di={di} N={n} bf16: "
+        f"max_abs_err {errs[torch.bfloat16]:.3g}, rel_l2 {rel:.3g} (fp32 "
+        f"max_abs_err {errs[torch.float32]:.3g}) kernel_ms {kernel_ms:.4f} "
+        f"({bound / kernel_ms:.3f} of the bound) plain_ms {plain_ms:.4f} "
+        f"({plain_ms / kernel_ms:.1f}x) library none bound_us "
+        f"{bound * 1e3:.3f} ({by}; {n_flops / 1e6:.2f} MFLOP, "
+        f"{n_bytes / 1e6:.3f} MB)")
+    return dict(max_abs_err=errs[torch.bfloat16], ms=kernel_ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=None)
+
+
 def phase_hymba(seed: int) -> dict:
     """Hymba-1.5B at full width and depth: the op graph at seq 512 on its
-    lanes beside its one-stream recording, the Mamba scan's share; the serve
+    lanes beside its one-stream recording (each mamba_scan node launches the
+    scan kernel), the Mamba scan's share, the scan kernel against its plain
+    version at the graph's shape; the serve
     trace on the dense slab (bf16, fp32) plus one request whose 980-token
     prompt and 128 meta tokens cross the 1024-position window, whose
     windowed prefill and decode steps are held against the plain route."""
@@ -3543,8 +3616,16 @@ def phase_hymba(seed: int) -> dict:
     cfg, params = _init_full(tag, "hymba-1.5b", seed)
     if (cfg.window, cfg.meta_tokens) != (HYMBA_WINDOW, HYMBA_META):
         raise AssertionError("hymba's window or meta tokens moved")
-    graph = lm_graph_path(tag, cfg, params, seed, 900)
+    def check(exe, recorded):
+        n_scan = sum(n.name.endswith(".mamba_scan") for n in exe.graph)
+        if recorded["mamba_scan"] != n_scan:
+            raise AssertionError(f"{recorded['mamba_scan']} mamba_scan "
+                                 f"launches recorded for {n_scan} mamba_scan "
+                                 "nodes")
+
+    graph = lm_graph_path(tag, cfg, params, seed, 900, check=check)
     mamba_scan_share(tag, cfg, graph["graph"], graph["lanes"]["lanes_graph"])
+    scan = mamba_scan_kernel(tag, graph["graph"], seed)
     specs = serve_specs(cfg.vocab_size, seed)
     rng = np.random.default_rng(seed + 980)
     long_req = dict(rid=len(specs), arrival=0, priority=0, ttl=None,
@@ -3575,7 +3656,8 @@ def phase_hymba(seed: int) -> dict:
             f"{t} positions) {scan_ms:.3f} ms x {cfg.n_layers} layers = "
             f"{cfg.n_layers * scan_ms / prefill_ms:.3f} of the prefill's "
             f"{prefill_ms:.3f} ms")
-    return {"graph": graph["launches"], "serve": serve["launches"]}
+    return {"graph": graph["launches"], "serve": serve["launches"],
+            "scan": scan, "scan_launches": graph["recorded"]["mamba_scan"]}
 
 
 # =============================================================================
@@ -5395,6 +5477,8 @@ def main() -> int:
                            *((f"{name} graph", d["graph"]["branch_gemm"])
                              for name, d in dense.items()),
                            ("hymba graph", hymba["graph"]["branch_gemm"]),
+                           ("hymba graph (mamba_scan)",
+                            hymba["scan_launches"]),
                            ("whisper graph", whisper["graph"]["branch_gemm"]),
                            ("whisper facade (flash_attention)",
                             whisper["facade"]["flash_attention"]),
@@ -5460,6 +5544,9 @@ def main() -> int:
              replaces="src/repro/kernels/rwkv6/kernel.py:60",
              launches=rwkv["launches"]["rwkv6"],
              **_json_row(families[("rwkv6", "prefill T=512")])),
+        dict(name="mamba_scan", route="cuda",
+             source="src/repro_torch/csrc/mamba_scan.cu", replaces=None,
+             launches=hymba["scan_launches"], **hymba["scan"]),
     ]}
     if [k["name"] for k in summary["kernels"]] != list(KERNELS):
         raise AssertionError("the kernels line must list every kernel")

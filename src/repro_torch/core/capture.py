@@ -82,6 +82,7 @@ from ..kernels.branch_gemm import ops as branch_gemm_ops
 from ..kernels.grouped_gemm import ops as grouped_gemm_ops
 from ..kernels.decode_attention import ops as decode_attention_ops
 from ..kernels.flash_attention import ops as flash_attention_ops
+from ..kernels.mamba_scan import ops as mamba_scan_ops
 from ..kernels.moe_gemm import ops as moe_gemm_ops
 from ..kernels.paged_decode import ops as paged_decode_ops
 from ..kernels.rmsnorm import ops as rmsnorm_ops
@@ -140,7 +141,7 @@ def _launch_counts() -> dict[str, int]:
         ("rmsnorm", rmsnorm_ops), ("flash_attention", flash_attention_ops),
         ("decode_attention", decode_attention_ops),
         ("paged_decode", paged_decode_ops), ("moe_gemm", moe_gemm_ops),
-        ("rwkv6", rwkv6_ops))}
+        ("rwkv6", rwkv6_ops), ("mamba_scan", mamba_scan_ops))}
     counts["paged_decode_mla"] = paged_decode_ops.mla_launches
     return counts
 
@@ -203,8 +204,10 @@ def kernel_dag(cuda_graph: int) -> tuple[int, int]:
     check(cu.cuGraphGetEdges(graph, None, None, ctypes.byref(m)),
           "cuGraphGetEdges")
     src, dst = (ptr * m.value)(), (ptr * m.value)()
-    check(cu.cuGraphGetEdges(graph, src, dst, ctypes.byref(m)),
-          "cuGraphGetEdges")
+    # libcuda refuses a second call for zero edges (a one-node graph)
+    if m.value:
+        check(cu.cuGraphGetEdges(graph, src, dst, ctypes.byref(m)),
+              "cuGraphGetEdges")
     kind = ctypes.c_int()
     is_kernel = {}
     for node in nodes:

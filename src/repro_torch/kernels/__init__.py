@@ -1,5 +1,6 @@
-"""Hand-written Hopper kernels: the capturer's fused GEMM routes and the
-model facade's normalisation, attention, expert MLP and WKV recurrence.
+"""Hand-written Hopper kernels: the capturer's fused GEMM routes, the
+model facade's normalisation, attention, expert MLP and WKV recurrence, and
+the op graph's Mamba scan.
 
 Each kernel lives in its own subpackage, mirroring the JAX package:
 
@@ -24,6 +25,11 @@ Kernels:
                    (``csrc/moe.cu``)
     rwkv6          the WKV6 recurrence of RWKV-6's time mix: step by step with
                    the state on chip, or in parallel chunks (``csrc/rwkv6.cu``)
+    mamba_scan     the op graph's Mamba scan stage (Hymba): discretisation,
+                   selective scan from the zero state, D skip and silu(z)
+                   gate in one launch, the state in registers
+                   (``csrc/mamba_scan.cu``; no TPU kernel: the JAX package
+                   leaves the scan to XLA)
 
 Backend rule (:func:`use_kernel`): tensors on the CPU take the plain
 version; tensors on one CUDA device of compute capability 9.0 (Hopper)
@@ -66,6 +72,9 @@ RWKV6_MAX_K = 64     # largest head size of the rwkv6 kernel; must equal KMAX
 RWKV6_CHUNK = 64     # positions per chunk of rwkv6's chunked route; must
                      # equal L in csrc/rwkv6.cu (checked when the library
                      # loads)
+MAMBA_SCAN_MAX_STATE = 64  # most SSM states of the mamba_scan kernel; must
+                           # equal NMAX in csrc/mamba_scan.cu (checked when
+                           # the library loads)
 
 
 def use_kernel(*tensors: torch.Tensor) -> bool:

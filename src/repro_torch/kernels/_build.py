@@ -29,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # entry point -> argtypes; every pointer and the stream are c_void_p, so
 # ctypes does not cut them to 32 bits
 _FLASH = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _F, _P)
@@ -88,6 +89,10 @@ _SIGNATURES = {
     "rwkv6_chunked_f32": (_P,) * 9 + (_I, _I, _I, _I, _P, _P),
     "rwkv6_head_max": (),
     "rwkv6_chunk_len": (),
+    # packed, a_log, d_skip, out, B, T, di, N, batch and time strides, stream
+    "mamba_scan_bf16": (_P,) * 4 + (_I,) * 4 + (_L, _L, _P),
+    "mamba_scan_f32": (_P,) * 4 + (_I,) * 4 + (_L, _L, _P),
+    "mamba_scan_max_state": (),
 }
 
 _lock = threading.Lock()
@@ -194,8 +199,9 @@ def library() -> KernelLibrary:
         if _lib is None:
             lib = KernelLibrary([ctypes.CDLL(str(p)) for p in build()])
             from . import (DECODE_CHUNK, DECODE_MAX_SPLITS, DECODE_TILE,
-                           MLA_MAX_SPLITS, MLA_TILE, MLA_WGMMA_TILE,
-                           MOE_MAX_EXPERTS, RWKV6_CHUNK, RWKV6_MAX_K, TILE_M)
+                           MAMBA_SCAN_MAX_STATE, MLA_MAX_SPLITS, MLA_TILE,
+                           MLA_WGMMA_TILE, MOE_MAX_EXPERTS, RWKV6_CHUNK,
+                           RWKV6_MAX_K, TILE_M)
             from .branch_gemm.kernel import WGMMA_TILES
             from .grouped_gemm.kernel import GROUPED_TILES
             if lib.gemm_tile_m() != TILE_M:
@@ -244,6 +250,10 @@ def library() -> KernelLibrary:
                     f"csrc rwkv6 (KMAX, L)=({lib.rwkv6_head_max()}, "
                     f"{lib.rwkv6_chunk_len()}) != kernels.(RWKV6_MAX_K, "
                     f"RWKV6_CHUNK)=({RWKV6_MAX_K}, {RWKV6_CHUNK})")
+            if lib.mamba_scan_max_state() != MAMBA_SCAN_MAX_STATE:
+                raise RuntimeError(
+                    f"csrc mamba_scan NMAX={lib.mamba_scan_max_state()} != "
+                    f"kernels.MAMBA_SCAN_MAX_STATE={MAMBA_SCAN_MAX_STATE}")
             _lib = lib
     return _lib
 

@@ -56,6 +56,7 @@ import torch.nn.functional as F
 from .. import trace as _trace
 from ..configs.base import ModelConfig
 from ..core.graph import OpGraph, OpKind
+from ..kernels.mamba_scan import mamba_scan_stage
 from ..core.profiler import (
     elementwise_cost,
     gather_cost,
@@ -66,7 +67,7 @@ from ..core.profiler import (
 from .attention import NEG_INF, causal_window_mask, value_up
 from .export_costs import act_gemm_cost, stream_cost
 from .layers import apply_norm, apply_rope, gelu, rmsnorm
-from .ssm import RWKV_LORA, _mamba_conv_seq, mamba_scan
+from .ssm import RWKV_LORA, _mamba_conv_seq
 from .transformer import layer_params, stack_meta
 
 
@@ -820,22 +821,6 @@ def _mamba_xproj_payload(xz, w):
     return torch.cat([xz, xz[..., :di] @ w], dim=-1)
 
 
-def _mamba_scan_payload(packed, a_log, d_skip):
-    """Discretise + selective scan + skip + silu(z) gate, from the zero
-    state (``ssm.mamba_seq``'s tail)."""
-    di, n = a_log.shape
-    xi = packed[..., :di].float()
-    z = packed[..., di:2 * di]
-    bmat, cmat, dt_raw = torch.split(packed[..., 2 * di:].float(),
-                                     [n, n, 1], dim=-1)
-    delta = F.softplus(dt_raw) + 1e-4
-    h0 = torch.zeros((xi.shape[0], di, n), dtype=torch.float32,
-                     device=xi.device)
-    _, ys = mamba_scan(delta, xi, bmat, cmat, -torch.exp(a_log), h0)
-    y = ys + xi * d_skip
-    return y.to(packed.dtype) * F.silu(z)
-
-
 def _head_mix(a, c):
     return 0.5 * (a + c)
 
@@ -878,8 +863,11 @@ def _hybrid_layer(g, cfg, x, b, s, tag, pl, window, root):
                   cost=gemm_cost(b * s, di, 2 * ssm.state_dim + 1),
                   fuse_sig=("mxproj", s, di, ssm.state_dim),
                   **({"consts": (mp["x_proj"]["w"],)} if with_fn else {}))
+    # discretise + selective scan + skip + silu(z) gate from the zero state
+    # (ssm.mamba_seq's tail): the kernel on the card, its plain version on
+    # the CPU
     scan = g.add(f"{tag}.mamba_scan", OpKind.SCAN, [xproj],
-                 fn=_mamba_scan_payload if with_fn else None,
+                 fn=mamba_scan_stage if with_fn else None,
                  cost=scan_cost(b, s, di, ssm.state_dim),
                  fuse_sig=("mscan", s, di, ssm.state_dim),
                  **({"consts": (mp["a_log"], mp["d_skip"])}

@@ -20,11 +20,14 @@ in the model dtype:
 
     h_t = exp(Δ_t·A)·h_{t-1} + (Δ_t·x_t) ⊗ B_t ;  y_t = C_t·h_t + D·x_t
 
-The scan has no kernel in either package.  :func:`mamba_scan_ref` is the
-per-token loop of the JAX package; :func:`mamba_scan` computes the same
-recurrence with the discretised terms of every step made ahead of the loop
-and one in-place update of h a step, then contracts C after the loop.
-Serving runs :func:`mamba_scan`; when a grad is wanted (the training loss)
+The JAX package has no scan kernel.  The port has one on the op graph's
+path: the exporter's scan stage goes through ``kernels.mamba_scan`` (the
+CUDA kernel on the card, its plain version, built on :func:`mamba_scan`, on
+the CPU).  Here :func:`mamba_scan_ref` is the per-token loop of the JAX
+package; :func:`mamba_scan` computes the same recurrence with the
+discretised terms of every step made ahead of the loop and one in-place
+update of h a step, then contracts C after the loop.  Serving runs
+:func:`mamba_scan`; when a grad is wanted (the training loss)
 :func:`mamba_seq` runs :func:`mamba_scan_ref`, whose steps are out of place.
 """
 from __future__ import annotations

@@ -1206,6 +1206,157 @@ def test_family_decode_step_graph_is_bit_equal_to_the_eager_step(cuda, arch,
         assert torch.equal(a, b)
 
 
+# ---- mamba_scan (the op graph's Mamba scan stage) ------------------------------
+
+from repro_torch.kernels.mamba_scan import ops as sops  # noqa: E402
+from repro_torch.kernels.mamba_scan.ref import mamba_scan_stage_ref  # noqa: E402
+
+
+def _scan_case(cuda, b, t, di, n, seed=100):
+    """packed [B,T,2·di+2·N+1] fp32 (x, z, B, C normal; Δ_raw normal, with
+    a few past softplus's threshold of 20), a general a_log (not log(1..N))
+    and a nonzero d_skip."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    packed = torch.randn(b, t, 2 * di + 2 * n + 1, generator=g, device=cuda)
+    packed[:, ::5, -1] += 22.0
+    a_log = torch.rand(di, n, generator=g, device=cuda) * 4.0 - 1.5
+    d_skip = torch.randn(di, generator=g, device=cuda)
+    return packed, a_log, d_skip
+
+
+def _assert_scan_close(got, want):
+    """fp32 within 1e-5 of max|plain|; bf16 within 1e-2 relative L2 (the
+    plain version rounds y and silu(z) to bf16 before their product, the
+    kernel rounds once)."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert bool(torch.isfinite(got).all())
+    if got.dtype == torch.bfloat16:
+        rel = ((got.float() - want.float()).norm()
+               / want.float().norm()).item()
+        assert rel <= 1e-2, rel
+    else:
+        _assert_kernel_close(got, want)
+
+
+# the cell's shape (Hymba-1.5B at 1 x 512), T in {1, 7, 33, 512}, B 2, di off
+# the block's 8 channels, N off the lanes' 4 and the largest N
+SCAN_CASES = [(1, 512, 3200, 16), (1, 1, 3200, 16), (2, 7, 24, 4),
+              (2, 33, 100, 16), (2, 512, 52, 5), (1, 33, 44, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,t,di,n", SCAN_CASES)
+def test_mamba_scan_kernel_matches_plain(cuda, dtype, b, t, di, n):
+    packed, a_log, d_skip = _scan_case(cuda, b, t, di, n)
+    packed = packed.to(dtype)
+    before = sops.launches
+    out = sops.mamba_scan_stage(packed, a_log, d_skip)
+    assert sops.launches == before + 1
+    _assert_scan_close(out, mamba_scan_stage_ref(packed, a_log, d_skip))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_mamba_scan_reads_strided_views_in_place(cuda, dtype):
+    """packed as a window of a wider, longer tensor, and as the batch
+    transpose of a [T, B, W] tensor: the kernel reads both through their
+    strides and gives the contiguous copy's result."""
+    b, t, di, n = 2, 33, 100, 16
+    w = 2 * di + 2 * n + 1
+    packed, a_log, d_skip = _scan_case(cuda, b, t, di, n)
+    packed = packed.to(dtype)
+    wide = torch.zeros(b, t + 3, w + 11, dtype=dtype, device=cuda)
+    wide[:, 2:t + 2, 5:w + 5] = packed
+    window = wide[:, 2:t + 2, 5:w + 5]
+    swapped = packed.transpose(0, 1).contiguous().transpose(0, 1)
+    want = sops.mamba_scan_stage(packed, a_log, d_skip)
+    for view in (window, swapped):
+        assert not view.is_contiguous()
+        got = sops.mamba_scan_stage(view, a_log, d_skip)
+        assert torch.equal(got, want)
+    _assert_scan_close(want, mamba_scan_stage_ref(packed, a_log, d_skip))
+
+
+def test_mamba_scan_launch_in_a_cuda_graph_follows_new_inputs(cuda):
+    static = list(_scan_case(cuda, 1, 200, 3200, 16))
+    static[0] = static[0].bfloat16()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        sops.mamba_scan_stage(*static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = sops.launches
+    with torch.cuda.graph(graph):
+        out = sops.mamba_scan_stage(*static)
+    assert sops.launches == before + 1
+    for seed in (110, 120):
+        fresh = _scan_case(cuda, 1, 200, 3200, 16, seed)
+        for x, y in zip(static, fresh):
+            x.copy_(y)
+        graph.replay()
+        torch.cuda.synchronize()
+        _assert_scan_close(out, mamba_scan_stage_ref(*static))
+
+
+def test_hymba_op_graph_lanes_are_bit_equal_to_one_stream_and_eager(cuda):
+    """The Hymba smoke op graph (bf16) recorded on its lanes launches the
+    scan kernel once a layer and gives the one-stream recording's and the
+    eager walk's logits bit for bit, request after request."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.opgraph_export import build_lm_opgraph
+    from repro_torch.models.transformer import init_lm
+    cfg = get_config("hymba-1.5b", smoke=True)
+    params = init_lm(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    g = build_lm_opgraph(cfg, batch=2, seq=12, params=params)
+    exe = compile_plan(schedule(g, "opara", "opara"))
+    assert exe.lane_stats()["n_lanes"] > 1
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    requests = [{"tokens": torch.randint(0, cfg.vocab_size, (2, 12),
+                                         generator=gen, device=cuda)}
+                for _ in range(2)]
+    outs = [exe(r) for r in requests]          # record, then replay
+    assert exe.replay.recorded_launches["mamba_scan"] == cfg.n_layers
+    one = CudaGraphReplay(exe.fn, [requests[0]["tokens"]])
+    for got, inputs in zip(outs, requests):
+        single = one([inputs["tokens"]])
+        eager = exe.call_uncompiled(inputs)
+        assert all(torch.equal(a, b) for a, b in zip(got, single))
+        assert all(torch.equal(a, b) for a, b in zip(got, eager))
+    assert not all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+def test_kernel_dag_reads_a_one_kernel_graph(cuda):
+    """A scan stage recorded alone is one kernel node with no edge (the
+    Hymba phase of chip_smoke.py records it so)."""
+    static = list(_scan_case(cuda, 1, 33, 100, 16))
+    rep = CudaGraphReplay(lambda p: [sops.mamba_scan_stage(p, *static[1:])],
+                          [static[0]])
+    assert rep.kernel_dag() == (1, 1)
+
+
+def test_mamba_scan_wrapper_raises_on_device_dtype_shape_and_strides(cuda):
+    packed, a_log, d_skip = _scan_case(cuda, 1, 5, 24, 4)
+    with pytest.raises(ValueError, match="devices"):
+        sops.mamba_scan_stage(packed, a_log.cpu(), d_skip)
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        sops.mamba_scan_stage(packed.half(), a_log, d_skip)
+    with pytest.raises(TypeError, match="fp32 a_log"):
+        sops.mamba_scan_stage(packed, a_log.bfloat16(), d_skip)
+    with pytest.raises(ValueError, match="2·di"):
+        sops.mamba_scan_stage(packed[..., :-1], a_log, d_skip)
+    with pytest.raises(ValueError, match="packed"):
+        sops.mamba_scan_stage(packed[0], a_log, d_skip)
+    with pytest.raises(ValueError, match="last dim contiguous"):
+        wide = torch.zeros(1, 5, 2 * packed.shape[-1], device=cuda)
+        sops.mamba_scan_stage(wide[..., ::2], a_log, d_skip)
+    with pytest.raises(ValueError, match="contiguous a_log"):
+        sops.mamba_scan_stage(packed, a_log.t().contiguous().t(), d_skip)
+    with pytest.raises(ValueError, match="states"):
+        big = torch.zeros(1, 5, 2 * 24 + 2 * 80 + 1, device=cuda)
+        sops.mamba_scan_stage(big, torch.zeros(24, 80, device=cuda), d_skip)
+
+
 # ---- the MLA form of paged decode ---------------------------------------------
 
 from repro_torch.kernels.paged_decode.ref import (  # noqa: E402

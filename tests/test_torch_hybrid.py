@@ -154,6 +154,66 @@ def test_mamba_seq_matches_reference_from_a_nonzero_state(dtype):
     _close(th, rh, tol)
 
 
+# -- the op graph's scan stage (kernels/mamba_scan) -------------------------------------
+
+def _scan_stage_case(t, di=24, n=4, b=2):
+    rng = np.random.default_rng(100 + t)
+    packed = rng.standard_normal((b, t, 2 * di + 2 * n + 1)).astype(
+        np.float32)
+    packed[:, ::3, -1] += 21.0           # past softplus's threshold
+    a_log = rng.uniform(-1.5, 2.5, (di, n)).astype(np.float32)
+    d_skip = rng.standard_normal(di).astype(np.float32)
+    return [torch.from_numpy(v) for v in (packed, a_log, d_skip)]
+
+
+@pytest.mark.parametrize("t", [1, 7, 33])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_mamba_scan_cpu_route_matches_the_reference_scan_payload(dtype, t):
+    """The scan stage's CPU route against the JAX package's scan payload on
+    the same inputs, and the op graph's scan node runs that route."""
+    from repro.models.opgraph_export import _mamba_scan_payload
+    from repro_torch.kernels.mamba_scan import mamba_scan_stage, ops
+    jdt, tdt, tol = DTYPES[dtype]
+    packed, a_log, d_skip = _scan_stage_case(t)
+    before = ops.launches
+    got = mamba_scan_stage(packed.to(tdt), a_log, d_skip)
+    assert ops.launches == before          # the CPU route counts nothing
+    assert got.dtype == tdt and got.shape == (2, t, 24)
+    want = _mamba_scan_payload(jnp.asarray(packed.numpy(), jdt),
+                               jnp.asarray(a_log.numpy()),
+                               jnp.asarray(d_skip.numpy()))
+    _close(got, want, tol)
+    _, cfg, _, _, params, _, _ = _setup(dtype)
+    graph = build_lm_opgraph(cfg, batch=1, seq=4, params=params)
+    scans = [n for n in graph if n.name.endswith(".mamba_scan")]
+    assert scans and all(n.fn is mamba_scan_stage for n in scans)
+
+
+@pytest.mark.parametrize("bad,error,match", [
+    (lambda p, a, d: (p[0], a, d), ValueError, "packed"),
+    (lambda p, a, d: (p[..., :-1], a, d), ValueError, "2·di"),
+    (lambda p, a, d: (p, a, d[:-1]), ValueError, "d_skip"),
+    (lambda p, a, d: (p, a[0], d), ValueError, "a_log"),
+    (lambda p, a, d: (p.half(), a, d), TypeError, "bf16 or fp32"),
+    (lambda p, a, d: (p.double(), a, d), TypeError, "bf16 or fp32"),
+    (lambda p, a, d: (p, a.bfloat16(), d), TypeError, "fp32 a_log"),
+    (lambda p, a, d: (p, a, d.double()), TypeError, "fp32 a_log"),
+], ids=["packed_2d", "packed_width", "d_skip_len", "a_log_1d", "packed_fp16",
+        "packed_fp64", "a_log_bf16", "d_skip_fp64"])
+def test_mamba_scan_checks_raise_on_the_cpu(bad, error, match):
+    from repro_torch.kernels.mamba_scan import mamba_scan_stage
+    with pytest.raises(error, match=match):
+        mamba_scan_stage(*bad(*_scan_stage_case(5)))
+
+
+def test_launch_counts_have_the_mamba_scan_kernel():
+    import sys
+    capture = sys.modules["repro_torch.core.capture"]
+    from repro_torch.kernels.mamba_scan import ops
+    counts = capture._launch_counts()
+    assert counts["mamba_scan"] == ops.launches
+
+
 # -- the model facade -----------------------------------------------------------------
 
 def test_hymba_init_matches_the_reference_tree():

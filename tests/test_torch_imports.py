@@ -68,13 +68,17 @@ def test_module_tree_mirrors_the_reference():
     rank already runs per-device code); the port's own extras are the
     bridge, the kernel build, the span tracer (``trace.py``: timing events
     around the CUDA graph replay, which the reference, replaying no graph,
-    has no counterpart of) and package ``__init__``s."""
+    has no counterpart of), the Mamba scan kernel's package
+    (``kernels/mamba_scan``: the reference leaves the scan to XLA) and
+    package ``__init__``s."""
     def tree(pkg):
         return {str(p.relative_to(pkg)) for p in pkg.rglob("*.py")}
     ref, port = tree(ROOT / "src" / "repro"), tree(PORT)
     assert ref - port == {"parallel/compat.py"}
     assert port - ref == {"__init__.py", "bridge.py", "kernels/_build.py",
-                          "launch/__init__.py", "trace.py"}
+                          "launch/__init__.py", "trace.py",
+                          *(f"kernels/mamba_scan/{name}.py" for name in (
+                              "__init__", "kernel", "ops", "ref"))}
 
 
 def test_chaos_script_loads_no_jax_or_repro():
