@@ -15,6 +15,14 @@ layout and counts (``families/<family>.py``) and its reference
 (``reference/<family>.py``); a per-layer metric is
 ``metrics/<metric>.py``.  ``BENCHMARK.json`` at the root of the checkout
 says which metrics a cell reports.
+
+A configuration file's keys are the fields of the port's ``ModelConfig``
+(nested groups such as ``moe``, ``mla`` and ``ssm`` as objects of their
+own fields, ``dtype`` by name), the benchmark's own keys, ``OWN_KEYS``,
+and the keys of the source's published configuration that the file lists
+under ``published`` (kept as published, read by no program); a field the
+file leaves out keeps ``ModelConfig``'s default, and any other key is
+refused.
 """
 from __future__ import annotations
 
@@ -29,6 +37,7 @@ import re
 import statistics
 import sys
 import time
+import typing
 from typing import Any, Callable
 
 import torch
@@ -41,6 +50,11 @@ BUILD = REPO / "build" / "portbench"
 # whole top-level module names that may not be loaded in a run
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# the keys of a configuration file that are the benchmark's and not the
+# port's; "published" lists the file's keys that are the source's own
+# configuration, which may name no field of the port's ModelConfig
+OWN_KEYS = ("norm_eps", "reduced", "deployment", "assumed", "not_on_path",
+            "published")
 # the scale of each kind of leaf of the benchmark's weights: N(0, 1) times
 # the scale (linear weights by their fan-in), plus 1 for norm scales and
 # the Mamba skip; a_log is Mamba's own A = 1..state_dim
@@ -123,24 +137,29 @@ def metric_reader(name: str) -> Callable[[dict], float | None]:
 def make_weights(cfg: dict, seed: int, device: str) -> dict:
     """The configuration's weights in the port's parameter layout, drawn on
     ``device`` from ``seed``: every normal leaf of one dtype is a view of
-    one buffer filled by one ``randn`` call, then scaled in place."""
+    one buffer filled by one ``randn`` call, then scaled in place.  A
+    family's leaf is ``(path, shape, kind)``, in the configuration's dtype
+    (the Mamba A and skip in float32, as the port keeps them), or ``(path,
+    shape, kind, dtype)`` with the dtype by name."""
     gen = torch.Generator(device=device).manual_seed(seed)
     dtype = DTYPES[cfg["dtype"]]
-    leaves = family_module(cfg).leaves(cfg)
-    # the port keeps the Mamba A and skip in float32
-    leaf_dtype = {kind: torch.float32 if kind in ("a_log", "d_skip")
-                  else dtype for _, _, kind in leaves}
+    leaves = []
+    for path, shape, kind, *named in family_module(cfg).leaves(cfg):
+        if named:
+            dt = DTYPES[named[0]]
+        else:  # the port keeps the Mamba A and skip in float32
+            dt = torch.float32 if kind in ("a_log", "d_skip") else dtype
+        leaves.append((path, shape, kind, dt))
     offsets, totals = [], {}
-    for _, shape, kind in leaves:
-        dt = leaf_dtype[kind]
+    for _, shape, _, dt in leaves:
         offsets.append(totals.get(dt, 0))
         # every leaf starts on a 256-byte boundary
         totals[dt] = offsets[-1] + -(-math.prod(shape) // 128) * 128
     flat = {dt: torch.randn(n, generator=gen, dtype=dt, device=device)
             for dt, n in totals.items()}
     tree: dict = {}
-    for (path, shape, kind), off in zip(leaves, offsets):
-        t = flat[leaf_dtype[kind]][off:off + math.prod(shape)].view(shape)
+    for (path, shape, kind, dt), off in zip(leaves, offsets):
+        t = flat[dt][off:off + math.prod(shape)].view(shape)
         if kind == "linear":
             t.mul_(shape[-2] ** -0.5)
         elif kind == "a_log":
@@ -184,19 +203,42 @@ def make_pool(cfg: dict, traffic: dict, seed: int, device: str
 # -- the program -----------------------------------------------------------------
 
 def port_config(cfg: dict):
-    """The port's ``ModelConfig`` of a configuration file."""
-    from repro_torch.configs.base import ModelConfig, SSMConfig
-    return ModelConfig(
-        name=cfg["name"], family=cfg["family"], n_layers=cfg["n_layers"],
-        d_model=cfg["d_model"], n_heads=cfg["n_heads"],
-        n_kv_heads=cfg["n_kv_heads"], d_ff=cfg["d_ff"],
-        vocab_size=cfg["vocab_size"], d_head=cfg["d_head"],
-        qkv_bias=cfg["qkv_bias"], norm=cfg["norm"],
-        tie_embeddings=cfg["tie_embeddings"], window=cfg["window"],
-        global_layers=tuple(cfg["global_layers"]),
-        meta_tokens=cfg["meta_tokens"],
-        ssm=SSMConfig(**cfg["ssm"]) if cfg["ssm"] else None,
-        dtype=DTYPES[cfg["dtype"]], source=cfg["source"])
+    """The port's ``ModelConfig`` of a configuration file: each key that
+    names a field passed to it, ``OWN_KEYS`` and the other ``published``
+    keys left out; raises KeyError, naming the key and the file, for any
+    other key."""
+    from repro_torch.configs.base import ModelConfig
+    fields = {f.name for f in dataclasses.fields(ModelConfig)}
+    skip = set(OWN_KEYS) | (set(cfg.get("published", ())) - fields)
+    where = f"configs/{cfg.get('name')}.json"
+    return _fields_of(ModelConfig, {k: v for k, v in cfg.items()
+                                    if k not in skip}, where, "")
+
+
+def _fields_of(cls: type, values: dict, where: str, prefix: str):
+    """``cls(**values)``, each value made what its field holds: a dict the
+    dataclass of the field's type, a list a tuple, ``dtype`` a
+    ``torch.dtype`` by name."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    hints = typing.get_type_hints(cls)
+    kw = {}
+    for key, value in values.items():
+        if key not in names:
+            raise KeyError(f"{prefix + key!r} in {where} is not a field of "
+                           f"the port's {cls.__name__}, one of the "
+                           f"benchmark's own keys {OWN_KEYS} or a key "
+                           "listed under 'published'")
+        types = typing.get_args(hints[key]) or (hints[key],)
+        group = next((t for t in types if dataclasses.is_dataclass(t)),
+                     None)
+        if key == "dtype":
+            value = DTYPES[value]
+        elif isinstance(value, dict) and group is not None:
+            value = _fields_of(group, value, where, f"{prefix}{key}.")
+        elif isinstance(value, list):
+            value = tuple(value)
+        kw[key] = value
+    return cls(**kw)
 
 
 def compile_program(cfg: dict, weights: dict, batch: int, seq: int,
@@ -478,8 +520,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     e2e = {
         "forward_ms": 1e3 * (t_end - t_win) / n,
-        "forward_p95_ms": 1e3 * statistics.quantiles(
-            lat, n=100, method="inclusive")[94],
+        # a window of one forward (a loaded CPU's) has no quantiles
+        "forward_p95_ms": 1e3 * (statistics.quantiles(
+            lat, n=100, method="inclusive")[94] if n > 1 else lat[0]),
         "peak_mem_gib": peak / GIB,
         "setup_s": setup_s,
     }

@@ -2,7 +2,9 @@
 a card: an unbroken program comes out correct, and each fault a cell can
 have, planted in the timed path underneath the run, comes out not
 correct."""
+import itertools
 import json
+import types
 
 import pytest
 import torch
@@ -21,6 +23,17 @@ def _cell(cfg, batch=2, seq=16):
     m = harness.manifest()
     return harness.Cell("smoke", cfg, traffic, dict(LIMITS),
                         m["end_to_end"], m["per_layer"])
+
+
+@pytest.fixture(autouse=True)
+def _stepped_clock(monkeypatch):
+    """The harness reads a clock that moves 20 ms a reading, so its
+    warm-up and its window end after a fixed number of forwards (9 in
+    the window, past its sample of the first 4), however slow the CPU
+    that other test workers share."""
+    ticks = itertools.count()
+    monkeypatch.setattr(harness, "time", types.SimpleNamespace(
+        perf_counter=lambda: 0.02 * next(ticks)))
 
 
 def _run(cfg, wrap=None, trace=False):
