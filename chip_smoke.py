@@ -1954,6 +1954,60 @@ def _moe_chain(buf, gate, up, down):
     return torch.bmm(F.silu(torch.bmm(buf, gate)) * torch.bmm(buf, up), down)
 
 
+DS_E, DS_HELD, DS_TOPK = 256, 8, 8
+
+
+def moe_held_counts(hw, gen: torch.Generator, flush: torch.Tensor) -> dict:
+    """moe_gemm with device counts at DeepSeek-V3's expert-parallel layer:
+    8 held experts of 256 (experts 0-7) at d 7168, f 2048, bf16, the
+    dropless buffers of a 1 x 512 prefill (C = 512), the counts those of
+    512 tokens' uniform top-8; the rows past a count must stay untouched.
+    Timed cold beside its bound (the held experts' weights once and the
+    counted rows in and out) and the plain version."""
+    from repro_torch.kernels.moe_gemm import ops as mops
+    from repro_torch.kernels.moe_gemm.ref import moe_mlp_ref
+    e, c, d, f = DS_HELD, 512, KIMI_D, KIMI_F
+    gate, up = (_expert_stack(gen, (e, d, f), d ** -0.5, torch.bfloat16)
+                for _ in range(2))
+    down = _expert_stack(gen, (e, f, d), f ** -0.5, torch.bfloat16)
+    buf = torch.randn((e, c, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    picks = torch.rand((c, DS_E), generator=gen, device="cuda").topk(
+        DS_TOPK, dim=-1).indices
+    counts = torch.stack([(picks == j).sum() for j in range(e)]).to(
+        torch.int32)
+    out = torch.full_like(buf, float("nan"))
+    before = dict(mops.launches_by_route)
+    got = mops.moe_mlp(buf, gate, up, down, counts=counts, out=out)
+    want = moe_mlp_ref(buf, gate, up, down)
+    torch.cuda.synchronize()
+    kept = torch.arange(c, device="cuda")[None, :] < counts[:, None]
+    err = check_close(got[kept], want[kept], "moe_gemm held counts")
+    if not bool(torch.isnan(got[~kept]).all()):
+        raise AssertionError("moe_gemm held counts: a row past its count "
+                             "was written")
+    if {r: n - before[r] for r, n in mops.launches_by_route.items()
+            if n != before[r]} != {"wgmma": 1}:
+        raise AssertionError("moe_gemm held counts: not one wgmma launch")
+    rows = int(counts.sum())
+    n_flops = 2.0 * 3 * rows * d * f
+    n_bytes = 2 * (3 * e * d * f + 2 * rows * d)
+    bound, by = gemm_bound_ms(n_flops, n_bytes, hw.peak_flops, hw.hbm_bw)
+    kernel_ms = cuda_ms(lambda: mops.moe_mlp(buf, gate, up, down,
+                                             counts=counts, out=out),
+                        flush=flush)
+    plain_ms = cuda_ms(lambda: moe_mlp_ref(buf, gate, up, down, counts, out),
+                       flush=flush)
+    log(f"[kernel] moe_gemm held counts [{e},{c},{d}] f={f} bf16, counts "
+        f"{counts.tolist()} ({rows} rows): route wgmma, max_abs_err "
+        f"{err:.3g}, rows past the counts untouched; kernel_ms "
+        f"{kernel_ms:.4f} cold ({bound / kernel_ms:.3f} of the bound) "
+        f"plain_ms {plain_ms:.4f} bound_us {bound * 1e3:.2f} ({by}; "
+        f"{n_flops / 1e9:.2f} GFLOP, {n_bytes / 1e9:.3f} GB)")
+    return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, library_ms=None, rows=rows)
+
+
 def phase_moe_rwkv_kernels(env: dict, gen: torch.Generator) -> dict:
     from repro_torch.kernels.moe_gemm import ops as mops
     from repro_torch.kernels.moe_gemm.ref import moe_mlp_ref
@@ -2069,6 +2123,8 @@ def phase_moe_rwkv_kernels(env: dict, gen: torch.Generator) -> dict:
             simple_ms=simple_ms)
         del buf, got, want
     del full, gate, up, down
+    free_card()
+    results[("moe_gemm", "held counts")] = moe_held_counts(hw, gen, flush)
     free_card()
 
     # -- rwkv6: a 512-token prefill, a decode tick of 8 slots, odd T, the

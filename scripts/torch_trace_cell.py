@@ -21,6 +21,17 @@ script prints:
   ``outside_replay_ms`` (the two's difference), the profiled window's
   ``traced_replay_ms``, ``record_ms`` (the ``record`` span) and
   ``export_ms`` (the ``export`` span);
+- ``[program] counters``: per counter of the program (read by the window's
+  ``replay.device`` spans once their events completed), over the window's
+  forwards: the expert-parallel MoE layer's ``moe.held_counts``, the routed
+  pairs a forward sends to the held experts (mean, least, most; beside
+  their expected number, tokens · top-k · held / experts a layer) and the
+  largest count of one expert in one layer against the static capacity;
+- ``[program] expert_roofline``: for a configuration with held experts,
+  the least time of their MLP (``portbench/families/moe.py``, from each
+  profiled forward's counts: the weights of each held expert with a row
+  once, the rows in and out, or the rows' operations), over the device
+  time of moe_gemm's kernels per forward in the profiled window (%);
 
 then the harness's result line, as ``portbench/run.py`` prints it.  It
 imports neither JAX nor the JAX package.  It stands in for the harness's
@@ -78,6 +89,56 @@ def by_step(spans, start_ns: int) -> dict[str, list]:
     return out
 
 
+def _flat(values) -> list:
+    return [x for v in values for x in _flat(v)] if isinstance(
+        values, list) else [values]
+
+
+def counter_report(spans, meta: dict[str, dict]) -> dict[str, dict]:
+    """Each counter over the spans that read it: the sum of its values per
+    forward (mean, least, most) and its largest value, beside its
+    ``meta``; for ``moe.held_counts`` also the expected sum, capacity ·
+    top-k · held / experts a MoE layer."""
+    out: dict[str, dict] = {}
+    for name, info in meta.items():
+        reads = [s.counters[name] for s in spans
+                 if s.counters and name in s.counters]
+        if not reads:
+            continue
+        sums = [sum(_flat(r)) for r in reads]
+        out[name] = {"forwards": len(reads),
+                     "sum_mean": sum(sums) / len(sums),
+                     "sum_min": min(sums), "sum_max": max(sums),
+                     "largest": max(max(_flat(r)) for r in reads), **info}
+        if name == "moe.held_counts":
+            held = info["experts"][1]
+            out[name]["sum_expected"] = (len(reads[0]) * info["capacity"]
+                                         * info["top_k"] * held
+                                         / info["n_experts"])
+    return out
+
+
+def expert_roofline(cell: "harness.Cell", result: dict,
+                    spans) -> dict | None:
+    """The held experts' MLP against its roofline over the profiled
+    forwards: the mean least time from their counts over moe_gemm's device
+    time per forward."""
+    from portbench.metrics import expert_ms
+    family = harness.family_module(cell.cfg)
+    reads = [s.counters["moe.held_counts"] for s in spans
+             if s.counters and "moe.held_counts" in s.counters]
+    if not (reads and hasattr(family, "expert_mlp_least_seconds")
+            and result.get("breakdown")):
+        return None
+    peaks = harness.read_json(harness.HERE / "yardstick" / "peaks.json")
+    least = sum(family.expert_mlp_least_seconds(cell.cfg, r, peaks)
+                for r in reads) / len(reads)
+    busy = expert_ms.device_seconds(result["breakdown"]["device_ops"])
+    return {"value": 100.0 * least / busy if busy > 0 else None,
+            "least_ms": 1e3 * least, "kernel_ms": 1e3 * busy,
+            "forwards": len(reads)}
+
+
 def trace_cell(cell: "harness.Cell", seed: int, seconds: float,
                device: str = "cuda") -> tuple[dict, dict]:
     """One ``--trace 1`` run of ``cell`` with the program's tracing on:
@@ -119,6 +180,7 @@ def trace_cell(cell: "harness.Cell", seed: int, seconds: float,
         harness.traced_window = traced_window
         harness.summarize_trace = summarize
     spans = trace.records()
+    meta = trace.counter_meta()
     trace.reset()
     w0, w1 = marks["window"], marks["window_end"]
     phases = {"setup": [s for s in spans if s.end_ns <= w0],
@@ -143,7 +205,10 @@ def trace_cell(cell: "harness.Cell", seed: int, seconds: float,
         "compile_ms": mean_ms(spans, "compile"),
     }
     report = {"spans": {k: span_table(v) for k, v in phases.items()},
-              "by_step": by_step(window, w0), "metrics": metrics}
+              "by_step": by_step(window, w0), "metrics": metrics,
+              "counters": counter_report(window, meta),
+              "expert_roofline": expert_roofline(cell, result,
+                                                 phases["traced"])}
     return result, report
 
 
@@ -165,6 +230,9 @@ def main(argv: list[str]) -> int:
         print(f"[program] spans {phase} " + json.dumps(table))
     print("[program] window by 5 s " + json.dumps(report["by_step"]))
     print("[program] metrics " + json.dumps(report["metrics"]))
+    print("[program] counters " + json.dumps(report["counters"]))
+    print("[program] expert_roofline "
+          + json.dumps(report["expert_roofline"]))
     found = harness.forbidden_modules()
     if found:
         print(f"modules loaded that may not be: {found}", file=sys.stderr)

@@ -24,6 +24,33 @@ class MoEConfig:
     capacity_factor: float = 1.25
     router_aux_free: bool = False  # DeepSeek-V3 aux-loss-free bias balancing
     router_noise: float = 0.0
+    # group-limited selection (DeepSeek-V3's noaux_tc): experts in n_group
+    # equal groups, a token's top_k taken inside its topk_group best groups
+    n_group: int = 1
+    topk_group: int = 1
+    routed_scaling_factor: float = 1.0   # scales the normalised weights
+    # expert parallelism: this chip holds experts [expert_rank * held_experts,
+    # (expert_rank + 1) * held_experts) of n_experts; 0 holds every expert
+    # in the capacity-buffer layer.  With held experts the layer routes over
+    # all n_experts, drops no pair, and adds only its own experts' part
+    held_experts: int = 0
+    expert_rank: int = 0
+    dense_prefix: int = 0         # leading dense layers (at least one stays MoE)
+
+
+@dataclasses.dataclass(frozen=True)
+class YaRNConfig:
+    """YaRN RoPE scaling (DeepSeek-V3's ``rope_scaling``): ramped inverse
+    frequencies between ``beta_fast`` and ``beta_slow`` rotations over the
+    original context, and the softmax scale times mscale(factor,
+    mscale_all_dim)²."""
+
+    factor: float
+    original_max_position_embeddings: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,6 +62,7 @@ class MLAConfig:
     qk_nope_head_dim: int = 128
     qk_rope_head_dim: int = 64
     v_head_dim: int = 128
+    rope_scaling: YaRNConfig | None = None   # on the rope halves
 
 
 @dataclasses.dataclass(frozen=True)

@@ -18,7 +18,8 @@ CONFIG = ModelConfig(
     mla=MLAConfig(q_lora_rank=1536, kv_lora_rank=512,
                   qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128),
     moe=MoEConfig(n_experts=256, top_k=8, d_expert=2048, n_shared=1,
-                  capacity_factor=1.25, router_aux_free=True),
+                  capacity_factor=1.25, router_aux_free=True,
+                  dense_prefix=3),
     mtp_heads=1,
     rope_theta=1e4,
     max_seq_len=131072,
@@ -37,7 +38,8 @@ SMOKE = ModelConfig(
     mla=MLAConfig(q_lora_rank=32, kv_lora_rank=16,
                   qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16),
     moe=MoEConfig(n_experts=8, top_k=2, d_expert=32, n_shared=1,
-                  capacity_factor=1.5, router_aux_free=True),
+                  capacity_factor=1.5, router_aux_free=True,
+                  dense_prefix=3),
     mtp_heads=1,
     max_seq_len=128,
     source="smoke",

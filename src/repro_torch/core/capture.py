@@ -55,8 +55,8 @@ Spans (``repro_torch.trace``, off by default): with tracing on, a call of
 the executable is a ``forward`` span holding the eager ``walk`` or the
 replay's ``replay.copy_in``, ``replay.device`` (two timing events on the
 current stream around ``graph.replay()``, read once the second has
-completed, never by waiting) with its host part ``replay.submit``, and
-``replay.copy_out``; the first call's recording is ``record`` with
+completed, never by waiting, with the program's counters then) with its
+host part ``replay.submit``, and ``replay.copy_out``; the first call's recording is ``record`` with
 ``record.warmup_walk``, ``record.capture``, ``record.pool_bytes`` and
 ``record.instantiate``.  Off, a replay pays one test of the flag.
 
@@ -314,7 +314,7 @@ class CudaGraphReplay:
         ``replay.submit`` the host inside ``graph.replay()``."""
         with _trace.span("replay.copy_in"):
             self._copy_in(args)
-        with _trace.span("replay.device", device=True):
+        with _trace.span("replay.device", device=True, counters=True):
             with _trace.span("replay.submit"):
                 self.graph.replay()
         with _trace.span("replay.copy_out"):
@@ -361,7 +361,7 @@ class CapturedGraph:
     def _call(self, inputs: Mapping[str, Any]) -> list[Any]:
         args = self._bind(inputs)
         if not any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
-            with _trace.span("walk"):
+            with _trace.span("walk", counters=True):
                 return self.fn(*args)
         if self.replay is None:
             device = next(a.device for a in args

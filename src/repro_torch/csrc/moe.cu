@@ -82,6 +82,23 @@
 // fp32: the simple routine's FMAs (no TF32: the fp32 serve runs are held at
 // the plain version's tolerance) after the scan, whose flags let a block of
 // an empty expert return at once.
+//
+// Device counts (every route; counts [E] int32, written on the card by the
+// expert-parallel layer's dispatch): expert e's rows are its first
+// min(counts[e], C); the others are neither read nor computed nor written,
+// and no scan runs (an expert is active when its count is above 0).  That
+// layer drops no routed pair, so its static buffers hold up to every token
+// an expert (C = 512 at a 1 x 512 prefill) while a held expert sees ~16
+// (DeepSeek-V3 at 8 of 256 experts, top-8): the work has to follow the
+// count, not C.  On the wgmma route each block turns the counts into a
+// prefix of the active experts' row chunks, so the item walk holds only
+// the chunks the experts fill (E <= MAX_COUNTED_EXPERTS), a tile's chunks
+// side by side: a layer whose tokens crowd onto one expert (500 rows, 8
+// chunks) reads that expert's weights from HBM once, not once a chunk.  An
+// item reads its NT-row tile whole: rows past the count inside it are
+// computed into columns of out^T that the epilogue never stores (each
+// column depends on its own row alone, so any value there, even a NaN of
+// the scratch, stays in it).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -107,6 +124,8 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 constexpr int MAX_EXPERTS = 4096;  // the wgmma route's list in shared memory
+// under device counts: the per-expert flags' bytes hold an int an expert
+constexpr int MAX_COUNTED_EXPERTS = MAX_EXPERTS / 4;
 
 // =============================================================================
 // scan: which experts hold a nonzero row
@@ -220,12 +239,14 @@ __device__ void load_w_tile(T* __restrict__ ws, const T* __restrict__ w,
 // x [E, C, K], w0/w1 [E, K, N], out [E, C, N].  RPT rows per thread, so a
 // pass covers ROW_GROUPS * RPT rows.  With `flags` (the fp32 route), a block
 // of an expert the scan found empty returns at once: the scan wrote its
-// output rows, and its h rows are never read.
+// output rows, and its h rows are never read.  With `counts`, expert e's
+// rows are its first min(counts[e], C) alone.
 template <typename T, bool GLU, int RPT>
 __global__ void __launch_bounds__(THREADS)
 expert_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w0,
                    const T* __restrict__ w1, T* __restrict__ out,
-                   const int* __restrict__ flags, int C, int K, int N,
+                   const int* __restrict__ flags,
+                   const int* __restrict__ counts, int C, int K, int N,
                    int vec) {
   constexpr int ROWS = ROW_GROUPS * RPT;
   __shared__ __align__(16) T w0s[BK * BN];
@@ -234,13 +255,14 @@ expert_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w0,
 
   const int e = blockIdx.y;
   if (flags != nullptr && flags[e] == 0) return;
+  const int rows = counts != nullptr ? min(counts[e], C) : C;
   const int n0 = blockIdx.x * BN;
   const int col = threadIdx.x % BN, rg = threadIdx.x / BN;
   const long long wo = static_cast<long long>(e) * K * N;
   const T* xe = x + static_cast<long long>(e) * C * K;
   T* oe = out + static_cast<long long>(e) * C * N;
 
-  for (int c0 = 0; c0 < C; c0 += ROWS) {
+  for (int c0 = 0; c0 < rows; c0 += ROWS) {
     float acc0[RPT], acc1[RPT];
 #pragma unroll
     for (int r = 0; r < RPT; ++r) acc0[r] = acc1[r] = 0.0f;
@@ -252,7 +274,7 @@ expert_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w0,
       for (int i = threadIdx.x; i < ROWS * BK; i += THREADS) {
         const int r = i / BK, kk = i % BK;
         const int c = c0 + r, k = k0 + kk;
-        xs[i] = (c < C && k < K)
+        xs[i] = (c < rows && k < K)
                     ? to_f(xe[static_cast<long long>(c) * K + k]) : 0.0f;
       }
       __syncthreads();
@@ -273,7 +295,7 @@ expert_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w0,
 #pragma unroll
     for (int r = 0; r < RPT; ++r) {
       const int c = c0 + rg + ROW_GROUPS * r;
-      if (c >= C || n >= N) continue;
+      if (c >= rows || n >= N) continue;
       float y = acc0[r];
       if constexpr (GLU) y = y / (1.0f + expf(-y)) * acc1[r];
       oe[static_cast<long long>(c) * N + n] = from_f<T>(y);
@@ -283,8 +305,8 @@ expert_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w0,
 
 template <typename T, bool GLU>
 cudaError_t launch_stage(const T* x, const T* w0, const T* w1, T* out,
-                         const int* flags, int E, int C, int K, int N,
-                         cudaStream_t s) {
+                         const int* flags, const int* counts, int E, int C,
+                         int K, int N, cudaStream_t s) {
   constexpr int V = 16 / sizeof(T);
   bool vec = N % V == 0 && reinterpret_cast<uintptr_t>(w0) % 16 == 0;
   if constexpr (GLU) vec = vec && reinterpret_cast<uintptr_t>(w1) % 16 == 0;
@@ -292,42 +314,47 @@ cudaError_t launch_stage(const T* x, const T* w0, const T* w1, T* out,
   const int v = vec ? 1 : 0;
   if (C <= ROW_GROUPS)
     expert_gemm_kernel<T, GLU, 1><<<grid, THREADS, 0, s>>>(
-        x, w0, w1, out, flags, C, K, N, v);
+        x, w0, w1, out, flags, counts, C, K, N, v);
   else if (C <= 2 * ROW_GROUPS)
     expert_gemm_kernel<T, GLU, 2><<<grid, THREADS, 0, s>>>(
-        x, w0, w1, out, flags, C, K, N, v);
+        x, w0, w1, out, flags, counts, C, K, N, v);
   else if (C <= 4 * ROW_GROUPS)
     expert_gemm_kernel<T, GLU, 4><<<grid, THREADS, 0, s>>>(
-        x, w0, w1, out, flags, C, K, N, v);
+        x, w0, w1, out, flags, counts, C, K, N, v);
   else
     expert_gemm_kernel<T, GLU, 8><<<grid, THREADS, 0, s>>>(
-        x, w0, w1, out, flags, C, K, N, v);
+        x, w0, w1, out, flags, counts, C, K, N, v);
   return cudaGetLastError();
 }
 
-// Both stages; with `flags` the scan runs first and empty experts are
-// skipped (the fp32 route), without them every expert is computed.
+// Both stages; with `counts` each expert's rows are its count (no scan);
+// else with `flags` the scan runs first and empty experts are skipped (the
+// fp32 route), without either every expert is computed.
 template <typename T>
 int moe_mlp(const void* buf, const void* gate, const void* up,
-            const void* down, void* h, int* flags, void* out, int E, int C,
-            int d, int f, void* stream) {
+            const void* down, void* h, int* flags, const int* counts,
+            void* out, int E, int C, int d, int f, void* stream) {
   if (E < 0 || C < 0 || d <= 0 || f <= 0 || E > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (E == 0 || C == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaSuccess;
-  if (flags != nullptr) {
+  if (counts != nullptr) {
+    flags = nullptr;
+  } else if (flags != nullptr) {
     err = launch_scan<T>(static_cast<const T*>(buf), static_cast<T*>(out),
                          flags, E, C, d, s);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   err = launch_stage<T, true>(
       static_cast<const T*>(buf), static_cast<const T*>(gate),
-      static_cast<const T*>(up), static_cast<T*>(h), flags, E, C, d, f, s);
+      static_cast<const T*>(up), static_cast<T*>(h), flags, counts, E, C, d,
+      f, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = launch_stage<T, false>(static_cast<const T*>(h),
                                static_cast<const T*>(down), nullptr,
-                               static_cast<T*>(out), flags, E, C, f, d, s);
+                               static_cast<T*>(out), flags, counts, E, C, f,
+                               d, s);
   return static_cast<int>(err);
 }
 
@@ -369,17 +396,46 @@ struct Cfg {
   static_assert(SMEM <= 232448, "shared memory of one block");
 };
 
+// Item -> (active expert i, weight tile, row chunk): expert by expert, each
+// expert's tiles in turn, the chunks of a tile fastest, so they run side by
+// side and read the tile's weights from L2 after the first.  Every expert
+// has `chunks` chunks, or under counts (`pre` not null) its own: pre[i] is
+// the chunks of the active experts before i, `total` of all of them, and
+// the items hold no chunk past an expert's count.
+__device__ __forceinline__ void item_of(int item, const int* pre, int n,
+                                        int total, int tiles, int chunks,
+                                        int& i, int& tile, int& ch) {
+  int first = 0, nc = chunks;
+  if (pre != nullptr) {
+    int lo = 0, hi = n - 1;      // the last expert whose items start <= item
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) / 2;
+      if (pre[mid] * tiles <= item) lo = mid; else hi = mid - 1;
+    }
+    i = lo;
+    first = pre[i] * tiles;
+    nc = (i + 1 < n ? pre[i + 1] : total) - pre[i];
+  } else {
+    i = item / (tiles * chunks);
+    first = i * tiles * chunks;
+  }
+  tile = (item - first) / nc;
+  ch = (item - first) % nc;
+}
+
 // One launch of a stage over the active experts' work items.
 //   GLU   out [E, C, M] = bf16(silu(x @ w0) * (x @ w1))   (w0 gate, w1 up)
 //   else  out [E, C, M] = bf16(x @ w0)                    (w0 down)
 // x [E, C, K] through xmap (boxes of 64 K x NT rows), w0/w1 [E, K, M] through
-// w0map/w1map (boxes of 64 M x 64 K); flags [E] from the scan.
+// w0map/w1map (boxes of 64 M x 64 K); flags [E] from the scan, or counts [E]
+// (then expert e's rows are its first min(counts[e], C)).
 template <bool GLU, int NT>
 __global__ void __launch_bounds__(Cfg<GLU, NT>::THREADS, 1)
 expert_wgmma_kernel(const __grid_constant__ CUtensorMap w0map,
                     const __grid_constant__ CUtensorMap w1map,
                     const __grid_constant__ CUtensorMap xmap,
                     const int* __restrict__ flags,
+                    const int* __restrict__ counts,
                     __nv_bfloat16* __restrict__ out, int E, int C, int K,
                     int M) {
   using Cf = Cfg<GLU, NT>;
@@ -401,10 +457,12 @@ expert_wgmma_kernel(const __grid_constant__ CUtensorMap w0map,
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  // The active experts in expert order: every thread stages flags (loads
-  // in flight together), then warp 0 compacts them with ballots.
+  // The active experts in expert order: every thread stages flags or
+  // counts (loads in flight together), then warp 0 compacts them with
+  // ballots.
 #pragma unroll 4
-  for (int e = tid; e < E; e += Cf::THREADS) act[e] = flags[e] != 0;
+  for (int e = tid; e < E; e += Cf::THREADS)
+    act[e] = counts != nullptr ? counts[e] > 0 : flags[e] != 0;
   __syncthreads();
   if (tid < 32) {
     int n = 0;
@@ -419,7 +477,32 @@ expert_wgmma_kernel(const __grid_constant__ CUtensorMap w0map,
   }
   __syncthreads();
   const int tiles = cdiv(M, BM * CONSUMERS), chunks = cdiv(C, NT);
-  const int items = *active_count * tiles * chunks;
+  const int n_active = *active_count;
+  // Under counts each active expert's chunks, as a prefix over the active
+  // experts in the bytes of act, which the list no longer needs (E <=
+  // MAX_COUNTED_EXPERTS, so it holds one int an expert); warp 0 scans.
+  int* pre = counts != nullptr ? reinterpret_cast<int*>(act) : nullptr;
+  if (pre != nullptr) {
+    if (tid < 32) {
+      int run = 0;
+      for (int base = 0; base < n_active; base += 32) {
+        const int i = base + tid;
+        const int c = i < n_active ? cdiv(min(counts[list[i]], C), NT) : 0;
+        int incl = c;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const int v = __shfl_up_sync(0xffffffffu, incl, o);
+          if (tid >= o) incl += v;
+        }
+        if (i < n_active) pre[i] = run + incl - c;
+        run += __shfl_sync(0xffffffffu, incl, 31);
+      }
+      if (tid == 0) active_count[1] = run;
+    }
+    __syncthreads();
+  }
+  const int total = pre != nullptr ? active_count[1] : n_active * chunks;
+  const int items = total * tiles;
   const int k_tiles = cdiv(K, BK);
 
   // The role through a shuffle: a value the compiler knows to be
@@ -431,9 +514,10 @@ expert_wgmma_kernel(const __grid_constant__ CUtensorMap w0map,
       int s = 0;
       uint32_t phase = 0;
       for (int item = blockIdx.x; item < items; item += gridDim.x) {
-        const int ch = item % chunks, rest = item / chunks;
-        const int col0 = (rest % tiles) * BM * CONSUMERS;
-        const int e = list[rest / tiles];
+        int i, tile, ch;
+        item_of(item, pre, n_active, total, tiles, chunks, i, tile, ch);
+        const int col0 = tile * BM * CONSUMERS;
+        const int e = list[i];
         for (int kt = 0; kt < k_tiles; ++kt) {
           mbar_wait(smem_u32(&empty[s]), phase ^ 1);
           const uint32_t bar = smem_u32(&full[s]);
@@ -465,9 +549,11 @@ expert_wgmma_kernel(const __grid_constant__ CUtensorMap w0map,
   int s = 0;
   uint32_t phase = 0;
   for (int item = blockIdx.x; item < items; item += gridDim.x) {
-    const int ch = item % chunks, rest = item / chunks;
-    const int col0 = (rest % tiles) * BM * CONSUMERS + cons * BM;
-    const int e = list[rest / tiles];
+    int i, tile, ch;
+    item_of(item, pre, n_active, total, tiles, chunks, i, tile, ch);
+    const int col0 = tile * BM * CONSUMERS + cons * BM;
+    const int e = list[i];
+    const int rows = counts != nullptr ? min(counts[e], C) : C;
     // Only wgmma defines the accumulators (the first product overwrites
     // them); the loop touches them nowhere else.
     float acc0[NT / 2];
@@ -509,7 +595,7 @@ expert_wgmma_kernel(const __grid_constant__ CUtensorMap w0map,
     if constexpr (GLU) fence_operands(acc1);
     if (tid % 128 == 0) mbar_arrive(smem_u32(&empty[prev]));
 
-    // ---- epilogue: out[e, c, col0 + m] for c < C and col0 + m < M ---------
+    // ---- epilogue: out[e, c, col0 + m] for c < rows and col0 + m < M ------
     __nv_bfloat16* oe = out + static_cast<size_t>(e) * C * M;
     const int m0 = col0 + warp * 16 + lane / 4;
     const int c0 = ch * NT + 2 * (lane % 4);
@@ -518,7 +604,7 @@ expert_wgmma_kernel(const __grid_constant__ CUtensorMap w0map,
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const int m = m0 + 8 * (q / 2), c = c0 + 8 * j + q % 2;
-        if (m >= M || c >= C) continue;
+        if (m >= M || c >= rows) continue;
         float y = acc0[4 * j + q];
         if constexpr (GLU) y = y / (1.0f + expf(-y)) * acc1[4 * j + q];
         oe[static_cast<size_t>(c) * M + m] = __float2bfloat16(y);
@@ -546,16 +632,16 @@ int encode_x(CUtensorMap* map, const void* x, int E, int C, int K, int nt) {
 
 template <bool GLU, int NT>
 int launch_nt(const void* x, const void* w0, const void* w1, void* out,
-              const int* flags, int E, int C, int K, int M, int grid,
-              cudaStream_t s) {
+              const int* flags, const int* counts, int E, int C, int K, int M,
+              int grid, cudaStream_t s) {
   using Cf = Cfg<GLU, NT>;
   CUtensorMap w0map, w1map, xmap;
   if (int err = encode_w(&w0map, w0, E, K, M)) return err;
   if (int err = encode_w(&w1map, GLU ? w1 : w0, E, K, M)) return err;
   if (int err = encode_x(&xmap, x, E, C, K, NT)) return err;
   expert_wgmma_kernel<GLU, NT><<<grid, Cf::THREADS, Cf::SMEM, s>>>(
-      w0map, w1map, xmap, flags, static_cast<__nv_bfloat16*>(out), E, C, K,
-      M);
+      w0map, w1map, xmap, flags, counts, static_cast<__nv_bfloat16*>(out),
+      E, C, K, M);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -563,35 +649,43 @@ int launch_nt(const void* x, const void* w0, const void* w1, void* out,
 // chunks of 64 rows past it).
 template <bool GLU>
 int launch_stage(const void* x, const void* w0, const void* w1, void* out,
-                 const int* flags, int E, int C, int K, int M, int grid,
-                 cudaStream_t s) {
+                 const int* flags, const int* counts, int E, int C, int K,
+                 int M, int grid, cudaStream_t s) {
   if (C <= 8)
-    return launch_nt<GLU, 8>(x, w0, w1, out, flags, E, C, K, M, grid, s);
+    return launch_nt<GLU, 8>(x, w0, w1, out, flags, counts, E, C, K, M, grid,
+                             s);
   if (C <= 16)
-    return launch_nt<GLU, 16>(x, w0, w1, out, flags, E, C, K, M, grid, s);
+    return launch_nt<GLU, 16>(x, w0, w1, out, flags, counts, E, C, K, M,
+                              grid, s);
   if (C <= 32)
-    return launch_nt<GLU, 32>(x, w0, w1, out, flags, E, C, K, M, grid, s);
-  return launch_nt<GLU, 64>(x, w0, w1, out, flags, E, C, K, M, grid, s);
+    return launch_nt<GLU, 32>(x, w0, w1, out, flags, counts, E, C, K, M,
+                              grid, s);
+  return launch_nt<GLU, 64>(x, w0, w1, out, flags, counts, E, C, K, M, grid,
+                            s);
 }
 
-// `grid`: the persistent grid, one block per SM.
+// `grid`: the persistent grid, one block per SM.  With `counts` no scan
+// runs: the counts say which experts are active and how many rows each has.
 int moe_mlp(const void* buf, const void* gate, const void* up,
-            const void* down, void* h, int* flags, void* out, int E, int C,
-            int d, int f, int grid, void* stream) {
+            const void* down, void* h, int* flags, const int* counts,
+            void* out, int E, int C, int d, int f, int grid, void* stream) {
   if (E < 0 || C < 0 || d <= 0 || f <= 0 || E > MAX_EXPERTS ||
-      d % 8 != 0 || f % 8 != 0 || grid <= 0)
+      (counts != nullptr && E > MAX_COUNTED_EXPERTS) || d % 8 != 0 ||
+      f % 8 != 0 || grid <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (E == 0 || C == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using T = __nv_bfloat16;
-  const cudaError_t err = launch_scan<T>(
-      static_cast<const T*>(buf), static_cast<T*>(out), flags, E, C, d, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (int e1 = launch_stage<true>(buf, gate, up, h, flags, E, C, d, f, grid,
-                                  s))
+  if (counts == nullptr) {
+    const cudaError_t err = launch_scan<T>(
+        static_cast<const T*>(buf), static_cast<T*>(out), flags, E, C, d, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (int e1 = launch_stage<true>(buf, gate, up, h, flags, counts, E, C, d, f,
+                                  grid, s))
     return e1;
-  return launch_stage<false>(h, down, nullptr, out, flags, E, C, f, d, grid,
-                             s);
+  return launch_stage<false>(h, down, nullptr, out, flags, counts, E, C, f,
+                             d, grid, s);
 }
 
 template <bool GLU, int NT>
@@ -627,27 +721,32 @@ int moe_init() {
 }
 
 // wgmma route: h [E, C, f] bf16 and flags [E] int32 are scratch; `sms`
-// blocks walk the work items
+// blocks walk the work items.  `counts` (int32 [E], or null) bounds each
+// expert's rows, in every route.
 int moe_mlp_bf16(const void* buf, const void* gate, const void* up,
-                 const void* down, void* h, void* flags, void* out, int E,
-                 int C, int d, int f, int sms, void* stream) {
-  return wg::moe_mlp(buf, gate, up, down, h, static_cast<int*>(flags), out,
-                     E, C, d, f, sms, stream);
+                 const void* down, void* h, void* flags, const void* counts,
+                 void* out, int E, int C, int d, int f, int sms,
+                 void* stream) {
+  return wg::moe_mlp(buf, gate, up, down, h, static_cast<int*>(flags),
+                     static_cast<const int*>(counts), out, E, C, d, f, sms,
+                     stream);
 }
 
 int moe_mlp_simple_bf16(const void* buf, const void* gate, const void* up,
-                        const void* down, void* h, void* out, int E, int C,
-                        int d, int f, void* stream) {
-  return simple::moe_mlp<__nv_bfloat16>(buf, gate, up, down, h, nullptr, out,
+                        const void* down, void* h, const void* counts,
+                        void* out, int E, int C, int d, int f, void* stream) {
+  return simple::moe_mlp<__nv_bfloat16>(buf, gate, up, down, h, nullptr,
+                                        static_cast<const int*>(counts), out,
                                         E, C, d, f, stream);
 }
 
 int moe_mlp_f32(const void* buf, const void* gate, const void* up,
-                const void* down, void* h, void* flags, void* out, int E,
-                int C, int d, int f, void* stream) {
+                const void* down, void* h, void* flags, const void* counts,
+                void* out, int E, int C, int d, int f, void* stream) {
   return simple::moe_mlp<float>(buf, gate, up, down, h,
-                                static_cast<int*>(flags), out, E, C, d, f,
-                                stream);
+                                static_cast<int*>(flags),
+                                static_cast<const int*>(counts), out, E, C, d,
+                                f, stream);
 }
 
 }  // extern "C"

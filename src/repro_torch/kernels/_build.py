@@ -46,7 +46,8 @@ _NORM_SIMPLE = (_P, _P, _P, _I, _I, _F, _P)
 _NORM = _NORM_SIMPLE[:-1] + (_I, _I, _I, _P)
 # buf, gate, up, down, h, flags, out, E, C, d, f, stream; the wgmma route
 # takes the SM count before the stream, the simple route has no flags
-_MOE = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
+# buf, gate, up, down, h, flags, counts, out, E, C, d, f, stream
+_MOE = (_P,) * 8 + (_I,) * 4 + (_P,)
 _SIGNATURES = {
     "branch_gemm_bf16": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "branch_gemm_simple_bf16": (_P, _P, _P, _I, _I, _I, _I, _P),

@@ -20,11 +20,13 @@ _ENTRY = {"wgmma": "moe_mlp_bf16", "simple": "moe_mlp_simple_bf16",
 
 
 def moe_mlp_cuda(buf: torch.Tensor, gate: torch.Tensor, up: torch.Tensor,
-                 down: torch.Tensor, out: torch.Tensor, route: str) -> None:
+                 down: torch.Tensor, out: torch.Tensor, route: str,
+                 counts: torch.Tensor | None = None) -> None:
     """Launch ``route`` on the current stream; the wrapper has checked the
     operands.  The scratch (h, and the per-expert flags of the routes that
     skip empty experts) comes from ``torch.empty``, so a launch inside a
-    CUDA graph records it from the graph's pool."""
+    CUDA graph records it from the graph's pool.  ``counts`` (int32 [E] on
+    the card, or None) bounds each expert's rows."""
     e, c, d = buf.shape
     f = gate.shape[-1]
     h = torch.empty((e, c, f), dtype=buf.dtype, device=buf.device)
@@ -33,6 +35,7 @@ def moe_mlp_cuda(buf: torch.Tensor, gate: torch.Tensor, up: torch.Tensor,
     if route != "simple":
         flags = torch.empty(e, dtype=torch.int32, device=buf.device)
         ptrs.append(flags.data_ptr())
+    ptrs.append(0 if counts is None else counts.data_ptr())
     shape = [e, c, d, f]
     if route == "wgmma":
         shape.append(sm_count(buf.device))

@@ -53,7 +53,7 @@ from ..utils import shard
 from ..utils.sharding_ctx import (on_local_shards, shard_merge, shard_split,
                                   write_slots)
 from .layers import (apply_norm, apply_rope, init_linear, init_norm, linear,
-                     matmul)
+                     matmul, yarn_mscale)
 
 NEG_INF = -1e30
 # s·t above which the plain path never makes an [S, T] buffer and runs
@@ -501,9 +501,10 @@ def _mla_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,
     kv = linear(p["wkv_a"], x)
     c_kv = apply_norm(p["kv_norm"], kv[..., :rank].contiguous(), "rmsnorm",
                       use_kernels)                       # [B,S,rank]
-    q_rope = apply_rope(q[..., nope:], positions, cfg.rope_theta)
-    k_rope = apply_rope(kv[:, :, None, rank:], positions,
-                        cfg.rope_theta)[:, :, 0]
+    q_rope = apply_rope(q[..., nope:], positions, cfg.rope_theta,
+                        m.rope_scaling)
+    k_rope = apply_rope(kv[:, :, None, rank:], positions, cfg.rope_theta,
+                        m.rope_scaling)[:, :, 0]
     return q[..., :nope], q_rope, c_kv, k_rope
 
 
@@ -537,7 +538,14 @@ def _mla_out(p: dict, lat: torch.Tensor, cfg: ModelConfig,
 
 
 def _mla_scale(cfg: ModelConfig) -> float:
-    return (cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim) ** -0.5
+    """The softmax scale: qk_head^-0.5, times mscale(factor,
+    mscale_all_dim)² under YaRN (DeepSeek-V3's MLA)."""
+    m = cfg.mla
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    y = m.rope_scaling
+    if y is not None and y.mscale_all_dim:
+        scale *= yarn_mscale(y.factor, y.mscale_all_dim) ** 2
+    return scale
 
 
 def mla_attention(p: dict, q_nope: torch.Tensor, q_rope: torch.Tensor,

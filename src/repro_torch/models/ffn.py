@@ -83,10 +83,13 @@ def _expert_stack(generator: torch.Generator, shape: tuple[int, ...],
 
 def init_moe(generator: torch.Generator, cfg: ModelConfig, *,
              device: torch.device | str, lead: tuple[int, ...] = ()) -> dict:
-    """Router (fp32 weights and a zero balancing bias), stacked expert
-    weights ``[*lead, E, ...]`` in the config's dtype, the shared expert."""
+    """Router (fp32 weights and a zero balancing bias, over all experts),
+    stacked expert weights ``[*lead, E, ...]`` in the config's dtype (E the
+    held experts where the config names them, else every expert), the
+    shared expert."""
     e = cfg.moe
     d, dtype = cfg.d_model, cfg.dtype
+    n_held = held_experts(e)[1]
     device = check_device(device)
     p = {
         "router": {
@@ -96,14 +99,11 @@ def init_moe(generator: torch.Generator, cfg: ModelConfig, *,
                                 device=device),
         },
         "experts": {
-            "gate": _expert_stack(generator,
-                                  lead + (e.n_experts, d, e.d_expert),
+            "gate": _expert_stack(generator, lead + (n_held, d, e.d_expert),
                                   d ** -0.5, dtype, device),
-            "up": _expert_stack(generator,
-                                lead + (e.n_experts, d, e.d_expert),
+            "up": _expert_stack(generator, lead + (n_held, d, e.d_expert),
                                 d ** -0.5, dtype, device),
-            "down": _expert_stack(generator,
-                                  lead + (e.n_experts, e.d_expert, d),
+            "down": _expert_stack(generator, lead + (n_held, e.d_expert, d),
                                   e.d_expert ** -0.5, dtype, device),
         },
     }
@@ -113,24 +113,69 @@ def init_moe(generator: torch.Generator, cfg: ModelConfig, *,
     return p
 
 
-def route(p_router: dict, x: torch.Tensor, e,
-          generator: torch.Generator | None = None):
-    """Top-k routing of ``x [N, d]`` → (weights [N,k], experts [N,k], aux).
+def held_experts(e) -> tuple[int, int]:
+    """(first, count) of the experts this chip holds: the ``held_experts``
+    of rank ``expert_rank``, or every expert where none are named."""
+    if not e.held_experts:
+        return 0, e.n_experts
+    first = e.expert_rank * e.held_experts
+    if e.n_experts % e.held_experts or not 0 <= first < e.n_experts:
+        raise ValueError(f"{e.held_experts} held experts of rank "
+                         f"{e.expert_rank} do not divide {e.n_experts}")
+    return first, e.held_experts
 
-    Aux-loss-free configs select on sigmoid scores plus the per-expert bias
-    and combine with the unbiased scores.  With ``generator`` and a nonzero
-    ``router_noise``, Gaussian noise is added to the selection scores."""
-    logits = matmul_f32(x.float(), p_router["w"])
+
+def _group_limit(select: torch.Tensor, n_group: int,
+                 topk_group: int) -> torch.Tensor:
+    """``select [N, E]`` with every expert outside a token's ``topk_group``
+    best groups at -inf; a group (E / n_group experts in a row) scores the
+    sum of its two best selection scores."""
+    n, e = select.shape
+    grouped = select.reshape(n, n_group, e // n_group)
+    score = grouped.topk(min(2, e // n_group), dim=-1).values.sum(-1)
+    keep = torch.zeros_like(score, dtype=torch.bool).scatter_(
+        1, score.topk(topk_group, dim=-1).indices, True)
+    return grouped.masked_fill(~keep[..., None],
+                               float("-inf")).reshape(n, e)
+
+
+def select_experts(logits: torch.Tensor, bias: torch.Tensor, e,
+                   noise: torch.Tensor | None = None):
+    """The routing rule, from fp32 router ``logits [N, E]`` → (scores [N,E],
+    combine weights [N,k], experts [N,k]).  Aux-loss-free configs score by
+    sigmoid and select on the scores plus the balancing ``bias`` (softmax
+    scores alone otherwise), ``noise`` added to the selection; with
+    ``n_group`` > 1 the top-k is taken inside each token's ``topk_group``
+    best groups (DeepSeek-V3's noaux_tc); the combine weights are the
+    unbiased scores of the selected experts, normalised, times
+    ``routed_scaling_factor``."""
     scores = (torch.sigmoid(logits) if e.router_aux_free
               else torch.softmax(logits, dim=-1))
-    select = scores + p_router["bias"][None, :] if e.router_aux_free \
-        else scores
-    if generator is not None and e.router_noise > 0:
-        select = select + torch.randn(select.shape, generator=generator,
-                                      device=select.device) * e.router_noise
+    select = scores + bias[None, :] if e.router_aux_free else scores
+    if noise is not None:
+        select = select + noise
+    if e.n_group > 1:
+        select = _group_limit(select, e.n_group, e.topk_group)
     top_idx = torch.topk(select, e.top_k, dim=-1).indices           # [N,k]
     top_w = torch.gather(scores, -1, top_idx)
     top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+    if e.routed_scaling_factor != 1.0:
+        top_w = top_w * e.routed_scaling_factor
+    return scores, top_w, top_idx
+
+
+def route(p_router: dict, x: torch.Tensor, e,
+          generator: torch.Generator | None = None):
+    """Top-k routing of ``x [N, d]`` → (weights [N,k], experts [N,k], aux)
+    by :func:`select_experts`.  With ``generator`` and a nonzero
+    ``router_noise``, Gaussian noise is added to the selection scores."""
+    logits = matmul_f32(x.float(), p_router["w"])
+    noise = None
+    if generator is not None and e.router_noise > 0:
+        noise = torch.randn(logits.shape, generator=generator,
+                            device=logits.device) * e.router_noise
+    scores, top_w, top_idx = select_experts(logits, p_router["bias"], e,
+                                            noise)
     # whole on every rank: torch 2.11's DTensor splits an index_add's
     # source and index apart
     flat_idx = whole(top_idx.reshape(-1))
@@ -142,6 +187,100 @@ def route(p_router: dict, x: torch.Tensor, e,
     aux = {"load": load,
            "aux_loss": e.n_experts * torch.sum(load * importance)}
     return top_w, top_idx, aux
+
+
+# -- the expert-parallel layer: a chip's held experts, no pair dropped ---------
+#
+# The held experts' rows live in a static buffer of every token per expert
+# (``[H, N, d]``, so no routed pair is ever dropped), their counts on the
+# device: nothing here waits on the host, so the layer records into a CUDA
+# graph.  A row past its expert's count holds some token (it is never read
+# back); the combine reads a held expert's row only for a token routed to it.
+
+def held_plan(top_idx: torch.Tensor, first: int, held: int) -> torch.Tensor:
+    """[H, N + 1] int64 for the held experts ``first`` .. ``first + held -
+    1``: row r of held expert j is token ``plan[j, r]`` (its routed tokens
+    first, in token order, then the others), and ``plan[j, N]`` counts its
+    routed tokens."""
+    hit = ((top_idx - first)[..., None]
+           == torch.arange(held, device=top_idx.device)).any(dim=1)  # [N,H]
+    order = torch.argsort((~hit).to(torch.uint8), dim=0, stable=True)
+    return torch.cat([order.t(), hit.sum(0)[:, None]], dim=1)
+
+
+def held_dispatch(xf: torch.Tensor, plan: torch.Tensor) -> torch.Tensor:
+    """The held experts' input rows ``[H, N, d]`` from tokens ``xf [N, d]``
+    (one row gather)."""
+    h, n = plan.shape[0], plan.shape[1] - 1
+    return torch.index_select(xf, 0, plan[:, :-1].reshape(-1)).view(
+        h, n, xf.shape[-1])
+
+
+def held_counts(plan: torch.Tensor) -> torch.Tensor:
+    return plan[:, -1].to(torch.int32)
+
+
+def held_mlp(p_experts: dict, buf: torch.Tensor, counts: torch.Tensor,
+             use_kernels: bool) -> torch.Tensor:
+    """The held experts' SwiGLU over the first ``counts[j]`` rows of each
+    ``buf[j]`` → ``[H·N + 1, d]``: expert j's rows at ``j·N ..``, the rows
+    past a count left as they are, and a last row of zeros (what a token
+    not routed to an expert reads)."""
+    h, n, d = buf.shape
+    out = torch.empty((h * n + 1, d), dtype=buf.dtype, device=buf.device)
+    out[-1].zero_()
+    rows = out[:-1].view(h, n, d)
+    if use_kernels:
+        from ..kernels.moe_gemm import moe_mlp
+        moe_mlp(buf, p_experts["gate"], p_experts["up"], p_experts["down"],
+                counts=counts, out=rows)
+    else:
+        rows.copy_(_expert_mlp(p_experts, buf, False))
+    return out
+
+
+def held_combine(out: torch.Tensor, top_w: torch.Tensor,
+                 top_idx: torch.Tensor, plan: torch.Tensor, first: int,
+                 held: int) -> torch.Tensor:
+    """``y[n] = Σ_j w[n, j] · out[j, rank of n in j]`` over the held experts
+    that token n is routed to, from :func:`held_mlp`'s rows and the
+    :func:`held_plan` that placed them → [N, d] in their dtype (one row
+    gather, then the products summed in fp32, rounded once).  A held
+    expert a token is not routed to reads the zero row with a zero weight,
+    so no row past a count is read."""
+    n = top_idx.shape[0]
+    local = top_idx - first
+    onehot = local[..., None] == torch.arange(held, device=top_idx.device)
+    w = (top_w[..., None] * onehot).sum(dim=1)                       # [N,H]
+    tokens = plan[:, :-1]
+    rank = torch.empty_like(tokens).scatter_(
+        1, tokens, torch.arange(n, device=plan.device).expand(held, n))
+    row = torch.where(rank < plan[:, -1:],
+                      torch.arange(held, device=plan.device)[:, None] * n
+                      + rank, out.shape[0] - 1)                      # [H,N]
+    rows = torch.index_select(out, 0, row.t().reshape(-1))
+    return torch.bmm(w.to(out.dtype)[:, None, :],
+                     rows.view(n, held, out.shape[-1]))[:, 0]
+
+
+def moe_ffn_held(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                 generator: torch.Generator | None = None,
+                 use_kernels: bool = False):
+    """The expert-parallel layer: routing over all experts, the held
+    experts' part of the result for every pair routed to them (none
+    dropped), plus the shared expert; the absent experts add nothing."""
+    e = cfg.moe
+    b, s, d = x.shape
+    xf = x.reshape(b * s, d)
+    top_w, top_idx, aux = route(p["router"], xf, e, generator)
+    first, held = held_experts(e)
+    plan = held_plan(top_idx, first, held)
+    out = held_mlp(p["experts"], held_dispatch(xf, plan), held_counts(plan),
+                   use_kernels)
+    y = held_combine(out, top_w, top_idx, plan, first, held)
+    if e.n_shared:
+        y = y + mlp(p["shared"], xf, "swiglu")
+    return y.reshape(b, s, d), aux
 
 
 def _capacity(n: int, e) -> int:
@@ -334,6 +473,8 @@ def _gather_combine(out_buf: torch.Tensor, slot: torch.Tensor,
 def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig,
             generator: torch.Generator | None = None,
             use_kernels: bool = False):
+    if cfg.moe.held_experts:
+        return moe_ffn_held(p, x, cfg, generator, use_kernels)
     if cfg.moe.n_experts > 32:
         return moe_ffn_sort(p, x, cfg, generator, use_kernels)
     return moe_ffn_dense(p, x, cfg, generator, use_kernels)

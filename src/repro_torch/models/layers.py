@@ -8,9 +8,12 @@ prepends dimensions, which is how a stack of layers is drawn at once.
 Matmuls accumulate in fp32 and round once to the activation dtype; norms
 compute their statistics in fp32.  The model facade applies RoPE; the
 exported operator graph does not, as the JAX package's does not (ROADMAP
-C5).
+C5), except in its MLA payloads.
 """
 from __future__ import annotations
+
+import math
+from typing import Any
 
 import torch
 from torch.distributed.tensor import DTensor
@@ -206,20 +209,69 @@ def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:
 
 # -- RoPE ---------------------------------------------------------------------
 
+def yarn_mscale(factor: float, mscale: float = 1.0) -> float:
+    """YaRN's attention scale for a context stretched by ``factor``:
+    ``0.1 · mscale · ln(factor) + 1`` (DeepSeek-V3's
+    ``yarn_get_mscale``)."""
+    return 0.1 * mscale * math.log(factor) + 1.0 if factor > 1 else 1.0
+
+
+def yarn_correction_range(beta_fast: float, beta_slow: float, d_head: int,
+                          theta: float, original: int) -> tuple[int, int]:
+    """The rotary dims, of ``d_head / 2``, between the one that turns
+    ``beta_fast`` times and the one that turns ``beta_slow`` times over the
+    ``original`` context (DeepSeek-V3's ``yarn_find_correction_range``)."""
+    def dim(rotations: float) -> float:
+        return (d_head * math.log(original / (rotations * 2 * math.pi))
+                / (2 * math.log(theta)))
+    return (max(math.floor(dim(beta_fast)), 0),
+            min(math.ceil(dim(beta_slow)), d_head - 1))
+
+
+def yarn_ramp(low: float, high: float, n: int,
+              device: torch.device | str = "cpu") -> torch.Tensor:
+    """0 up to ``low``, 1 from ``high``, linear between, over ``n`` dims
+    (DeepSeek-V3's ``yarn_linear_ramp_mask``)."""
+    if low == high:
+        high += 0.001
+    ramp = (torch.arange(n, dtype=torch.float32, device=device) - low) \
+        / (high - low)
+    return torch.clamp(ramp, 0, 1)
+
+
 def rope_freqs(d_head: int, theta: float,
-               device: torch.device | str = "cpu") -> torch.Tensor:
-    return 1.0 / (theta ** (torch.arange(0, d_head, 2, dtype=torch.float32,
-                                         device=device) / d_head))
+               device: torch.device | str = "cpu",
+               scaling: Any = None) -> torch.Tensor:
+    """RoPE's inverse frequencies; with YaRN ``scaling`` the dims past the
+    correction range are divided by its factor, those below it kept, and
+    those inside ramped between."""
+    freqs = 1.0 / (theta ** (torch.arange(0, d_head, 2, dtype=torch.float32,
+                                          device=device) / d_head))
+    if scaling is None:
+        return freqs
+    low, high = yarn_correction_range(
+        scaling.beta_fast, scaling.beta_slow, d_head, theta,
+        scaling.original_max_position_embeddings)
+    keep = 1 - yarn_ramp(low, high, d_head // 2, device)
+    return freqs / scaling.factor * (1 - keep) + freqs * keep
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float = 1e4) -> torch.Tensor:
-    """x: [..., seq, heads, d_head]; positions: [..., seq] (int)."""
+               theta: float = 1e4, scaling: Any = None) -> torch.Tensor:
+    """x: [..., seq, heads, d_head]; positions: [..., seq] (int).  The two
+    halves of the last dim are the pairs rotated together.  With YaRN
+    ``scaling`` the frequencies are YaRN's and cos / sin are scaled by
+    mscale(factor, mscale) / mscale(factor, mscale_all_dim)."""
     d = x.shape[-1]
-    freqs = rope_freqs(d, theta, x.device)                  # [d/2]
+    freqs = rope_freqs(d, theta, x.device, scaling)         # [d/2]
     angles = positions[..., None].float() * freqs           # [..., seq, d/2]
     cos = torch.cos(angles)[..., None, :]                   # [..., seq, 1, d/2]
     sin = torch.sin(angles)[..., None, :]
+    if scaling is not None:
+        attn = (yarn_mscale(scaling.factor, scaling.mscale)
+                / yarn_mscale(scaling.factor, scaling.mscale_all_dim))
+        if attn != 1.0:
+            cos, sin = cos * attn, sin * attn
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)

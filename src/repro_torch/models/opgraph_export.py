@@ -47,6 +47,7 @@ encoder stage (1500 rows at full width) with a decoder one.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Any
 
@@ -64,8 +65,10 @@ from ..core.profiler import (
     norm_cost,
     scan_cost,
 )
-from .attention import NEG_INF, causal_window_mask, value_up
+from .attention import NEG_INF, _mla_scale, causal_window_mask, value_up
 from .export_costs import act_gemm_cost, stream_cost
+from .ffn import (held_combine, held_counts, held_dispatch, held_experts,
+                  held_mlp, held_plan, select_experts)
 from .layers import apply_norm, apply_rope, gelu, rmsnorm
 from .ssm import RWKV_LORA, _mamba_conv_seq
 from .transformer import layer_params, stack_meta
@@ -121,7 +124,8 @@ def build_lm_opgraph(cfg: ModelConfig, batch: int, seq: int,
                   cost=gather_cost(b * s, d), out_shape=(b, s, d))
 
         meta = stack_meta(cfg)
-        layer_idx = 0
+        counts = _held_counter(cfg, params, L, b * s)
+        layer_idx = n_moe = 0
         for si, (kind, n, windows) in enumerate(meta):
             for li in range(min(n, max(L - layer_idx, 0))):
                 tag = f"L{layer_idx}"
@@ -136,7 +140,10 @@ def build_lm_opgraph(cfg: ModelConfig, batch: int, seq: int,
                     x = _dense_layer(g, cfg, x, b, s, tag, pl, root, moe=True,
                                      moe_branch_cap=moe_branch_cap,
                                      moe_dispatch=moe_dispatch,
-                                     moe_cap_scale=moe_cap_scale)
+                                     moe_cap_scale=moe_cap_scale,
+                                     held_counts=None if counts is None
+                                     else (counts, n_moe))
+                    n_moe += 1
                 else:
                     x = _dense_layer(g, cfg, x, b, s, tag, pl, root, moe=False)
                 layer_idx += 1
@@ -319,30 +326,34 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _make_mla_q_lat(nh: int, nope: int, rope: int, theta: float):
-    """Absorbed query: RoPE on the rope part, ``wk_b`` folded into q_nope
-    (fp32 accumulation, one rounding), head-major ``[B,H,S,rank+rope]``."""
+def _make_mla_q_lat(nh: int, nope: int, rope: int, theta: float,
+                    scaling=None):
+    """Absorbed query: RoPE (YaRN's with ``scaling``) on the rope part,
+    ``wk_b`` folded into q_nope (fp32 accumulation, one rounding),
+    head-major ``[B,H,S,rank+rope]``."""
     from ..kernels.paged_decode.ref import absorb_query
 
     def q_lat(qflat, wk_b):
         b, s, _ = qflat.shape
         q = qflat.reshape(b, s, nh, nope + rope)
         q_rope = apply_rope(q[..., nope:], _positions(b, s, qflat.device),
-                            theta)
+                            theta, scaling)
         lat = absorb_query(q[..., :nope], wk_b.reshape(-1, nh, nope))
         return torch.cat([lat, q_rope], dim=-1).permute(0, 2, 1, 3)
     return q_lat
 
 
 @functools.lru_cache(maxsize=None)
-def _make_mla_kv_prep(rank: int, theta: float):
-    """Latent KV: rmsnorm the compressed part, RoPE on the shared rope key,
-    concatenated — ONE latent head, head-major ``[B,1,S,rank+rope]``."""
+def _make_mla_kv_prep(rank: int, theta: float, scaling=None):
+    """Latent KV: rmsnorm the compressed part, RoPE (YaRN's with
+    ``scaling``) on the shared rope key, concatenated — ONE latent head,
+    head-major ``[B,1,S,rank+rope]``."""
     def kv_prep(kv, scale):
         b, s, _ = kv.shape
         c_kv = rmsnorm({"scale": scale}, kv[..., :rank])
         k_rope = apply_rope(kv[:, :, None, rank:],
-                            _positions(b, s, kv.device), theta)[:, :, 0]
+                            _positions(b, s, kv.device), theta,
+                            scaling)[:, :, 0]
         return torch.cat([c_kv, k_rope], dim=-1)[:, None]
     return kv_prep
 
@@ -381,7 +392,8 @@ def _mla_block(g, cfg, n1, b, s, tag, attn_p):
     qb = _gemm_node(g, f"{tag}.wq_b", qn, attn_p and attn_p["wq_b"],
                     b * s, m.q_lora_rank, nh * qk_head)
     q_lat = g.add(f"{tag}.q_lat", OpKind.GEMM, [qb],
-                  fn=_make_mla_q_lat(nh, nope, rope, cfg.rope_theta)
+                  fn=_make_mla_q_lat(nh, nope, rope, cfg.rope_theta,
+                                     m.rope_scaling)
                   if with_fn else None,
                   cost=gemm_cost(b * s * nh, nope, rank),
                   fuse_sig=("qlat", s, nh, nope, rank),
@@ -390,7 +402,7 @@ def _mla_block(g, cfg, n1, b, s, tag, attn_p):
     kva = _gemm_node(g, f"{tag}.wkv_a", n1, attn_p and attn_p["wkv_a"],
                      b * s, d, rank + rope)
     kvp = g.add(f"{tag}.kv_prep", OpKind.NORM, [kva],
-                fn=_make_mla_kv_prep(rank, cfg.rope_theta)
+                fn=_make_mla_kv_prep(rank, cfg.rope_theta, m.rope_scaling)
                 if with_fn else None,
                 cost=norm_cost(b * s * (rank + rope)),
                 fuse_sig=("mlakv", s, rank, rope),
@@ -402,7 +414,7 @@ def _mla_block(g, cfg, n1, b, s, tag, attn_p):
                  cost=elementwise_cost(b * s * rank),
                  fuse_sig=("vlat", s, rank), out_shape=(b, 1, s, rank))
     mrg = _attn_core(g, f"{tag}.", q_lat, kvp, vlat, b, s, s, nh, 1,
-                     rank + rope, rank, scale=qk_head ** -0.5, causal=True,
+                     rank + rope, rank, scale=_mla_scale(cfg), causal=True,
                      window=None, with_fn=with_fn)
     aout = g.add(f"{tag}.attn_out", OpKind.GEMM, [mrg],
                  fn=_make_mla_out(nh, rank, m.v_head_dim)
@@ -424,7 +436,7 @@ def _add(a, c):
 
 def _dense_layer(g, cfg, x, b, s, tag, pl, root, moe: bool,
                  moe_branch_cap: int = 16, moe_dispatch: str = "auto",
-                 moe_cap_scale: float = 1.0):
+                 moe_cap_scale: float = 1.0, held_counts=None):
     d, hd, nh, kvh = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     bias = cfg.qkv_bias
     n1 = _norm_node(g, f"{tag}.norm1", x, pl and pl["norm1"], cfg.norm,
@@ -463,6 +475,9 @@ def _dense_layer(g, cfg, x, b, s, tag, pl, root, moe: bool,
                                            flops_per_elem=5))
         down = _ffn_gemm(g, f"{tag}.down", prod, root,
                          ffn_p and ffn_p["down"], b * s, dff, d)
+    elif cfg.moe.held_experts:
+        down = _moe_held_block(g, cfg, n2, b, s, tag,
+                               pl["ffn"] if pl else None, held_counts)
     elif moe_dispatch == "ragged" or (moe_dispatch == "auto"
                                       and pl is not None):
         down = _moe_ragged_block(g, cfg, n2, b, s, tag,
@@ -528,15 +543,22 @@ def _moe_capacities(n_tokens: int, e, nb: int, top_k: int) -> tuple[int, ...]:
                  for j in range(nb))
 
 
-def _topk_routing(logits, nb: int, top_k: int, aux_free: bool):
-    """(combine weights [N, k], expert ids [N, k]) from router logits: the
-    selection rule of :func:`repro_torch.models.ffn.route` without the
-    balancing bias (zero at init)."""
-    lf = logits.reshape(-1, nb).float()
-    scores = torch.sigmoid(lf) if aux_free else torch.softmax(lf, dim=-1)
-    top_w, top_idx = torch.topk(scores, top_k, dim=-1)
-    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+def _topk_routing(logits, bias, e):
+    """(combine weights [N, k], expert ids [N, k]) from router logits [...,
+    E'] by :func:`repro_torch.models.ffn.select_experts`, the routing rule
+    of the layer, with the balancing ``bias`` over the same E' experts and
+    the MoE config ``e``."""
+    _, top_w, top_idx = select_experts(
+        logits.reshape(-1, logits.shape[-1]).float(), bias, e)
     return top_w, top_idx
+
+
+def _branch_routing(e, nb: int, top_k: int):
+    """The MoE config of the ragged fan-out's routing over its first ``nb``
+    experts: no group limit (the groups of the whole width do not survive
+    the cut)."""
+    return dataclasses.replace(e, n_experts=nb, top_k=top_k, n_group=1,
+                               topk_group=1)
 
 
 def _make_router(rw):
@@ -545,7 +567,7 @@ def _make_router(rw):
     return router
 
 
-def _make_dispatch(j: int, cap: int, nb: int, top_k: int, aux_free: bool):
+def _make_dispatch(j: int, cap: int, top_k: int, bias, e):
     """Per-expert token gather: the ``cap`` rows routed to expert ``j``
     (capacity-truncated, zero-padded when fewer arrive).  The cumsum rank
     equals the within-expert rank of a stable sort by expert id, so the
@@ -554,7 +576,7 @@ def _make_dispatch(j: int, cap: int, nb: int, top_k: int, aux_free: bool):
     def dispatch(h, logits):
         d = h.shape[-1]
         xf = h.reshape(-1, d)
-        _, top_idx = _topk_routing(logits, nb, top_k, aux_free)
+        _, top_idx = _topk_routing(logits, bias, e)
         expert_flat = top_idx.reshape(-1)                       # [N·k]
         tok = torch.arange(expert_flat.shape[0], device=h.device) // top_k
         mine = expert_flat == j
@@ -573,7 +595,7 @@ def _make_glu(dff: int):
     return glu
 
 
-def _make_combine(caps: tuple[int, ...], nb: int, top_k: int, aux_free: bool):
+def _make_combine(caps: tuple[int, ...], nb: int, top_k: int, bias, e):
     """Weighted scatter-add of the per-expert outputs back to token order:
     each (token, k) pair re-derives its expert and within-expert rank as
     the dispatch nodes did, reads that row of the concatenated expert
@@ -593,7 +615,7 @@ def _make_combine(caps: tuple[int, ...], nb: int, top_k: int, aux_free: bool):
             tables[h.device] = (torch.tensor(caps, device=h.device),
                                 torch.tensor(offs, device=h.device))
         caps_t, offs_t = tables[h.device]
-        top_w, top_idx = _topk_routing(logits, nb, top_k, aux_free)
+        top_w, top_idx = _topk_routing(logits, bias, e)
         expert_flat = top_idx.reshape(-1)                       # [N·k]
         w_flat = top_w.reshape(-1)
         onehot = (expert_flat[:, None]
@@ -619,9 +641,9 @@ def _moe_ragged_block(g, cfg, n2, b, s, tag, moe_p, moe_branch_cap,
     ONE ``grouped_gemm`` launch at capture, the branches sharing ``(K, F)``
     but not M) → weighted scatter-add combine (+ the always-on shared
     expert).  Fan-out is capped at ``moe_branch_cap`` branches and routing
-    restricted to the first nb experts, so the exported math is
-    self-consistent.  ``cap_scale`` < 1 shrinks the capacities to force
-    overflow."""
+    restricted to the first nb experts (their slice of the balancing bias,
+    no group limit), so the exported math is self-consistent.
+    ``cap_scale`` < 1 shrinks the capacities to force overflow."""
     e = cfg.moe
     d, de = cfg.d_model, e.d_expert
     nb = min(e.n_experts, moe_branch_cap)
@@ -630,6 +652,9 @@ def _moe_ragged_block(g, cfg, n2, b, s, tag, moe_p, moe_branch_cap,
                  for c in _moe_capacities(b * s, e, nb, top_k))
     rw = (moe_p["router"]["w"].float()[:, :nb].contiguous()
           if moe_p is not None else None)
+    bias = (moe_p["router"]["bias"].float()[:nb].contiguous()
+            if moe_p is not None else None)
+    er = _branch_routing(e, nb, top_k)
     router = g.add(
         f"{tag}.router", OpKind.REDUCE, [n2],
         fn=_make_router(rw) if moe_p is not None else None,
@@ -639,7 +664,7 @@ def _moe_ragged_block(g, cfg, n2, b, s, tag, moe_p, moe_branch_cap,
     for j in range(nb):
         disp = g.add(
             f"{tag}.dispatch{j}", OpKind.GATHER, [n2, router],
-            fn=(_make_dispatch(j, caps[j], nb, top_k, e.router_aux_free)
+            fn=(_make_dispatch(j, caps[j], top_k, bias, er)
                 if moe_p is not None else None),
             cost=gather_cost(caps[j], d), out_shape=(caps[j], d))
         ew = ({"w": torch.cat([moe_p["experts"]["gate"][j],
@@ -661,11 +686,19 @@ def _moe_ragged_block(g, cfg, n2, b, s, tag, moe_p, moe_branch_cap,
             out_shape=(caps[j], d)))
     comb = g.add(
         f"{tag}.combine", OpKind.SCATTER, outs + [n2, router],
-        fn=(_make_combine(caps, nb, top_k, e.router_aux_free)
+        fn=(_make_combine(caps, nb, top_k, bias, er)
             if moe_p is not None else None),
         cost=gather_cost(b * s * e.top_k, d))
+    return _with_shared_expert(g, cfg, n2, b, s, tag, moe_p, comb)
+
+
+def _with_shared_expert(g, cfg, n2, b, s, tag, moe_p, routed):
+    """``routed`` plus the always-on shared expert on its own branch
+    (gate∥up, GLU, down), which the lanes overlap with the routed part."""
+    e = cfg.moe
+    d, de = cfg.d_model, e.d_expert
     if not e.n_shared:
-        return comb
+        return routed
     dsh = de * e.n_shared
     sp = (moe_p["shared"]
           if moe_p is not None and "shared" in moe_p else None)
@@ -679,9 +712,126 @@ def _moe_ragged_block(g, cfg, n2, b, s, tag, moe_p, moe_branch_cap,
     shd = _gemm_node(g, f"{tag}.shared_down", shg,
                      sp["down"] if sp is not None else None,
                      b * s, dsh, d, fuse_sig=("sgemm_down", dsh, d))
-    return g.add(f"{tag}.moe_out", OpKind.ELEMENTWISE, [comb, shd],
+    return g.add(f"{tag}.moe_out", OpKind.ELEMENTWISE, [routed, shd],
                  fn=_add if moe_p is not None else None,
                  cost=elementwise_cost(b * s * d, n_in=2))
+
+
+# -- the expert-parallel MoE layer (a chip's held experts) -----------------------
+#
+# router (all experts, fp32) → route (the routing rule, once: combine
+# weights and expert ids packed as one fp32 [N, k, 2] tensor) → plan (each
+# held expert's token rows and routed count, int64 [H, N + 1], all on the
+# device) → dispatch (the dropless [H, N, d] buffer) → experts (moe_gemm over
+# each held expert's counted rows) → combine (each token's rows gathered,
+# weighted and summed); the shared expert beside.
+# Nothing waits on the host, so the layer records into the CUDA graph.
+
+def _held_counter(cfg, params, n_layers: int, capacity: int):
+    """With tracing on, the counter ``moe.held_counts``: int64 [MoE layers,
+    held] on the router's device, each row rewritten by its layer's plan on
+    every forward; None otherwise."""
+    if not (_trace.on and params is not None and cfg.moe is not None
+            and cfg.moe.held_experts):
+        return None
+    meta = stack_meta(cfg)
+    n_moe = 0
+    done = 0
+    for kind, n, _ in meta:
+        take = min(n, max(n_layers - done, 0))
+        n_moe += take if kind == "moe" else 0
+        done += take
+    si = next(i for i, (kind, _, _) in enumerate(meta) if kind == "moe")
+    device = params["stacks"][si]["ffn"]["router"]["w"].device
+    counts = torch.zeros((n_moe, cfg.moe.held_experts), dtype=torch.int64,
+                         device=device)
+    first, held = held_experts(cfg.moe)
+    _trace.counter("moe.held_counts", counts, capacity=capacity,
+                   experts=(first, held), n_experts=cfg.moe.n_experts,
+                   top_k=cfg.moe.top_k)
+    return counts
+
+
+@functools.lru_cache(maxsize=None)
+def _make_route(e):
+    """The routing rule over fp32 router logits [B,S,E] with the balancing
+    bias → [N, k, 2]: combine weights, then expert ids (exact in fp32)."""
+    def route(logits, bias):
+        _, top_w, top_idx = select_experts(
+            logits.reshape(-1, logits.shape[-1]), bias, e)
+        return torch.stack([top_w, top_idx.float()], dim=-1)
+    return route
+
+
+def _make_plan(first: int, held: int, counter=None):
+    def plan(rt):
+        out = held_plan(rt[..., 1].long(), first, held)
+        if counter is not None:
+            counter[0][counter[1]].copy_(out[:, -1])
+        return out
+    return plan
+
+
+def _held_dispatch_payload(h, plan):
+    return held_dispatch(h.reshape(-1, h.shape[-1]), plan)
+
+
+def _held_experts_payload(buf, plan, gate, up, down):
+    return held_mlp({"gate": gate, "up": up, "down": down}, buf,
+                    held_counts(plan), use_kernels=True)
+
+
+def _make_held_combine(first: int, held: int, shape: tuple[int, ...]):
+    def combine(out, rt, plan):
+        return held_combine(out, rt[..., 0], rt[..., 1].long(), plan, first,
+                            held).reshape(shape)
+    return combine
+
+
+def _moe_held_block(g, cfg, n2, b, s, tag, moe_p, counter=None):
+    """The expert-parallel layer of a chip that holds ``held_experts`` of
+    the ``n_experts``: routing over all of them, every pair routed to a
+    held expert computed (a static buffer of every token an expert, the
+    counts on the device, so no pair is dropped and moe_gemm's work follows
+    the counts), the held experts' part combined, plus the shared expert.
+    ``counter`` (the tracing counter and this layer's row) records the
+    counts.  Works cost-only and payload-backed alike."""
+    e = cfg.moe
+    d, de, n = cfg.d_model, e.d_expert, b * s
+    first, held = held_experts(e)
+    with_fn = moe_p is not None
+    router = g.add(
+        f"{tag}.router", OpKind.REDUCE, [n2],
+        fn=_make_router(moe_p["router"]["w"].float()) if with_fn else None,
+        cost=gemm_cost(n, d, e.n_experts),
+        out_shape=(b, s, e.n_experts), out_dtype=torch.float32)
+    rt = g.add(f"{tag}.route", OpKind.REDUCE, [router],
+               fn=_make_route(e) if with_fn else None,
+               cost=elementwise_cost(n * e.n_experts, 4, flops_per_elem=8),
+               out_shape=(n, e.top_k, 2), out_dtype=torch.float32,
+               **({"consts": (moe_p["router"]["bias"].float(),)}
+                  if with_fn else {}))
+    plan = g.add(f"{tag}.plan", OpKind.REDUCE, [rt],
+                 fn=_make_plan(first, held, counter) if with_fn else None,
+                 cost=elementwise_cost(n * held, 8, flops_per_elem=4),
+                 out_shape=(held, n + 1), out_dtype=torch.int64)
+    disp = g.add(f"{tag}.dispatch", OpKind.GATHER, [n2, plan],
+                 fn=_held_dispatch_payload if with_fn else None,
+                 cost=gather_cost(held * n, d), out_shape=(held, n, d))
+    # the rows the held experts see on average: N·k·held/E
+    rows = max(1, round(n * e.top_k * held / e.n_experts))
+    ex = moe_p["experts"] if with_fn else None
+    experts = g.add(
+        f"{tag}.experts", OpKind.GEMM, [disp, plan],
+        fn=_held_experts_payload if with_fn else None,
+        cost=gemm_cost(rows, d, 3 * de, batch=held),
+        out_shape=(held * n + 1, d),
+        **({"consts": (ex["gate"], ex["up"], ex["down"])} if with_fn else {}))
+    comb = g.add(f"{tag}.combine", OpKind.SCATTER, [experts, rt, plan],
+                 fn=_make_held_combine(first, held, (b, s, d))
+                 if with_fn else None,
+                 cost=gather_cost(n * held, d), out_shape=(b, s, d))
+    return _with_shared_expert(g, cfg, n2, b, s, tag, moe_p, comb)
 
 
 # -- RWKV6 --------------------------------------------------------------------

@@ -72,9 +72,9 @@ def layer_kinds(cfg: ModelConfig) -> list[tuple[str, int]]:
 
 
 def cfg_dense_prefix(cfg: ModelConfig) -> int:
-    """DeepSeek-V3: first 3 layers dense; Kimi-K2: first layer dense."""
-    name = cfg.name.removesuffix("-smoke")
-    prefix = {"deepseek-v3-671b": 3, "kimi-k2-1t-a32b": 1}.get(name, 0)
+    """The MoE family's leading dense layers, ``moe.dense_prefix``; at
+    least one layer stays MoE."""
+    prefix = cfg.moe.dense_prefix if cfg.moe is not None else 0
     return min(prefix, max(cfg.n_layers - 1, 0))
 
 

@@ -31,6 +31,15 @@ shared empty context, so nothing is allocated, recorded or synchronised.
 not (``Session.compile``'s ``timings_ms`` are read from such spans) and is
 recorded only when tracing is on.  The records are kept in memory until
 :func:`reset`.
+
+A counter (:func:`counter`) is a buffer that the program rewrites on every
+forward, on the card inside its recorded graph: the expert-parallel MoE
+layer's per-expert routed counts (``moe.held_counts``, registered by the op
+graph's export when tracing is on).  A span opened with ``counters=True``
+(``replay.device``; the CPU's ``walk``) copies every counter's values into
+``Span.counters`` once its work is done: the device span when its end event
+is found complete, which in a closed loop is at the next forward's start,
+before that forward's replay rewrites the buffer.
 """
 from __future__ import annotations
 
@@ -46,7 +55,9 @@ import torch
 on = False          # the one flag every site tests
 
 _records: list["Span"] = []
-_pending: list[tuple["Span", Any, Any]] = []    # (span, start, end events)
+# (span, start, end events, whether it reads the counters)
+_pending: list[tuple["Span", Any, Any, bool]] = []
+_counters: dict[str, tuple[torch.Tensor, dict]] = {}
 _ids = itertools.count(1)
 _local = threading.local()
 _NULL = contextlib.nullcontext()
@@ -64,6 +75,7 @@ class Span:
     end_ns: int = 0
     child_ns: int = 0
     device_ns: int | None = None
+    counters: dict[str, list] | None = None
 
     @property
     def ns(self) -> int:
@@ -78,11 +90,13 @@ class _Timer:
     """The context of one span: always times itself; when tracing was on at
     its start, also records a :class:`Span`."""
 
-    __slots__ = ("name", "forward", "device", "start_ns", "end_ns", "span",
-                 "_rf", "_events")
+    __slots__ = ("name", "forward", "device", "counters", "start_ns",
+                 "end_ns", "span", "_rf", "_events")
 
-    def __init__(self, name: str, forward: bool, device: bool):
+    def __init__(self, name: str, forward: bool, device: bool,
+                 counters: bool = False):
         self.name, self.forward, self.device = name, forward, device
+        self.counters = counters
         self.span: Span | None = None
         self._rf = self._events = None
 
@@ -131,7 +145,9 @@ class _Timer:
             stack[-1].child_ns += span.ns
         _records.append(span)
         if self._events is not None:
-            _pending.append((span, *self._events))
+            _pending.append((span, *self._events, self.counters))
+        elif self.counters and _counters:
+            span.counters = _read_counters()
 
 
 def _stack() -> list[Span]:
@@ -142,23 +158,42 @@ def _stack() -> list[Span]:
         return _local.stack
 
 
+def _read_counters() -> dict[str, list]:
+    return {name: values.tolist() for name, (values, _) in _counters.items()}
+
+
 def _resolve() -> None:
     """Device times of the pending spans whose end event has completed, in
-    the order they were recorded (a stream runs them in that order)."""
+    the order they were recorded (a stream runs them in that order), and
+    the counters of those that read them."""
     while _pending and _pending[0][2].query():
-        span, start, end = _pending.pop(0)
+        span, start, end, counters = _pending.pop(0)
         span.device_ns = round(start.elapsed_time(end) * 1e6)
+        if counters and _counters:
+            span.counters = _read_counters()
 
 
 def span(name: str, forward: bool = False, device: bool = False,
-         timed: bool = False):
+         timed: bool = False, counters: bool = False):
     """``with span(name): ...`` records a span when tracing is on.
     ``forward`` starts a forward; ``device`` adds the pair of timing events
     on the current CUDA stream; ``timed`` gives a context whose ``ns`` /
-    ``ms`` hold the duration even when tracing is off."""
+    ``ms`` hold the duration even when tracing is off; ``counters`` copies
+    the counters into the span once its work is done."""
     if on or timed:
-        return _Timer(name, forward, device)
+        return _Timer(name, forward, device, counters)
     return _NULL
+
+
+def counter(name: str, values: torch.Tensor, **meta: Any) -> None:
+    """Register ``values`` as the counter ``name`` (replacing one of that
+    name), with ``meta`` beside it (:func:`counter_meta`)."""
+    _counters[name] = (values, meta)
+
+
+def counter_meta() -> dict[str, dict]:
+    """The registered counters' ``meta``, by name."""
+    return {name: meta for name, (_, meta) in _counters.items()}
 
 
 def enable(flag: bool = True) -> None:
@@ -169,9 +204,11 @@ def enable(flag: bool = True) -> None:
 
 
 def reset() -> None:
-    """Drop every finished record and every pending device time."""
+    """Drop every finished record, every pending device time and every
+    counter."""
     _records.clear()
     _pending.clear()
+    _counters.clear()
 
 
 def records() -> list[Span]:

@@ -1031,6 +1031,78 @@ def test_moe_gemm_wgmma_in_a_cuda_graph_follows_the_occupancy(cuda):
         _assert_empty_rows_are_positive_zero(static, out)
 
 
+# device counts (the expert-parallel layer's dropless buffers): a count of
+# 0, counts inside the first row tile, across row chunks (C = 150 takes
+# 64-row chunks), at C and past it (read as C); one expert holding nearly
+# every row; more active experts than a warp scans at once; past the
+# counted wgmma route's 1024 experts (the simple route); each route
+MOE_COUNT_CASES = [
+    ("wgmma", (6, 150, 256, 128), [0, 3, 64, 65, 150, 400],
+     torch.bfloat16),
+    ("wgmma", (8, 512, 512, 256), [16, 0, 31, 7, 1, 0, 24, 19],
+     torch.bfloat16),
+    ("wgmma", (3, 512, 256, 128), [500, 0, 130], torch.bfloat16),
+    ("wgmma", (40, 70, 128, 64), [(7 * j) % 71 for j in range(40)],
+     torch.bfloat16),
+    ("simple", (1025, 2, 64, 32), [j % 3 for j in range(1025)],
+     torch.bfloat16),
+    ("simple", (4, 37, 100, 36), [0, 5, 37, 12], torch.bfloat16),
+    ("fp32", (4, 37, 128, 64), [9, 0, 37, 1], torch.float32),
+]
+
+
+@pytest.mark.parametrize("route,shape,counts,dtype", MOE_COUNT_CASES,
+                         ids=[f"{c[0]}-E{c[1][0]}-C{c[1][1]}"
+                              for c in MOE_COUNT_CASES])
+def test_moe_gemm_device_counts_compute_only_the_counted_rows(
+        cuda, route, shape, counts, dtype):
+    """With device counts each expert's first ``min(count, C)`` rows equal
+    the plain version's and every other row of ``out`` keeps its value
+    (NaN here, bit for bit), in every route."""
+    e, c, d, f = shape
+    buf, gate, up, down = _moe_case(cuda, e, c, d, f, dtype=dtype)
+    cnt = torch.tensor(counts, dtype=torch.int32, device=cuda)
+    out = torch.full_like(buf, float("nan"))
+    by_route = dict(mops.launches_by_route)
+    got = mops.moe_mlp(buf, gate, up, down, counts=cnt, out=out)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == out.data_ptr()
+    assert _route_delta(mops, by_route) == {route: 1}
+    want = moe_mlp_ref(buf, gate, up, down)
+    kept = torch.arange(c, device=cuda)[None, :] < cnt.clamp(max=c)[:, None]
+    _assert_kernel_close(got[kept], want[kept])
+    assert bool(torch.isnan(got[~kept]).all())
+    # the plain version's counted form keeps the same rows
+    plain = moe_mlp_ref(buf, gate, up, down, cnt,
+                        torch.full_like(buf, float("nan")))
+    assert bool(torch.isnan(plain[~kept]).all())
+    assert torch.equal(plain[kept], want[kept])
+
+
+def test_moe_gemm_device_counts_in_a_cuda_graph(cuda):
+    """One recorded launch replayed as the counts change on the card (as
+    from forward to forward of the expert-parallel layer)."""
+    e, c, d, f = 8, 512, 256, 128
+    buf, gate, up, down = _moe_case(cuda, e, c, d, f)
+    cnt = torch.zeros(e, dtype=torch.int32, device=cuda)
+    out = torch.empty_like(buf)
+    mops.moe_mlp(buf, gate, up, down, counts=cnt, out=out)     # warm-up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        mops.moe_mlp(buf, gate, up, down, counts=cnt, out=out)
+    want = moe_mlp_ref(buf, gate, up, down)
+    for counts in ([16, 0, 31, 7, 1, 0, 24, 19], [0] * e, [512] * e,
+                   [70, 130, 0, 3, 500, 64, 65, 2]):
+        cnt.copy_(torch.tensor(counts, dtype=torch.int32))
+        out.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        kept = torch.arange(c, device=cuda)[None, :] < cnt[:, None]
+        _assert_kernel_close(out[kept], want[kept])
+        assert bool(torch.isnan(out[~kept]).all())
+
+
 @pytest.mark.parametrize("b,h,t,k", [(1, 32, 64, 64), (8, 32, 1, 64),
                                      (2, 3, 17, 64), (2, 2, 33, 16)])
 def test_rwkv6_kernel_matches_plain(cuda, b, h, t, k):
