@@ -53,6 +53,15 @@ Phases (any failure raises and the script exits non-zero):
      in chunks of 512 (the last ones short), at llava's heads and at MLA's 128 heads over one
      latent head (Dk 576, Dv 512), fp32 within 1e-5, bf16 relative L2 <=
      2e-2, both timed;
+ 5b. attention products: the op graph's scores (QK^T) and ctx (PV) payloads
+     on bf16 operands (tensor-core batched GEMMs, fp32 result) against the
+     fp32 einsum pair they replaced, at each benchmark cell's attention
+     shape (GLM-4-9B 1 and 8 x 512, 32/2 heads of 128; Hymba-1.5B 25/5 of
+     64; DeepSeek-V3's MLA 32 heads over one latent head, Dk 576, Dv 512,
+     V a strided slice of K): the largest rel-L2 of the logits and the
+     context, each pair's products timed cold, the kernels each product
+     launches, and the main path's count of tensor-core products in its
+     graph (two a layer);
   6. serve: full-width Qwen2-0.5B behind ``Model(use_kernels=True)`` and
      ``InferenceEngine`` (8 slots, 1024 positions), once with the dense KV
      slab and once paged (16-position pages): 16 requests of 17-700 prompt
@@ -1369,6 +1378,109 @@ def phase_attention_kernels(env: dict, gen: torch.Generator) -> dict:
         log(f"[kernel] decode odd B=3 T=200 D=14 windowed {_dt(dtype)}: "
             f"decode_attention max_abs_err {err:.3g}, paged_decode (null "
             f"pages, clamped start) max_abs_err {err_p:.3g}")
+    del flush
+    return results
+
+
+# =============================================================================
+# 5b. attention products
+# =============================================================================
+
+# (tag, batch, KV heads, query heads a KV head, Dk, Dv): the cells' shapes at
+# 512 positions; Dk != Dv is MLA's latent head, V the first Dv of K
+ATTN_PRODUCT_SHAPES = (("glm4 b1", 1, 2, 16, 128, 128),
+                       ("glm4 b8", 8, 2, 16, 128, 128),
+                       ("hymba b1", 1, 5, 5, 64, 64),
+                       ("mla b1", 1, 1, 32, 576, 512))
+ATTN_LOGITS_REL_L2, ATTN_CTX_REL_L2 = 1e-5, 4e-3
+
+
+def _einsum_products(q, k, v, p):
+    """The fp32 pair the payloads ran before: bf16 operands widened to
+    fp32, p rounded to v's dtype, the context rounded once."""
+    b, nh, s, hd = q.shape
+    kvh, t, dv = k.shape[1], k.shape[2], v.shape[-1]
+    scores = torch.einsum("bkgsd,bktd->bkgst",
+                          q.reshape(b, kvh, nh // kvh, s, hd).float(),
+                          k.float()).reshape(b, nh, s, t)
+    pg = p.reshape(b, kvh, nh // kvh, s, t).to(v.dtype)
+    ctx = torch.einsum("bkgst,bktd->bkgsd", pg.float(), v.float())
+    return scores, ctx.reshape(b, nh, s, dv).to(v.dtype)
+
+
+def kernels_of(fn, n: int = 5) -> list[tuple[str, float]]:
+    """The device kernels one call of ``fn`` launches: name, mean µs."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return [(e.key, e.device_time_total / n) for e in prof.key_averages()
+            if "cuda" in str(e.device_type).lower() and e.device_time_total]
+
+
+def phase_attention_products(env: dict, gen: torch.Generator,
+                             main_recorded: dict) -> dict:
+    from repro_torch.models import opgraph_export as ox
+
+    bw = env["hw"].hbm_bw
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device="cuda")
+    bf16, s = torch.bfloat16, 512
+    results = {}
+    for tag, b, kvh, g, dk, dv in ATTN_PRODUCT_SHAPES:
+        nh = kvh * g
+        # head-major views of the projections' [B, S, H*D] outputs
+        q = torch.randn(b, s, nh, dk, generator=gen, device="cuda").to(
+            bf16).permute(0, 2, 1, 3)
+        if dk != dv:
+            k = torch.randn(b, 1, s, dk, generator=gen, device="cuda").to(bf16)
+            v = k[..., :dv]
+        else:
+            k, v = (torch.randn(b, s, kvh, d, generator=gen,
+                                device="cuda").to(bf16).permute(0, 2, 1, 3)
+                    for d in (dk, dv))
+        scores = ox._scores_payload(q, k)
+        p = torch.softmax(scores * dk ** -0.5, dim=-1)
+        ctx = ox._ctx_payload(p, v)
+        want_scores, want_ctx = _einsum_products(q, k, v, p)
+        err_s, err_c = (float((a.float() - w.float()).norm()
+                              / w.float().norm())
+                        for a, w in ((scores, want_scores), (ctx, want_ctx)))
+        new_ms = cuda_ms(lambda: (ox._scores_payload(q, k),
+                                  ox._ctx_payload(p, v)), flush=flush)
+        old_ms = cuda_ms(lambda: _einsum_products(q, k, v, p), flush=flush)
+        # the floor: q, k, v read and ctx written in bf16, the logits
+        # written and p read in fp32, each once
+        floor_ms = (2 * (q.numel() + k.numel() + v.numel() + ctx.numel())
+                    + 4 * (scores.numel() + p.numel())) / bw * 1e3
+        flops = 2 * b * nh * s * s * (dk + dv)
+        log(f"[attn-products] {tag}: {b} x {s}, {nh}/{kvh} heads, Dk {dk} "
+            f"Dv {dv}: logits rel_l2 {err_s:.3e} (<= {ATTN_LOGITS_REL_L2}), "
+            f"ctx rel_l2 {err_c:.3e} (<= {ATTN_CTX_REL_L2}); both products "
+            f"(incl. p's bf16 cast) tensor cores {new_ms:.4f} ms "
+            f"({flops / new_ms / 1e9:.1f} TFLOP/s), fp32 einsum pair "
+            f"{old_ms:.4f} ms ({old_ms / new_ms:.2f}x); bytes floor "
+            f"{floor_ms:.4f} ms (median of {TIMING_ITERS}, cold L2)")
+        for what, fn in (("scores", lambda: ox._scores_payload(q, k)),
+                         ("ctx", lambda: ox._ctx_payload(p, v))):
+            log(f"[attn-products] {tag} {what} kernels: " + "; ".join(
+                f"{name[:72]} {us:.1f} us" for name, us in kernels_of(fn)))
+        if err_s > ATTN_LOGITS_REL_L2 or err_c > ATTN_CTX_REL_L2:
+            raise AssertionError(f"attention products {tag} off the fp32 "
+                                 f"pair: {err_s:.3e} / {err_c:.3e}")
+        results[tag] = {"new_ms": new_ms, "old_ms": old_ms,
+                        "logits_rel_l2": err_s, "ctx_rel_l2": err_c}
+    from repro_torch.configs import get_config
+    n_layers = get_config("qwen2-0.5b").n_layers   # the main path's model
+    got = main_recorded["attn_tc_products"]
+    log(f"[attn-products] main path's graph: {got} tensor-core attention "
+        f"products recorded (recorded_launches), {2 * n_layers} expected")
+    if got != 2 * n_layers:
+        raise AssertionError(f"{got} tensor-core attention products in the "
+                             f"main path's graph, expected {2 * n_layers}")
     del flush
     return results
 
@@ -5494,6 +5606,7 @@ def main() -> int:
     main_path = phase_main_path(args.seed)
     ragged = phase_ragged(gen)
     attention = phase_attention_kernels(env, gen)
+    phase_attention_products(env, gen, main_path["recorded"])
     serve = phase_serve(args.seed)
     free_card()
     families = phase_moe_rwkv_kernels(env, gen)

@@ -135,7 +135,9 @@ class Step:
 
 
 def _launch_counts() -> dict[str, int]:
-    """Every kernel wrapper's launch count, by kernel."""
+    """Every kernel wrapper's launch count, by kernel, and the op graph's
+    attention products on the tensor-core route."""
+    from ..models import opgraph_export   # models import core: bound late
     counts = {name: ops.launches for name, ops in (
         ("branch_gemm", branch_gemm_ops), ("grouped_gemm", grouped_gemm_ops),
         ("rmsnorm", rmsnorm_ops), ("flash_attention", flash_attention_ops),
@@ -143,6 +145,7 @@ def _launch_counts() -> dict[str, int]:
         ("paged_decode", paged_decode_ops), ("moe_gemm", moe_gemm_ops),
         ("rwkv6", rwkv6_ops), ("mamba_scan", mamba_scan_ops))}
     counts["paged_decode_mla"] = paged_decode_ops.mla_launches
+    counts["attn_tc_products"] = opgraph_export.attn_tc_products
     return counts
 
 

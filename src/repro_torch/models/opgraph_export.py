@@ -215,10 +215,35 @@ def _ffn_gemm(g, name, inp, root, pl_linear, m, k, n, bias: bool = False,
 # -- decomposed attention core -----------------------------------------------
 #
 # Numerics mirror the reference's stages on head-major tensors: fp32
-# logits/softmax (operands upcast, so products are exact and sums fp32),
-# probabilities cast to V's dtype for the context matmul.  Stage payloads are
-# module-level / lru-cached so identical stages across layers share one fn
-# object and stack into fused steps at capture.
+# logits/softmax (each product of two operand values exact, sums fp32),
+# probabilities cast to V's dtype for the context matmul.  Two bf16 operands
+# on the card go straight into a tensor-core batched GEMM with an fp32
+# result (no fp32 copy of either); every other pair runs the fp32 einsum.
+# Stage payloads are module-level / lru-cached so identical stages across
+# layers share one fn object and stack into fused steps at capture.
+
+# attention products recorded on the tensor-core route; capture reads it
+# with the kernels' launch counts
+attn_tc_products = 0
+
+
+def tc_route(device_type: str, a_dtype: torch.dtype,
+             b_dtype: torch.dtype) -> bool:
+    """True iff an attention product takes the tensor-core route: both
+    operands bf16 on a CUDA device.  An fp32 or mixed pair keeps the fp32
+    einsum, so no operand is ever rounded."""
+    return device_type == "cuda" and a_dtype == b_dtype == torch.bfloat16
+
+
+def _bmm_f32(a, b):
+    """``a @ b`` batched, bf16 operands, fp32 accumulation and result."""
+    return torch.bmm(a, b, out_dtype=torch.float32)
+
+
+def _count_tc_product() -> None:
+    global attn_tc_products
+    attn_tc_products += 1
+
 
 @functools.lru_cache(maxsize=None)
 def _make_split_heads(heads: int):
@@ -229,9 +254,15 @@ def _make_split_heads(heads: int):
 
 
 def _scores_payload(q, k):
-    """q: [B,H,S,Dk] head-major; k: [B,KVH,T,Dk] → logits [B,H,S,T] fp32."""
+    """q: [B,H,S,Dk] head-major; k: [B,KVH,T,Dk] → logits [B,H,S,T] fp32.
+    A KV head's query group is one batch entry of ``g·S`` rows."""
     b, nh, s, hd = q.shape
     kvh, t = k.shape[1], k.shape[2]
+    if tc_route(q.device.type, q.dtype, k.dtype):
+        _count_tc_product()
+        qg = q.reshape(b * kvh, nh // kvh * s, hd)
+        kg = k.reshape(b * kvh, t, hd)
+        return _bmm_f32(qg, kg.transpose(1, 2)).reshape(b, nh, s, t)
     qg = q.reshape(b, kvh, nh // kvh, s, hd)
     return torch.einsum("bkgsd,bktd->bkgst", qg.float(),
                         k.float()).reshape(b, nh, s, t)
@@ -255,11 +286,17 @@ def _softmax_payload(x):
 
 
 def _ctx_payload(p, v):
-    """p: [B,H,S,T] fp32 probs; v: [B,KVH,T,Dv] → ctx [B,H,S,Dv]."""
+    """p: [B,H,S,T] fp32 probs; v: [B,KVH,T,Dv] → ctx [B,H,S,Dv].  p is
+    rounded to v's dtype once; the product sums in fp32 and rounds once."""
     b, nh, s, t = p.shape
     kvh, dv = v.shape[1], v.shape[-1]
     pg = p.reshape(b, kvh, nh // kvh, s, t).to(v.dtype)
-    out = torch.einsum("bkgst,bktd->bkgsd", pg.float(), v.float())
+    if tc_route(p.device.type, pg.dtype, v.dtype):
+        _count_tc_product()
+        out = _bmm_f32(pg.reshape(b * kvh, nh // kvh * s, t),
+                       v.reshape(b * kvh, t, dv))
+    else:
+        out = torch.einsum("bkgst,bktd->bkgsd", pg.float(), v.float())
     return out.reshape(b, nh, s, dv).to(v.dtype)
 
 

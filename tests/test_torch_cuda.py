@@ -1398,6 +1398,62 @@ def test_hymba_op_graph_lanes_are_bit_equal_to_one_stream_and_eager(cuda):
     assert not all(torch.equal(a, b) for a, b in zip(*outs))
 
 
+def _rel_l2_err(got, want):
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+@pytest.mark.parametrize("kvh,g,dk,dv", [(2, 16, 128, 128), (5, 5, 64, 64),
+                                         (1, 32, 576, 512)],
+                         ids=["glm4", "hymba", "mla"])
+def test_attention_products_on_tensor_cores_match_the_fp32_einsum(
+        cuda, kvh, g, dk, dv):
+    """bf16 operands at 1 x 512: the payloads' tensor-core products (V a
+    strided slice of K for MLA) against the fp32 einsum over the same
+    values: logits to fp32 summation order, the context to one bf16 ulp."""
+    from repro_torch.models import opgraph_export as ox
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    s, bf16 = 512, torch.bfloat16
+    q = torch.randn(1, s, kvh * g, dk, generator=gen, device=cuda).to(
+        bf16).permute(0, 2, 1, 3)
+    if dk != dv:
+        k = torch.randn(1, 1, s, dk, generator=gen, device=cuda).to(bf16)
+        v = k[..., :dv]
+    else:
+        k, v = (torch.randn(1, s, kvh, d, generator=gen, device=cuda).to(
+            bf16).permute(0, 2, 1, 3) for d in (dk, dv))
+    before = ox.attn_tc_products
+    scores = ox._scores_payload(q, k)
+    p = torch.softmax(scores * dk ** -0.5, -1)
+    ctx = ox._ctx_payload(p, v)
+    assert ox.attn_tc_products == before + 2
+    want = ox._scores_payload(q.float(), k.float())
+    assert scores.dtype == torch.float32 and _rel_l2_err(scores, want) < 1e-5
+    pg = p.reshape(1, kvh, g, s, s).to(bf16).float()
+    ctx32 = torch.einsum("bkgst,bktd->bkgsd", pg, v.float())
+    assert ctx.dtype == bf16
+    assert _rel_l2_err(ctx, ctx32.reshape(ctx.shape)) < 4e-3
+
+
+@pytest.mark.parametrize("arch", ["glm4-9b", "deepseek-v3-671b"])
+def test_op_graph_counts_its_attention_products_on_tensor_cores(cuda, arch):
+    """A bf16 smoke op graph records two tensor-core attention products a
+    layer, and its lanes give the one-stream recording's logits bit for
+    bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.opgraph_export import build_lm_opgraph
+    from repro_torch.models.transformer import init_lm
+    cfg = get_config(arch, smoke=True)
+    params = init_lm(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    g = build_lm_opgraph(cfg, batch=2, seq=12, params=params)
+    exe = compile_plan(schedule(g, "opara", "opara"))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 12), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(1))
+    got = exe({"tokens": tokens})
+    assert exe.replay.recorded_launches["attn_tc_products"] == 2 * cfg.n_layers
+    one = CudaGraphReplay(exe.fn, [tokens])
+    assert all(torch.equal(a, b) for a, b in zip(got, one([tokens])))
+
+
 def test_kernel_dag_reads_a_one_kernel_graph(cuda):
     """A scan stage recorded alone is one kernel node with no edge (the
     Hymba phase of chip_smoke.py records it so)."""
